@@ -1,0 +1,145 @@
+"""Build the CUDA sources under `map_tpu_torch/csrc/` and load them.
+
+Route: `nvcc` by hand into one shared library with a plain C interface,
+loaded with `ctypes` (no PyTorch headers, so a build takes seconds). Each
+source compiles to an object in its own `nvcc` process, all started together,
+and one more `nvcc` links them. The library lands in `build/map_tpu_torch/`
+beside the package, named by a hash of the sources and flags, so a changed
+source builds anew at its first use and an unchanged one is reused.
+
+Every C entry point returns `cudaGetLastError()` after its launch;
+`check_status` raises on anything but 0. A missing `nvcc` or a failed build
+raises too: there is no prebuilt fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import List
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "map_tpu_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas=-v"]
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (table, ids, out, n, e, out_bf16, stream)
+    "map_tpu_embedding_gather": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_int, _P],
+    # (x0, w, b, y, xs, us, batch, d, layers, is_bf16, stream)
+    "map_tpu_cross_net": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P],
+}
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for path in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libmap_tpu_torch_{_digest()}.so"
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the map_tpu_torch "
+                           "kernels are built from source at first use")
+    return found
+
+
+def build() -> Path:
+    """Compile every source (one nvcc each, in parallel) and link; returns
+    the library path. Reuses a library built from the same sources."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in sources():
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        failed = []
+        for src, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(f"== {src.name} (rc {proc.returncode})\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        tmp_lib = work / lib.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *[str(obj) for _, obj, _ in jobs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+def build_log() -> str:
+    path = BUILD_DIR / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def timed_build() -> float:
+    """Build from the sources (reusing nothing) and return the seconds taken."""
+    lib = library_path()
+    if lib.exists():
+        lib.unlink()
+    library.cache_clear()
+    t0 = time.perf_counter()
+    build()
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.map_tpu_error_string.argtypes = [ctypes.c_int]
+    lib.map_tpu_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_status(status: int, kernel: str) -> None:
+    if status != 0:
+        msg = library().map_tpu_error_string(status).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {status} ({msg})")

@@ -1,0 +1,61 @@
+"""Model zoo of the port. Counterpart: `map_tpu/models/zoo.py`; only DCNv2 so
+far (zoo.py:203-230). The rest of the zoo is queued in ROADMAP.md."""
+
+from __future__ import annotations
+
+import torch
+
+from map_tpu_torch.config import Config
+from map_tpu_torch.models.base import CTRModel
+from map_tpu_torch.nn.layers import (
+    CrossNetV2,
+    Embeddings,
+    MLPBlock,
+    TorchDense,
+    resolve_dtype,
+)
+
+
+class DCNV2(CTRModel):
+    """CrossNetV2 || MLP -> concat -> fc_out. final_dim = F*E + hidden_size.
+
+    In bf16 the rounding points are map_tpu's: rows gathered in float32 and
+    cast to bf16, the cross net and the MLP in bf16 (f32 accumulate), and
+    fc_out in float32 (map_tpu's TorchDense with dtype=None promotes)."""
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        c = config
+        dt = resolve_dtype(c.compute_dtype)
+        dim = c.num_fields * c.embed_size
+        self.embed = Embeddings(c.input_size, c.embed_size, c.num_fields,
+                                embed_norm=c.embed_norm,
+                                layer_norm_eps=c.layer_norm_eps,
+                                dropout_rate=c.embed_dropout_rate, dtype=dt)
+        self.cross_net = CrossNetV2(dim, c.num_cross_layers, dtype=dt)
+        self.parallel_dnn = (
+            MLPBlock(dim, c.hidden_size, c.num_hidden_layers, c.hidden_act,
+                     c.hidden_dropout_rate, dtype=dt)
+            if c.num_hidden_layers > 0 else None)
+        final_dim = dim + (c.hidden_size if self.parallel_dnn is not None else 0)
+        self.fc_out = TorchDense(final_dim, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.embed.reset_parameters(generator)
+        self.cross_net.reset_parameters(generator)
+        if self.parallel_dnn is not None:
+            for layer in self.parallel_dnn.dnn:
+                if isinstance(layer, TorchDense):
+                    layer.reset_parameters(generator)
+        self.fc_out.reset_parameters(generator)
+
+    def backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
+        feat_embed = self.embed(input_ids).reshape(input_ids.shape[0], -1)
+        cross_output = self.cross_net(feat_embed)
+        if self.parallel_dnn is not None:
+            dnn_output = self.parallel_dnn(feat_embed)
+            return torch.cat([cross_output, dnn_output], dim=-1)
+        return cross_output
+
+    def supervised_logits(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.fc_out(self.backbone(input_ids))

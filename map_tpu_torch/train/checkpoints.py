@@ -1,0 +1,82 @@
+"""Checkpoint I/O. Counterpart: `map_tpu/train/checkpoints.py:24-50`.
+
+The port's `{step}.model` is `torch.save` of the model's state_dict (the
+reference's own format, `code/trainer.py:517-519`), written to a temporary
+file and renamed, so a crash never leaves a torn checkpoint.
+
+`load_jax_model_file` reads map_tpu's `{step}.model`: flax's msgpack
+serialization of the variables tree, decoded here with the `msgpack` package
+alone (mirroring `flax/serialization.py` `_MsgpackExtType`,
+`_ndarray_from_bytes` and `_unchunk`).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+# flax/serialization.py _MsgpackExtType
+_EXT_NDARRAY = 1
+_EXT_NPSCALAR = 3
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+def model_checkpoint_path(model_dir: str, step: int) -> str:
+    return os.path.join(model_dir, f"{step}.model")
+
+
+def save_model(state_dict: Dict[str, torch.Tensor], model_dir: str, step: int) -> str:
+    os.makedirs(model_dir, exist_ok=True)
+    path = model_checkpoint_path(model_dir, step)
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_model(model_dir: str, step: int) -> Dict[str, torch.Tensor]:
+    return torch.load(model_checkpoint_path(model_dir, step),
+                      map_location="cpu", weights_only=True)
+
+
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+
+
+def _ext_hook(code: int, data: bytes):
+    import msgpack
+
+    if code == _EXT_NDARRAY:
+        return _ndarray_from_bytes(data)
+    if code == _EXT_NPSCALAR:
+        return _ndarray_from_bytes(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _indexed(d: Dict[str, Any]) -> list:
+    """flax's `_dict_to_tuple`: {'0': a, '1': b, ...} -> [a, b, ...]."""
+    return [d[str(i)] for i in range(len(d))]
+
+
+def _unchunk(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        if _CHUNKED in tree:
+            flat = np.concatenate(_indexed(tree["chunks"]))
+            return flat.reshape(tuple(_indexed(tree["shape"])))
+        return {k: _unchunk(v) for k, v in tree.items()}
+    return tree
+
+
+def load_jax_model_file(path: str) -> Dict[str, Any]:
+    """map_tpu's `{step}.model` -> its variables tree with numpy leaves."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
+    return _unchunk(tree)
