@@ -2,6 +2,7 @@
 """Smoke run of map_tpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py [--seed 0] [--rows 200000] [--batch 10000]
+                          [--train_steps 55]
 
 Drives the port only (no JAX, nothing of map_tpu), in phases, one JSON line
 each; any failure ends the run with a nonzero exit code.
@@ -12,17 +13,31 @@ each; any failure ends the run with a nonzero exit code.
    a 1,013,519 x 16 f32 table, 10000 x 24 field-blocked ids; exact, f32 and
    bf16 out;
 4. K2 (cross net) against its plain version: (10000, 384) x 3 layers in f32
-   and bf16, (10000, 624) in f32, and once with the residuals X_l, U_l;
-5. serving: DCNv2 at full width (embed 16, 24 fields, MLP 3 x 1000, 3 cross
+   and bf16, (10000, 624) in f32, and once with the residuals X_l, U_l; then
+   K2's backward under autograd at the training shape (4096, 384) against
+   the plain chain (plain forward's residuals + the same backward);
+5. K1 (AdamW update) against its plain version on the 1,013,519 x 16 table
+   and a (1000, 384) leaf; K3 (gradient scatter-add) against `index_add_`
+   onto zeros at the training shape (4096 x 24 ids), bf16 and f32 gradients;
+6. serving: DCNv2 at full width (embed 16, 24 fields, MLP 3 x 1000, 3 cross
    layers) from --seed, saved with save_model and scored by Predictor over
    --rows field-blocked rows in bf16 and in f32, three timed passes each;
-   logits held against the same weights run through the plain versions on
-   the card; both launch counts must have moved; then one bf16 pass under
-   torch.profiler: device-busy time, idle share and the costliest kernels;
-6. times: median ms of each kernel (CUDA events, L2 flushed before each
+   logits held against the plain versions on the card; K4 and K2 launch
+   counts checked; one bf16 pass under torch.profiler;
+7. training, in bf16 and in f32: the port's Trainer on an in-memory 24-field
+   dataset drawn from --seed, labels from a fixed random teacher on the ids,
+   batch 4096, lr 1e-3 const, wd 0.1 (run_script/run_DCNv2_scratch.sh), one
+   epoch of --train_steps steps, eval, best-step checkpoint and test. Checks:
+   loss finite and falling, eval AUC > 0.6, the launches of K1-K4 equal to
+   what the step and batch counts give, the best checkpoint scored by
+   Predictor to the Trainer's test AUC. Then 5 steps from the same weights
+   through the kernels and through the plain versions on the card, losses
+   and parameters compared; step time and examples/s; a few steps under
+   torch.profiler;
+8. times: median ms of each kernel (CUDA events, L2 flushed before each
    launch), its bound on an H100 SXM, its plain version and one-call
    library yardstick;
-7. the `kernels` line, nvidia-smi's line, and last
+9. the `kernels` line, nvidia-smi's line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -32,14 +47,17 @@ sources are not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -59,8 +77,29 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # tolerances: |kernel - plain| <= atol + rtol * |plain|
 TOL_CROSS = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
 TOL_LOGITS = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# K1 rounds after every operation in the plain version's order: bit-equal
+# expected, held to one float32 ulp
+TOL_ADAMW = (1e-9, 1e-6)
 
 SERVING_PASSES = 3  # timed passes over --rows per dtype; rows_per_s is the best
+
+# training: run_script/run_DCNv2_scratch.sh
+TRAIN_BATCH = 4096
+EVAL_BATCH = 10_000
+EVAL_ROWS = 20_000  # valid and test each
+LR, WEIGHT_DECAY = 1e-3, 0.1
+PARITY_STEPS = 5
+# the 5-step comparison, kernels vs plain versions on the card, from the same
+# weights: losses within a relative tolerance; a parameter moves at most
+# about lr per Adam step, so the two runs' parameters differ by at most
+# 2 lr k anywhere; and the two runs' updates p_k - p_0 differ, summed over all
+# parameters, by at most a share of the updates' own L1 norm. The two do
+# not differ elementwise by rounding alone: where a gradient is within
+# rounding of 0, Adam's step lr * g / |g| may flip its sign, so a share of
+# the elements (0.6 % in f32, 10 % in bf16 on an H100, seed 0) differ by more
+# than 1e-5; the L1 share counts how much.
+TOL_PARITY_LOSS = {"float32": 1e-5, "bfloat16": 2e-2}
+TOL_PARITY_UPDATE_L1 = {"float32": 1e-2, "bfloat16": 0.25}
 
 
 def emit(phase: str, **fields) -> None:
@@ -90,6 +129,12 @@ def compare(name: str, got, ref, atol: float, rtol: float) -> float:
     return max_err
 
 
+def check(name: str, ok: bool, **fields) -> None:
+    emit("check", name=name, ok=bool(ok), **fields)
+    if not ok:
+        raise AssertionError(f"{name} failed: {fields}")
+
+
 def time_ms(fn, reps: int = 20) -> float:
     """Median ms of one call, CUDA events around each call, the 50 MB L2
     flushed before each."""
@@ -111,10 +156,68 @@ def time_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def profile(fn, top_n: int = 10) -> dict:
+    """Wall, device-busy ms, idle share and the costliest kernels of fn()."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top_n]
+    return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
+                idle_share=1.0 - busy_us / wall_us,
+                top=[dict(name=e.key[:80], calls=e.count,
+                          device_ms=e.self_device_time_total / 1e3) for e in top])
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def teacher_dataset(rng: np.random.Generator, train_rows: int):
+    """In-memory train / valid / test splits: field-blocked ids, labels drawn
+    from a fixed random teacher, logit = sum of a per-id weight over the
+    fields of at most 10,000 ids (the larger fields' ids recur too rarely in
+    one epoch to be learnt) minus its mean."""
+    lo, hi, vocab = field_blocks()
+    weight = rng.normal(0.0, 0.5, vocab)
+    for a, b, size in zip(lo, hi, FIELD_SIZES):
+        if size > 10_000:
+            weight[a:b] = 0.0
+    X, Y = {}, {}
+    for split, rows in (("train", train_rows), ("valid", EVAL_ROWS),
+                        ("test", EVAL_ROWS)):
+        ids = draw_ids(rng, rows)
+        logit = weight[ids].sum(axis=1)
+        X[split] = ids
+        Y[split] = (rng.random(rows) < 1.0 / (1.0 + np.exp(-(logit - logit.mean())))
+                    ).astype(np.float32)
+    return SimpleNamespace(X=X, Y=Y)
+
+
+@contextlib.contextmanager
+def plain_layers():
+    """The DCNv2 layers with the gather and the cross net swapped for their
+    plain versions (differentiated by autograd), for the comparison run."""
+    from map_tpu_torch.nn import layers
+    from map_tpu_torch.ops import cross, embedding
+
+    saved = layers.embedding_lookup, layers.cross_net
+    layers.embedding_lookup = embedding.embedding_lookup_plain
+    layers.cross_net = cross.cross_net_plain
+    try:
+        yield
+    finally:
+        layers.embedding_lookup, layers.cross_net = saved
 
 
 def main(argv=None) -> int:
@@ -122,6 +225,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=200_000)
     ap.add_argument("--batch", type=int, default=10_000)
+    ap.add_argument("--train_steps", type=int, default=55)
     args = ap.parse_args(argv)
 
     import torch
@@ -137,12 +241,27 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from map_tpu_torch import models
-    from map_tpu_torch.config import Config
+    from map_tpu_torch.config import Config, TrainingArguments
+    from map_tpu_torch.data.loader import Batcher
     from map_tpu_torch.kernels import build
     from map_tpu_torch.nn import init
-    from map_tpu_torch.ops import cross, embedding
+    from map_tpu_torch.ops import cross, embedding, fused_adamw, scatter
     from map_tpu_torch.serve import Predictor
     from map_tpu_torch.train import checkpoints
+    from map_tpu_torch.train.optimizer import build_optimizer
+    from map_tpu_torch.train.train_step import make_supervised_steps
+    from map_tpu_torch.train.trainer import Trainer
+    from map_tpu_torch.utils.metrics import roc_auc
+
+    kernel_modules = {"embedding_gather": embedding, "cross_net": cross,
+                      "fused_adamw": fused_adamw, "scatter_add": scatter}
+
+    def reset_counts():
+        for mod in kernel_modules.values():
+            mod.launches = 0
+
+    def read_counts():
+        return {name: mod.launches for name, mod in kernel_modules.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -210,23 +329,83 @@ def main(argv=None) -> int:
         for part, g, r in zip(("Y", "X_l", "U_l"), got, ref):
             compare(f"K2 bfloat16 save_residuals {part}", g, r, *TOL_CROSS["bfloat16"])
 
-    # 5. serving through Predictor
+    # 4b. K2 backward under autograd at the training shape
+    for dname in ("float32", "bfloat16"):
+        # clones: the inputs above are inference tensors, which autograd refuses
+        x0, w, b = (t[:TRAIN_BATCH].clone() if i == 0 else t.clone()
+                    for i, t in enumerate(k2_inputs[dname]))
+        cot = (torch.randn(x0.shape, generator=gen) * 0.1).to(dev, x0.dtype)
+        leaves = [t.clone().requires_grad_() for t in (x0, w, b)]
+        before = cross.launches
+        cross.cross_net(*leaves).backward(cot)
+        torch.cuda.synchronize()
+        check(f"K2 {dname} backward: one K2 launch under autograd",
+              cross.launches == before + 1)
+        with torch.no_grad():
+            _, xs, us = cross.cross_net_plain(x0, w, b, save_residuals=True)
+            ref = cross.cross_net_backward(x0, w, xs, us, cot)
+        for part, leaf, r in zip(("dX0", "dW", "db"), leaves, ref):
+            compare(f"K2 {dname} backward {part}, (4096, 384) L=3", leaf.grad, r,
+                    *TOL_CROSS[dname])
+
+    # 5. K1 and K3 vs plain
+    def adam_inputs(shape):
+        p = torch.randn(shape, generator=gen)
+        mu = torch.randn(shape, generator=gen) * 1e-3
+        nu = torch.rand(shape, generator=gen) * 1e-6
+        g = torch.randn(shape, generator=gen) * 1e-3
+        return [t.to(dev) for t in (p, mu, nu, g)]
+
+    adam_s = fused_adamw.scalars(LR, WEIGHT_DECAY, 0.9, 0.999, 1e-8, 7)
+    k1_inputs = {"table": adam_inputs((vocab, EMBED)), "leaf": adam_inputs((1000, 384))}
+    k1_err = {}
+    for key, (p, mu, nu, g) in k1_inputs.items():
+        ref = [t.clone() for t in (p, mu, nu)]
+        fused_adamw.fused_adamw_plain(*ref, g, adam_s)
+        got = [t.clone() for t in (p, mu, nu)]
+        fused_adamw.fused_adamw(*got, g, adam_s)
+        torch.cuda.synchronize()
+        k1_err[key] = max(compare(f"K1 {key} {tuple(p.shape)} {part}", a, r, *TOL_ADAMW)
+                          for part, a, r in zip(("p", "mu", "nu"), got, ref))
+
+    train_ids = torch.from_numpy(draw_ids(rng, TRAIN_BATCH)).to(dev)
+    k3_grads = {}
+    k3_err = {}
+    for dname, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        g = (torch.randn(TRAIN_BATCH, len(FIELD_SIZES), EMBED, generator=gen) * 1e-3
+             ).to(dev, dtype)
+        k3_grads[dname] = g
+        got = scatter.scatter_add(train_ids, g, vocab)
+        plain = scatter.scatter_add_plain(train_ids, g, vocab)  # atomics: any order
+        # each side's f32 sum of a row's n gradients is within (n - 1) u sum|g|
+        # of the exact sum, u = 2**-24
+        flat = train_ids.reshape(-1).long()
+        abs_sum = torch.zeros_like(plain).index_add_(0, flat, g.reshape(-1, EMBED).float().abs())
+        count = torch.bincount(flat, minlength=vocab).float()[:, None]
+        bound = 2 * (count - 1).clamp(min=0) * 2.0 ** -24 * abs_sum
+        torch.cuda.synchronize()
+        err = (got - plain).abs()
+        k3_err[dname] = float(err.max())
+        check(f"K3 {dname} grads, ids 4096x24 -> 1013519x16",
+              bool((err <= bound).all()) and bool(got.isfinite().all()),
+              max_abs_err=k3_err[dname], tolerance="2 (n - 1) 2**-24 sum|g| per row",
+              max_duplicates=int(count.max()))
+        check(f"K3 {dname} deterministic", torch.equal(
+            got, scatter.scatter_add(train_ids, g, vocab)))
+
+    # 6. serving through Predictor
     cfg = Config(model_name="dcnv2", input_size=vocab, num_fields=len(FIELD_SIZES),
                  embed_size=EMBED, hidden_size=1000, num_hidden_layers=3,
                  hidden_act="relu", num_cross_layers=3,
                  idx_low=[int(x) for x in lo], idx_high=[int(x) for x in hi])
     model = models.from_config(cfg, torch.Generator().manual_seed(args.seed))
     score_ids = draw_ids(rng, args.rows)
-    launches = {}
     serving = {}
     with tempfile.TemporaryDirectory() as model_dir:
         checkpoints.save_model(model.state_dict(), model_dir, 1)
-        embedding.launches = cross.launches = 0
+        reset_counts()
         for dname in ("bfloat16", "float32"):
-            cfg_d = dataclasses.replace(cfg, compute_dtype=dname)
-            with open(os.path.join(model_dir, "config.json"), "w") as f:
-                json.dump({k: v for k, v in dataclasses.asdict(cfg_d).items()
-                           if k != "extra"}, f)
+            dataclasses.replace(cfg, compute_dtype=dname).save(model_dir)
             pred = Predictor(model_dir, 1, batch_size=args.batch)
             pred.predict_logits(score_ids[:args.batch])  # warm-up: one chunk
             seconds = []
@@ -236,28 +415,18 @@ def main(argv=None) -> int:
                 logits = pred.predict_logits(score_ids)
                 seconds.append(time.perf_counter() - t0)
             serving[dname] = (pred, logits, seconds)
-        launches = {"embedding_gather": embedding.launches,
-                    "cross_net": cross.launches}
+        serving_launches = read_counts()
     # both dtypes, the warm-up chunk and every timed pass
     expected = 2 * (1 + SERVING_PASSES * -(-args.rows // args.batch))
-    emit("serving_launches", launches=launches, expected_each=expected)
-    for name, count in launches.items():
-        if count != expected:
-            raise AssertionError(f"{name} launched {count} times on the serving "
-                                 f"path, expected {expected}")
+    emit("serving_launches", launches=serving_launches, expected_each=expected)
+    check("serving launches", serving_launches == {
+        "embedding_gather": expected, "cross_net": expected,
+        "fused_adamw": 0, "scatter_add": 0})
 
     def plain_forward(m, ids_t):
         """The Predictor's DCNv2 with both kernels swapped for their plain versions."""
-        emb = embedding.embedding_lookup_plain(m.embed.embedding.weight, ids_t,
-                                               m.embed.dtype)
-        x = emb.reshape(ids_t.shape[0], -1)
-        cn = m.cross_net
-        dt = cn.dtype or x.dtype
-        w = torch.stack([layer.weight for layer in cn.cross_layers]).to(dt)
-        b = torch.stack([layer.bias for layer in cn.cross_layers]).to(dt)
-        out = torch.cat([cross.cross_net_plain(x.to(dt), w, b),
-                         m.parallel_dnn(x)], dim=-1)
-        return m.fc_out(out).reshape(-1).float()
+        with plain_layers():
+            return m(ids_t).reshape(-1).float()
 
     for dname, (pred, logits, seconds) in serving.items():
         with torch.inference_mode():
@@ -275,25 +444,129 @@ def main(argv=None) -> int:
              seconds=seconds, rows_per_s=args.rows / best, max_abs_err=err,
              logit_mean=float(got.mean()), logit_std=float(got.std()))
 
-    # 5b. where one bf16 serving pass spends its time on the card
+    # 6b. where one bf16 serving pass spends its time on the card
     pred = serving["bfloat16"][0]
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        pred.predict_logits(score_ids)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in on_card)
-    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:8]
     emit("serving_profile", compute_dtype="bfloat16", rows=args.rows,
-         wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-         idle_share=1.0 - busy_us / wall_us,
-         top=[dict(name=e.key[:80], calls=e.count,
-                   device_ms=e.self_device_time_total / 1e3) for e in top])
+         **profile(lambda: pred.predict_logits(score_ids), top_n=8))
+    del serving, pred
 
-    # 6. times at the serving shapes
+    # 7. training through the Trainer, bf16 and f32
+    data = teacher_dataset(rng, args.train_steps * TRAIN_BATCH)
+    num_params = len(list(model.parameters()))
+    eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)  # valid once, test once
+    training_launches = {}
+    train_dirs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    for dname in ("bfloat16", "float32"):
+        cfg_d = dataclasses.replace(cfg, compute_dtype=dname)
+        out_dir = os.path.join(train_dirs.name, dname)
+        targs = TrainingArguments(
+            output_dir=out_dir, dataset_name="in-memory", data_dir="",
+            per_device_train_batch_size=TRAIN_BATCH,
+            per_device_eval_batch_size=EVAL_BATCH, learning_rate=LR,
+            weight_decay=WEIGHT_DECAY, lr_sched="const", num_train_epochs=1,
+            logging_steps=10, compute_dtype=dname, seed=args.seed)
+        trainer = Trainer(models.from_config(cfg_d, torch.Generator().manual_seed(args.seed)),
+                          cfg_d, targs, data)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        test = trainer.test()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        training_launches[dname] = counts
+        steps = trainer.global_step
+        expected = {"embedding_gather": steps + eval_batches,
+                    "cross_net": steps + eval_batches,
+                    "scatter_add": steps, "fused_adamw": steps * num_params}
+        windows = trainer.train_windows
+        losses = [w["window_loss"] for w in windows]
+        emit("training", compute_dtype=dname, steps=steps, batch=TRAIN_BATCH,
+             wall_s=wall, windows=windows, eval_auc_logloss=trainer.eval_metrics,
+             test=test, best_step=trainer.best_eval_step, launches=counts,
+             expected_launches=expected,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check(f"training {dname}: {args.train_steps} steps", steps == args.train_steps)
+        check(f"training {dname}: loss finite and falling",
+              all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              first_window_loss=losses[0], last_window_loss=losses[-1])
+        check(f"training {dname}: eval AUC > 0.6", trainer.eval_metrics[0][0] > 0.6,
+              eval_auc=trainer.eval_metrics[0][0])
+        check(f"training {dname}: launches", counts == expected)
+
+        # the best checkpoint, scored by Predictor
+        cfg_d.save(out_dir)
+        pred = Predictor(out_dir, trainer.best_eval_step, batch_size=EVAL_BATCH)
+        pred_auc = roc_auc(data.Y["test"], pred.predict_proba(data.X["test"]))
+        check(f"training {dname}: Predictor scores the best checkpoint",
+              abs(pred_auc - test["eval_auc"]) <= 1e-4,
+              predictor_auc=pred_auc, trainer_test_auc=test["eval_auc"])
+
+        # 5 steps from the same weights, kernels vs plain versions on the card
+        batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH,
+                               shuffle=True, seed=args.seed).epoch(0))[:PARITY_STEPS]
+
+        def five_steps(plain: bool):
+            m = models.from_config(cfg_d, torch.Generator().manual_seed(args.seed)).to(dev)
+            opt, _ = build_optimizer(
+                m, targs, args.train_steps, 0,
+                update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw)
+            step, _ = make_supervised_steps(m, opt, dev)
+            before = read_counts()
+            with plain_layers() if plain else contextlib.nullcontext():
+                losses = torch.stack([step(b)["loss"] for b in batches]).cpu()
+            if plain and read_counts() != before:
+                raise AssertionError("the plain run launched a kernel")
+            return losses, {n: p.detach() for n, p in m.named_parameters()}
+
+        k_loss, k_params = five_steps(plain=False)
+        p_loss, p_params = five_steps(plain=True)
+        p0 = dict(models.from_config(cfg_d, torch.Generator().manual_seed(args.seed))
+                  .named_parameters())
+        loss_rel = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
+        max_d = diff_l1 = update_l1 = 0.0
+        close = total = 0
+        for n, ref in p_params.items():
+            d = (k_params[n] - ref).abs()
+            max_d = max(max_d, float(d.max()))
+            diff_l1 += float(d.double().sum())
+            update_l1 += float((ref - p0[n].to(dev)).abs().double().sum())
+            close += int((d <= 1e-5 + 1e-5 * ref.abs()).sum())
+            total += d.numel()
+        check(f"training {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
+              loss_rel <= TOL_PARITY_LOSS[dname]
+              and max_d <= 2 * LR * PARITY_STEPS * 1.01
+              and diff_l1 <= TOL_PARITY_UPDATE_L1[dname] * update_l1,
+              losses_kernels=k_loss.tolist(), losses_plain=p_loss.tolist(),
+              loss_max_rel=loss_rel, param_max_abs=max_d,
+              update_l1_share=diff_l1 / update_l1,
+              param_share_within_1e5=close / total)
+        del k_params, p_params, p0
+
+        # step time and where it goes
+        for _ in range(3):
+            trainer.train_step(batches[0])
+        torch.cuda.synchronize()
+        timed = 20
+        t0 = time.perf_counter()
+        for i in range(timed):
+            trainer.train_step(batches[i % PARITY_STEPS])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / timed * 1e3
+        emit("training_time", compute_dtype=dname, card=smi, batch=TRAIN_BATCH,
+             step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
+             trainer_window_examples_per_s=[w["examples_per_sec"] for w in windows])
+        prof_steps = 5
+        prof = profile(lambda: [trainer.train_step(batches[i]) for i in range(prof_steps)],
+                       top_n=12)
+        emit("training_profile", compute_dtype=dname, steps=prof_steps,
+             busy_ms_per_step=prof["device_busy_ms"] / prof_steps, **prof)
+        del trainer, pred
+    train_dirs.cleanup()
+
+    # 8. times at the serving and training shapes
     n_ids = ids.numel()
     unique_rows = int(torch.unique(ids).numel())
     k4_bytes = n_ids * 4 + unique_rows * EMBED * 4 + n_ids * EMBED * 4
@@ -337,20 +610,67 @@ def main(argv=None) -> int:
                 bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
                 gflops=flops / 1e9)
+
+        for key, (p, mu, nu, g) in k1_inputs.items():
+            n = p.numel()
+            byte_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3  # p, mu, nu, g in; p, mu, nu out
+            op_ms = 14 * n / PEAK_FLOPS["float32"] * 1e3
+            step_t = torch.ones((), device=dev)
+            lib = [t.clone() for t in (p, mu, nu)]
+            times[f"K1 {key}"] = dict(
+                ms=time_ms(lambda: fused_adamw.fused_adamw(p, mu, nu, g, adam_s)),
+                plain_ms=time_ms(lambda: fused_adamw.fused_adamw_plain(p, mu, nu, g, adam_s)),
+                library_ms=time_ms(lambda: torch._fused_adamw_(
+                    [lib[0]], [g], [lib[1]], [lib[2]], [], [step_t], lr=LR,
+                    beta1=0.9, beta2=0.999, weight_decay=WEIGHT_DECAY, eps=1e-8,
+                    amsgrad=False, maximize=False)),
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                shape=list(p.shape))
+
+        # K3 at the training shape; and, to show what its time depends on,
+        # once with ids uniform over the whole table (few duplicates) in place
+        # of the field-blocked ones, whose 4-to-8-id fields give segments of
+        # about 1000 gradient rows that one thread sums in order
+        uniform_ids = torch.randint(0, vocab, tuple(train_ids.shape), generator=gen,
+                                    dtype=torch.int32).to(dev)
+        for key, dname, k3_ids in (("K3 bfloat16", "bfloat16", train_ids),
+                                   ("K3 float32", "float32", train_ids),
+                                   ("K3 bfloat16, uniform ids", "bfloat16", uniform_ids)):
+            g = k3_grads[dname]
+            g32 = g.reshape(-1, EMBED).float()
+            k3_ids_long = k3_ids.reshape(-1).long()
+            # ids (int32) and grads read once, the dense f32 table written once
+            nbytes = k3_ids.numel() * 4 + g.numel() * g.element_size() + vocab * EMBED * 4
+            times[key] = dict(
+                ms=time_ms(lambda: scatter.scatter_add(k3_ids, g, vocab)),
+                plain_ms=time_ms(lambda: scatter.scatter_add_plain(k3_ids, g, vocab)),
+                library_ms=time_ms(lambda: torch.zeros(vocab, EMBED, device=dev)
+                                   .index_add_(0, k3_ids_long, g32)),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                ids=k3_ids.numel(),
+                max_duplicates=int(torch.bincount(k3_ids_long).max()))
     emit("times", card=smi, unique_rows=unique_rows, kernels=times)
 
-    # 7. summary
+    # 9. summary; launches are the bf16 training run's (the slice's main path)
     src = "map_tpu_torch/csrc"
+    main_path = training_launches["bfloat16"]
+
+    def entry(name, source, replaces, err, timing):
+        return dict(name=name, route="cuda", source=f"{src}/{source}",
+                    replaces=replaces, launches=main_path[name], max_abs_err=err,
+                    **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")})
+
     kernels = [
-        dict(name="embedding_gather", route="cuda",
-             source=f"{src}/embedding_gather.cu",
-             replaces="map_tpu/ops/pallas_embedding.py:55",
-             launches=launches["embedding_gather"], max_abs_err=k4_err,
-             **times["K4 f32"]),
-        dict(name="cross_net", route="cuda", source=f"{src}/cross_net.cu",
-             replaces="map_tpu/ops/pallas_cross.py:98",
-             launches=launches["cross_net"], max_abs_err=k2_err["bfloat16"],
-             **{k: v for k, v in times["K2 bf16"].items() if k != "gflops"}),
+        entry("embedding_gather", "embedding_gather.cu",
+              "map_tpu/ops/pallas_embedding.py:55", k4_err, times["K4 f32"]),
+        entry("cross_net", "cross_net.cu", "map_tpu/ops/pallas_cross.py:98",
+              k2_err["bfloat16"], times["K2 bf16"]),
+        entry("fused_adamw", "fused_adamw.cu", "map_tpu/ops/fused_adamw.py:51",
+              k1_err["table"], times["K1 table"]),
+        entry("scatter_add", "scatter_add.cu", "map_tpu/ops/pallas_scatter.py:171",
+              k3_err["bfloat16"], times["K3 bfloat16"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

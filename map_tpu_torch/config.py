@@ -1,8 +1,17 @@
-"""The model fields of map_tpu's `config.json` that the port reads.
+"""Run flags and the model config. Counterpart: `map_tpu/config.py`.
 
-Counterpart: `map_tpu/config.py` `Config` / `Config.load`. map_tpu's Config is
-a free-form bag; the port keeps a dataclass of the fields its modules read and
-carries every other key along in `extra`, unread. Defaults are what map_tpu's
+`TrainingArguments` and `ModelArguments` are the supervised DCNv2 subset of
+map_tpu's flags (`config.py:21-245`) with map_tpu's defaults, plus the port's
+own `--device` (default: the card). `parse_args` registers every field as a
+`--flag`; a bool whose default is True takes `BooleanOptionalAction`, so
+`--no-<flag>` can turn it off (map_tpu registers every bool as store_true,
+which cannot). `build_config` assembles the model `Config` from the flags and
+the dataset, as `config.py:330` does.
+
+`Config` holds the model fields of map_tpu's `config.json` that the port
+reads (map_tpu's `Config` / `Config.load`). map_tpu's Config is a free-form
+bag; the port keeps a dataclass of the fields its modules read and carries
+every other key along in `extra`, unread. Defaults are what map_tpu's
 model code assumes when a key is absent (`getattr(config, key, default)` in
 `map_tpu/models/zoo.py`), so a config.json without `compute_dtype` runs in
 float32 in both packages.
@@ -10,11 +19,12 @@ float32 in both packages.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -50,3 +60,107 @@ class Config:
         with open(os.path.join(load_directory, "config.json"), "r",
                   encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+             if f.name != "extra"}
+        return {**self.extra, **d}
+
+    def save(self, save_directory: str) -> None:
+        with open(os.path.join(save_directory, "config.json"), "w",
+                  encoding="utf-8") as f:
+            json.dump(self.to_dict(), f, indent=2, sort_keys=True)
+            f.write("\n")
+
+
+@dataclass
+class TrainingArguments:
+    """Run-level flags (map_tpu `config.py:21-57`, supervised subset)."""
+
+    output_dir: str = ""
+    dataset_name: str = "avazu"
+    data_dir: str = "data/avazu"
+    per_device_train_batch_size: int = 128
+    per_device_eval_batch_size: int = 10000
+    learning_rate: float = 1e-4
+    weight_decay: float = 0.1
+    adam_epsilon: float = 1e-8
+    adam_betas: str = "0.9,0.999"
+    max_grad_norm: float = 0.0  # 0 disables clipping
+    patience: int = 2
+    num_train_epochs: int = 20
+    lr_sched: str = "cosine"  # cosine | const
+    warmup_ratio: float = 0.0
+    logging_first_step: bool = False
+    logging_steps: int = 1000
+    save_total_limit: Optional[int] = 20
+    seed: int = 42
+    pretrain: bool = False  # not ported: run.py raises
+    compute_dtype: str = "bfloat16"  # float32 | bfloat16 for activations
+    device: Optional[str] = None  # None: the card ("cuda"); "cpu" for the plain path
+
+    @property
+    def train_batch_size(self) -> int:
+        return self.per_device_train_batch_size  # one device
+
+    @property
+    def eval_batch_size(self) -> int:
+        return self.per_device_eval_batch_size
+
+
+@dataclass
+class ModelArguments:
+    """DCNv2's hyperparameters (map_tpu `config.py:176-204`)."""
+
+    model_name: str = "dcnv2"
+    embed_size: int = 32
+    embed_dropout_rate: float = 0.0
+    hidden_size: int = 128
+    num_hidden_layers: int = 1
+    hidden_act: str = "relu"
+    hidden_dropout_rate: float = 0.0
+    layer_norm_eps: float = 1e-12
+    embed_norm: bool = False
+    num_cross_layers: int = 1
+
+
+def _flag_type(f: dataclasses.Field) -> type:
+    # annotations are strings under `from __future__ import annotations`
+    name = str(f.type)
+    for t in (bool, int, float):
+        if t.__name__ in name:
+            return t
+    return str
+
+
+def add_dataclass_args(parser: argparse.ArgumentParser, cls: type) -> None:
+    for f in dataclasses.fields(cls):
+        ftype = _flag_type(f)
+        if ftype is bool:
+            action = (argparse.BooleanOptionalAction if f.default is True
+                      else "store_true")
+            parser.add_argument(f"--{f.name}", action=action, default=f.default)
+        else:
+            parser.add_argument(f"--{f.name}", type=ftype, default=f.default)
+
+
+def parse_args(argv: Optional[Sequence[str]] = None
+               ) -> Tuple[ModelArguments, TrainingArguments]:
+    parser = argparse.ArgumentParser(description="map_tpu_torch trainer")
+    add_dataclass_args(parser, ModelArguments)
+    add_dataclass_args(parser, TrainingArguments)
+    ns = vars(parser.parse_args(argv))
+    pick = lambda cls: cls(**{f.name: ns[f.name]  # noqa: E731
+                              for f in dataclasses.fields(cls)})
+    return pick(ModelArguments), pick(TrainingArguments)
+
+
+def build_config(model_args: ModelArguments, training_args: TrainingArguments,
+                 dataset) -> Config:
+    """Flags + the dataset's input_size and num_fields (the reserved <rsv>
+    field not counted) -> the model Config."""
+    d = dataclasses.asdict(model_args)
+    d.update(input_size=dataset.input_size, num_fields=dataset.num_fields,
+             compute_dtype=training_args.compute_dtype, packed_tables=False,
+             data_dir=training_args.data_dir, pretrain=training_args.pretrain)
+    return Config.from_dict(d)

@@ -40,6 +40,12 @@ _SIGNATURES = {
     # (x0, w, b, y, xs, us, batch, d, layers, is_bf16, stream)
     "map_tpu_cross_net": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_int, _P],
+    # (p, mu, nu, g, n, lr, wd, b1, b2, eps, bc1, bc2, stream)
+    "map_tpu_fused_adamw": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_float] * 7
+                           + [_P],
+    # (sorted_ids, perm, grads, out, n, vocab, e, grads_bf16, stream)
+    "map_tpu_scatter_add": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_int, _P],
 }
 
 

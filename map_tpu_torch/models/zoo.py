@@ -21,7 +21,12 @@ class DCNV2(CTRModel):
 
     In bf16 the rounding points are map_tpu's: rows gathered in float32 and
     cast to bf16, the cross net and the MLP in bf16 (f32 accumulate), and
-    fc_out in float32 (map_tpu's TorchDense with dtype=None promotes)."""
+    fc_out in float32 (map_tpu's TorchDense with dtype=None promotes).
+
+    `train()` is map_tpu's `train=True`: it turns on the embedding and MLP
+    dropout (from the generator of `nn.layers.set_dropout_generator`); the
+    gather and the cross net are differentiable through their kernels
+    (`ops/embedding.py`, `ops/cross.py`) in both modes."""
 
     def __init__(self, config: Config):
         super().__init__(config)

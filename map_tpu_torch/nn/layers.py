@@ -8,6 +8,11 @@ are the names `map_tpu/interop/torch_import.py` exchanges: an
 
 `dtype` is the compute dtype, as in map_tpu: parameters stay float32 and are
 cast where they are used.
+
+Train mode (`module.train()`) switches dropout on, as map_tpu's `train=True`
+does. Dropout draws from an explicit `torch.Generator` on the activations'
+device (`set_dropout_generator`); the canonical configurations have no
+dropout (rate 0.0), and then the layers are identity in both modes.
 """
 
 from __future__ import annotations
@@ -28,6 +33,38 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def resolve_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     """'float32' | 'bfloat16' | None -> torch dtype (None: promote as-is)."""
     return None if name is None else DTYPES[name]
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: in train mode keep each element with probability
+    1 - rate and scale the kept ones by 1 / (1 - rate); identity otherwise.
+    The mask is drawn from `self.generator` (one on the input's device)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in train mode needs a generator: call "
+                               "set_dropout_generator(model, generator) first")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
+
+
+def set_dropout_generator(module: nn.Module, generator: torch.Generator) -> None:
+    """Hand one generator to every Dropout of `module`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class TorchDense(nn.Linear):
@@ -67,7 +104,7 @@ class Embeddings(nn.Module):
         self.embedding = nn.Embedding(input_size, embed_size)
         self.layer_norm = (nn.LayerNorm(embed_size, eps=layer_norm_eps)
                            if embed_norm else None)
-        self.dropout = nn.Dropout(dropout_rate) if dropout_rate > 0.0 else None
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0.0 else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         init.embedding_(self.embedding.weight, self.num_fields, self.embed_size,
@@ -96,7 +133,7 @@ class MLPBlock(nn.Module):
         layers = []
         for _ in range(num_hidden_layers):
             layers += [TorchDense(input_dim, hidden_size, dtype=dtype),
-                       Activation(hidden_act), nn.Dropout(hidden_dropout_rate)]
+                       Activation(hidden_act), Dropout(hidden_dropout_rate)]
             input_dim = hidden_size
         self.dnn = nn.Sequential(*layers)
 

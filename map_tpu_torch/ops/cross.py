@@ -17,7 +17,15 @@ Weights are in nn.Linear layout: `w` is (L, D, D) with w[l] = (out, in), `b`
 is (L, D). x0, w and b share one dtype (float32 or bfloat16); the product
 accumulates in f32 and U_l is rounded to that dtype once per layer, as
 `pallas_cross.py:120-123` does. With `save_residuals` the call also returns
-X_l and U_l, each (L, B, D), which the backward of the training path reads.
+X_l and U_l, each (L, B, D), outside autograd.
+
+Under autograd the call is `_Cross`, the counterpart of the custom VJP
+`pallas_cross.py:_cross_fused` (:64-95): K2 forward with the residuals saved,
+and the backward chain of :75-92 in `cross_net_backward`. Its products are
+`torch.matmul` (map_tpu leaves them to XLA) and its rounding points are
+map_tpu's: dW_l and the carried g are summed in float32 and rounded to the
+compute dtype once per layer, db_l is a float32-accumulated sum rounded once,
+and dX_0's gate term is accumulated in the compute dtype.
 """
 
 from __future__ import annotations
@@ -49,9 +57,8 @@ def cross_net_plain(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return xi
 
 
-def cross_net(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-              save_residuals: bool = False) -> CrossOut:
-    """x0 (B, D), w (L, D, D), b (L, D) -> X_L (B, D) [, X_l, U_l (L, B, D)]."""
+def _forward(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             save_residuals: bool) -> CrossOut:
     if x0.device.type == "cpu":
         return cross_net_plain(x0, w, b, save_residuals)
     if x0.device.type != "cuda" or w.device != x0.device or b.device != x0.device:
@@ -70,10 +77,6 @@ def cross_net(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          f"do not fit D = {d}")
     if not (x0.is_contiguous() and w.is_contiguous() and b.is_contiguous()):
         raise ValueError("cross_net: x0, w and b must be contiguous")
-    if any(t.requires_grad for t in (x0, w, b)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "cross_net: the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad() / torch.inference_mode()")
     global launches
     y = torch.empty_like(x0)
     xs = us = None
@@ -90,3 +93,44 @@ def cross_net(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     build.check_status(status, "cross_net")
     launches += 1
     return (y, xs, us) if save_residuals else y
+
+
+def cross_net_backward(x0: torch.Tensor, w: torch.Tensor, xs: torch.Tensor,
+                       us: torch.Tensor, g: torch.Tensor):
+    """`pallas_cross.py:_cross_fused_bwd` in the port's layout (w[l] is
+    (out, in)): returns dX_0, dW (L, D, D) and db (L, D) in the primal
+    dtypes."""
+    dx0_gate = torch.zeros_like(x0)
+    dw = [None] * w.shape[0]
+    db = [None] * w.shape[0]
+    for layer in reversed(range(w.shape[0])):
+        du = g * x0
+        # bf16 x bf16 products are exact in float32: these are f32-accumulated
+        dw[layer] = torch.matmul(du.float().t(), xs[layer].float())
+        db[layer] = du.sum(dim=0)
+        dx0_gate = dx0_gate + g * us[layer]
+        g = (g.float() + torch.matmul(du.float(), w[layer].float())).to(g.dtype)
+    return ((g + dx0_gate).to(x0.dtype), torch.stack(dw).to(w.dtype),
+            torch.stack(db).to(w.dtype))
+
+
+class _Cross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x0, w, b):
+        y, xs, us = _forward(x0, w, b, save_residuals=True)
+        ctx.save_for_backward(x0, w, xs, us)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return cross_net_backward(*ctx.saved_tensors, g.contiguous())
+
+
+def cross_net(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              save_residuals: bool = False) -> CrossOut:
+    """x0 (B, D), w (L, D, D), b (L, D) -> X_L (B, D) [, X_l, U_l (L, B, D)].
+    Differentiable in x0, w and b unless the residuals are asked for."""
+    if (not save_residuals and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x0, w, b))):
+        return _Cross.apply(x0, w, b)
+    return _forward(x0, w, b, save_residuals)

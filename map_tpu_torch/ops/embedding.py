@@ -1,5 +1,7 @@
-"""Embedding row gather (K4). Counterpart: `map_tpu/ops/embedding.py`
-`embedding_lookup` and its Pallas kernel `map_tpu/ops/pallas_embedding.py:_gather`.
+"""Embedding row gather (K4) and its gradient (K3). Counterparts:
+`map_tpu/ops/embedding.py` `embedding_lookup` / `gather_rows` (:21-45, whose
+custom VJP is the scatter-add) and the Pallas kernel
+`map_tpu/ops/pallas_embedding.py:_gather`.
 
 Kernel: `map_tpu_torch/csrc/embedding_gather.cu` (CUDA C++, sm_90a).
 - Replaces `pallas_embedding.py:_gather` (per-row DMAs from an HBM table,
@@ -8,11 +10,15 @@ Kernel: `map_tpu_torch/csrc/embedding_gather.cu` (CUDA C++, sm_90a).
   10000 x 24, E = 16) it reads up to 240k rows of 64 B plus the ids and
   writes 240k rows; there is no arithmetic.
 - Design: E/4 threads per row, one float4 each, grid-stride over the rows;
-  the f32 -> bf16 cast of the serving path is fused into the store.
+  the f32 -> bf16 cast of the bf16 compute path is fused into the store.
 
-CUDA tensors go to the kernel, CPU tensors to `embedding_lookup_plain`. The
-kernel has no backward yet (it lands with the training slice), so a CUDA
-lookup that would need one raises.
+Under autograd the lookup is `_Lookup`: K4 forward, K3 (`ops/scatter.py`)
+backward. The upstream gradient arrives in the output's dtype (bf16 when the
+gather casts to bf16) and K3 sums it into a dense float32 (V, E) table
+gradient, as map_tpu's f32 scatter of the up-cast cotangent does.
+
+CUDA tensors go to the kernels, CPU tensors to `embedding_lookup_plain` and
+`scatter_add_plain`.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 import torch
 
 from map_tpu_torch.kernels import build
+from map_tpu_torch.ops.scatter import scatter_add
 
 # Launches of the K4 kernel; the wrapper adds one where it launches, nowhere else.
 launches = 0
@@ -33,11 +40,8 @@ def embedding_lookup_plain(table: torch.Tensor, ids: torch.Tensor,
     return out if out_dtype is None else out.to(out_dtype)
 
 
-def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(V, E) table, (...) ids -> (..., E) rows, cast to `out_dtype` if given.
-    On the card: table float32, ids int32 in [0, V) (unchecked by the kernel),
-    out_dtype None, float32 or bfloat16."""
+def _gather(table: torch.Tensor, ids: torch.Tensor,
+            out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     if table.device.type == "cpu":
         return embedding_lookup_plain(table, ids, out_dtype)
     if table.device.type != "cuda" or ids.device != table.device:
@@ -51,10 +55,6 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     out_dtype = torch.float32 if out_dtype is None else out_dtype
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"embedding_lookup: out_dtype {out_dtype}")
-    if torch.is_grad_enabled() and table.requires_grad:
-        raise NotImplementedError(
-            "embedding_lookup: the CUDA gather has no backward yet; call it "
-            "under torch.no_grad() / torch.inference_mode()")
     global launches
     ids_c = ids.contiguous()
     e = table.shape[1]
@@ -66,3 +66,27 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
     build.check_status(status, "embedding_gather")
     launches += 1
     return out
+
+
+class _Lookup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, out_dtype):
+        ctx.save_for_backward(ids)
+        ctx.vocab_size = table.shape[0]
+        return _gather(table, ids, out_dtype)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (ids,) = ctx.saved_tensors
+        return scatter_add(ids.contiguous(), grad_out.contiguous(),
+                           ctx.vocab_size), None, None
+
+
+def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """(V, E) table, (...) ids -> (..., E) rows, cast to `out_dtype` if given.
+    On the card: table float32, ids int32 in [0, V) (unchecked by the
+    kernels), out_dtype None, float32 or bfloat16. Differentiable in `table`."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _Lookup.apply(table, ids, out_dtype)
+    return _gather(table, ids, out_dtype)

@@ -1,0 +1,60 @@
+"""Training CLI, supervised only. Counterpart: `map_tpu/run.py`.
+
+    python -m map_tpu_torch.run --model_name=dcnv2 --output_dir=out \\
+        --dataset_name=avazu --data_dir=data/avazu \\
+        --per_device_train_batch_size=4096 --per_device_eval_batch_size=10000 \\
+        --learning_rate=1e-3 --lr_sched=const --weight_decay=1e-1 \\
+        --num_train_epochs=1 --embed_size=16 --hidden_size=1000 \\
+        --num_hidden_layers=3 --num_cross_layers=3 [--device cpu]
+
+takes the flags of `run_script/run_DCNv2_scratch.sh`. Lifecycle as map_tpu's:
+parse -> idempotency check (results.log exists -> exit) -> logging ->
+dataset -> config.json -> model from --seed -> train -> test on the best
+step -> train.log copied to results.log. Runs on the card unless
+`--device cpu`. `--pretrain` (MFP / RFD) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from map_tpu_torch import models
+from map_tpu_torch.config import build_config, parse_args
+from map_tpu_torch.train.trainer import Trainer
+from map_tpu_torch.utils.logging import (
+    job_already_finished,
+    mark_job_finished,
+    setup_logging,
+)
+
+
+def main(argv=None) -> int:
+    model_args, training_args = parse_args(argv)
+    if training_args.pretrain:
+        raise NotImplementedError(
+            "map_tpu_torch trains supervised only; MFP / RFD pretraining is "
+            "queued in ROADMAP.md")
+    if job_already_finished(training_args.output_dir):
+        print("job already finished, quit")
+        return 0
+    logger = setup_logging(training_args.output_dir)
+    logger.info(f"training/evaluation parameters {training_args}")
+
+    from map_tpu_torch.data.dataset import CTRDataset
+
+    dataset = CTRDataset(training_args.data_dir, training_args.dataset_name)
+    config = build_config(model_args, training_args, dataset)
+    config.save(training_args.output_dir)
+    model = models.from_config(config,
+                               torch.Generator().manual_seed(training_args.seed))
+    trainer = Trainer(model, config, training_args, dataset)
+    trainer.train()
+    trainer.test()
+    mark_job_finished(training_args.output_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,5 @@
-"""Checkpoint I/O. Counterpart: `map_tpu/train/checkpoints.py:24-50`.
+"""Checkpoint I/O. Counterpart: `map_tpu/train/checkpoints.py:24-50` and
+`prune_checkpoints` (:65-81).
 
 The port's `{step}.model` is `torch.save` of the model's state_dict (the
 reference's own format, `code/trainer.py:517-519`), written to a temporary
@@ -35,6 +36,18 @@ def save_model(state_dict: Dict[str, torch.Tensor], model_dir: str, step: int) -
     torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
     os.replace(tmp, path)
     return path
+
+
+def prune_checkpoints(model_dir: str, keep: int) -> None:
+    """Keep the newest `keep` step-named checkpoints (`save_total_limit`;
+    map_tpu/train/checkpoints.py:prune_checkpoints)."""
+    steps = sorted(int(name[:-len(".model")]) for name in os.listdir(model_dir)
+                   if name.endswith(".model") and name[:-len(".model")].isdigit())
+    for step in steps[:-keep] if keep > 0 else []:
+        try:
+            os.remove(model_checkpoint_path(model_dir, step))
+        except OSError:
+            pass
 
 
 def load_model(model_dir: str, step: int) -> Dict[str, torch.Tensor]:

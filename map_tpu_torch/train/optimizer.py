@@ -1,0 +1,123 @@
+"""AdamW with decoupled weight decay, a no-decay mask and an optional
+global-norm clip. Counterpart: `map_tpu/train/optimizer.py`
+(`no_decay_mask`, `is_table_leaf`, `PartitionedTx`, `build_optimizer`).
+
+The algebra is optax.adamw's (eps_root 0) as map_tpu's fused kernel computes
+it (`map_tpu/ops/fused_adamw.py:_adamw_math`), not torch.optim.AdamW's. Every
+parameter is updated by one `ops.fused_adamw` call: K1 on the card, its plain
+version on the CPU, with wd = 0 where the mask says so. map_tpu splits the
+parameters (tables through its Pallas kernel, the rest through optax) only
+because optax is the TPU's path for the rest; the update is the same.
+
+State: (mu, nu) per parameter, float32, plus the host int `count`. The
+learning rate of a step is the schedule at `count` (before the increment);
+bc1 = 1 - b1**t and bc2 = 1 - b2**t use t = count + 1, in float32.
+
+With `max_grad_norm > 0` the gradients are first clipped by their global
+norm, as optax.clip_by_global_norm does (`optimizer.py:170-192`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+
+import torch
+
+from map_tpu_torch.ops import fused_adamw as k1
+from map_tpu_torch.train.schedules import Schedule, make_schedule
+
+UpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                     k1.AdamScalars], None]
+
+
+def decays(name: str) -> bool:
+    """True = weight decay applies. map_tpu's rule (`no_decay_mask`: no decay
+    for leaves named bias* and for norm scales) on torch names: `*.bias*` and
+    a LayerNorm's `weight` (`embed.layer_norm.weight`) take none."""
+    parts = name.split(".")
+    if parts[-1].startswith("bias"):
+        return False
+    return not (parts[-1] == "weight" and len(parts) > 1 and "norm" in parts[-2])
+
+
+def is_table_leaf(name: str, shape: Sequence[int]) -> bool:
+    """The port's copy of map_tpu's vocabulary-table rule
+    (`map_tpu/parallel/sharding.py:is_vocab_table`) on torch names: the named
+    tables, or any 2-D parameter with >= 4096 rows and >= 8x more rows than
+    columns. No update branches on it (every parameter goes through K1); it
+    is the rule the row-sharded tables of the parallel slice will read."""
+    if len(shape) != 2:
+        return False
+    keys = name.split(".")
+    tail = keys[-2:]
+    if any(k in ("embedding", "emb") for k in tail):
+        return True
+    if "bias" in tail and shape[1] == 128:  # lane-packed decoder bias
+        return True
+    if "weight" in tail and "lr_layer" in keys:
+        return True
+    return shape[0] >= 4096 and shape[0] >= 8 * shape[1]
+
+
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: g unchanged when the global norm is below
+    max_norm, else g / norm * max_norm. Stays on the device (no sync)."""
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    return [torch.where(norm < max_norm, g, g / norm * max_norm) for g in grads]
+
+
+class AdamW:
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
+                 schedule: Schedule, b1: float, b2: float, eps: float,
+                 weight_decay: float, max_grad_norm: float = 0.0,
+                 update: UpdateFn = k1.fused_adamw):
+        named = list(named_params)
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.decay = [decays(n) for n in self.names]
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.weight_decay = weight_decay
+        self.max_grad_norm = max_grad_norm
+        self.update = update
+        self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(m) for m in self.mu]
+        self.count = 0
+
+    def scalars(self, decays_: bool) -> k1.AdamScalars:
+        return k1.scalars(self.schedule(self.count),
+                          self.weight_decay if decays_ else 0.0,
+                          self.b1, self.b2, self.eps, self.count + 1)
+
+    @torch.no_grad()
+    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
+        """One update from `grads` (default: each parameter's .grad)."""
+        if grads is None:
+            grads = [p.grad for p in self.params]
+        grads = [g.float().contiguous() for g in grads]
+        if self.max_grad_norm and self.max_grad_norm > 0:
+            grads = clip_by_global_norm(grads, self.max_grad_norm)
+        with_decay, without = self.scalars(True), self.scalars(False)
+        for p, mu, nu, g, d in zip(self.params, self.mu, self.nu, grads, self.decay):
+            self.update(p, mu, nu, g, with_decay if d else without)
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        return {n: (m, v) for n, m, v in zip(self.names, self.mu, self.nu)}
+
+
+def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
+                    num_warmup_steps: int,
+                    update: UpdateFn = k1.fused_adamw) -> Tuple[AdamW, Schedule]:
+    beta1, beta2 = (float(x) for x in args.adam_betas.split(","))
+    schedule = make_schedule(args.lr_sched, args.learning_rate,
+                             num_warmup_steps, num_training_steps)
+    opt = AdamW(model.named_parameters(), schedule, beta1, beta2,
+                args.adam_epsilon, args.weight_decay,
+                max_grad_norm=args.max_grad_norm or 0.0, update=update)
+    return opt, schedule

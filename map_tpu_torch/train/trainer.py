@@ -1,0 +1,215 @@
+"""Supervised trainer: train -> eval per epoch -> best-step checkpoint -> test.
+Counterpart: `map_tpu/train/trainer.py` (`train` :740-796, `_window_auc`
+:799-808, the exact-AUC `eval` :810-923, `save_model` / `load_model` /
+`test` :1057-1117).
+
+- train: epochs of `data/loader.Batcher` batches through the train step;
+  every `logging_steps` steps the window's losses and probabilities are read
+  back once and logged with the window AUC (nan, and training goes on, when
+  the window holds one class only); `train_windows` keeps each window's line.
+- eval: the exact AUC / log loss of the split on the host (float64), after
+  every epoch; a better AUC saves `{step}.model` (keeping the newest
+  `save_total_limit`), `patience` evals without one stop the run.
+- test: reload the best step and evaluate the test split.
+
+The model comes built (`models.from_config`), as map_tpu's Trainer takes it;
+the dataset is any object with `X[split]` (N, F) int ids and `Y[split]` (N,)
+labels for "train", "valid" and "test", so an in-memory dataset serves as
+well as `data/dataset.CTRDataset`. float32 products on the card run in full
+float32 (`torch.backends.cuda.matmul.allow_tf32 = False`).
+
+Not ported yet (ROADMAP.md): streaming AUC, metrics.jsonl, the async
+checkpoint writer, resume, device-resident data and the multi-step scan.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from map_tpu_torch import resolve_device
+from map_tpu_torch.config import Config, TrainingArguments
+from map_tpu_torch.data.loader import Batcher
+from map_tpu_torch.nn.layers import set_dropout_generator
+from map_tpu_torch.train import checkpoints
+from map_tpu_torch.train.optimizer import build_optimizer
+from map_tpu_torch.train.train_step import make_supervised_steps
+from map_tpu_torch.utils.metrics import binary_log_loss, roc_auc
+
+logger = logging.getLogger(__name__)
+
+
+class Trainer:
+    def __init__(self, model: torch.nn.Module, model_config: Config,
+                 training_args: TrainingArguments, dataset, device=None):
+        self.device = resolve_device(device if device is not None
+                                     else training_args.device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.model = model.to(self.device)
+        self.config = model_config
+        self.args = training_args
+        self.dataset = dataset
+        set_dropout_generator(self.model, torch.Generator(
+            device=self.device).manual_seed(training_args.seed))
+
+        self.global_step = 0
+        self.eval_metrics: List[List[float]] = []
+        self.train_windows: List[Dict[str, float]] = []  # each logged window
+        self.best_eval_auc = 0.0
+        self.best_eval_step = -1
+        self._patience = 0
+        self._stop_training = False
+        self.optimizer = self.schedule = None
+        self.train_step = self.eval_step = None
+
+    def get_batcher(self, split: str, is_training: bool) -> Batcher:
+        bs = (self.args.train_batch_size if is_training
+              else self.args.eval_batch_size)
+        return Batcher(self.dataset.X[split], self.dataset.Y[split],
+                       batch_size=bs, shuffle=is_training, seed=self.args.seed)
+
+    def build_steps(self, num_batches_per_epoch: int) -> None:
+        self._t_total = int(num_batches_per_epoch * self.args.num_train_epochs)
+        self._t_warmup = int(self._t_total * self.args.warmup_ratio)
+        self.optimizer, self.schedule = build_optimizer(
+            self.model, self.args, self._t_total, self._t_warmup)
+        self.train_step, self.eval_step = make_supervised_steps(
+            self.model, self.optimizer, self.device)
+
+    def _log_run_header(self) -> None:
+        logger.info("\n***** running training *****")
+        logger.info(f"  dataset_name = {self.args.dataset_name}")
+        logger.info(f"  input_size = {self.config.input_size}")
+        logger.info(f"  num_fields = {self.config.num_fields}")
+        logger.info(f"  num_examples = {len(self.dataset.Y['train'])}")
+        logger.info(f"  num_epochs = {self.args.num_train_epochs}")
+        logger.info(f"  batch_size = {self.args.train_batch_size}")
+        logger.info(f"  total_steps = {self._t_total}")
+        logger.info(f"  warmup_steps = {self._t_warmup}")
+        logger.info(f"  learning_rate = {self.args.learning_rate}")
+        logger.info(f"  weight_decay = {self.args.weight_decay}")
+        logger.info(f"  lr_sched = {self.args.lr_sched}")
+        logger.info(f"  device = {self.device}")
+
+    def _should_log(self, prev: int) -> bool:
+        if self.args.logging_first_step and prev == 0:
+            return True
+        every = self.args.logging_steps
+        return every > 0 and self.global_step // every != prev // every
+
+    def _current_lr(self) -> float:
+        return float(self.schedule(max(self.global_step - 1, 0)))
+
+    def train(self) -> None:
+        batcher = self.get_batcher("train", True)
+        self.build_steps(len(batcher))
+        self._log_run_header()
+        self._stop_training = False
+        losses: List[torch.Tensor] = []
+        probs: List[torch.Tensor] = []
+        labels: List[np.ndarray] = []
+        weights: List[np.ndarray] = []
+        window_t0 = time.time()
+        for epoch in range(self.args.num_train_epochs):
+            logger.info(f"-------------------- epoch-{epoch} --------------------")
+            for batch in batcher.epoch(epoch):
+                prev = self.global_step
+                metrics = self.train_step(batch)
+                self.global_step += 1
+                losses.append(metrics["loss"])
+                probs.append(metrics["probs"])
+                labels.append(batch["labels"])
+                weights.append(batch["weight"])
+                if self._should_log(prev):
+                    loss_w = torch.stack(losses).cpu().numpy().astype(np.float64)
+                    probs_w = torch.cat(probs).cpu().numpy().astype(np.float64)
+                    w = np.concatenate(weights) > 0
+                    dt = time.time() - window_t0
+                    _log = {"window_auc": self._window_auc(
+                                np.concatenate(labels)[w], probs_w[w]),
+                            "window_loss": float(loss_w.mean()),
+                            "examples_per_sec": round(w.sum() / max(dt, 1e-9)),
+                            "time_cost": round(dt, 3)}
+                    logger.info(f"step = {self.global_step}, {_log}")
+                    self.train_windows.append({"step": self.global_step, **_log})
+                    losses, probs, labels, weights = [], [], [], []
+                    window_t0 = time.time()
+            self.eval()
+            if self._stop_training:
+                break
+        logger.info(self._metrics_table())
+
+    def _metrics_table(self) -> str:
+        """The final eval table, as map_tpu prints its pandas DataFrame."""
+        rows = [f"{'':>4} {'auc':>10} {'log_loss':>10}"]
+        rows += [f"{i:>4} {auc:>10.6f} {ll:>10.6f}"
+                 for i, (auc, ll) in enumerate(self.eval_metrics)]
+        return "\n".join(rows)
+
+    @staticmethod
+    def _window_auc(labels: np.ndarray, probs: np.ndarray) -> float:
+        """A single-class window gives nan, and training goes on; eval()
+        keeps the strict contract, since it selects the model."""
+        try:
+            return roc_auc(labels, probs)
+        except ValueError:
+            return float("nan")
+
+    def eval(self, split: str = "valid", test_eval: bool = False) -> Dict[str, float]:
+        if self.eval_step is None:  # test() before train()
+            self.build_steps(len(self.get_batcher("train", True)))
+        batcher = self.get_batcher(split, False)
+        logger.info("\n***** running TEST *****" if test_eval
+                    else "\n***** running eval *****")
+        logger.info(f"  num examples = {batcher.num_examples()}")
+        logger.info(f"  batch size = {batcher.batch_size}")
+        logits, probs, labels, weights = [], [], [], []
+        for batch in batcher.epoch(0):
+            m = self.eval_step(batch)
+            logits.append(m["logits"])
+            probs.append(m["probs"])
+            labels.append(batch["labels"])
+            weights.append(batch["weight"])
+        w = np.concatenate(weights) > 0
+        logits_h = torch.cat(logits).cpu().numpy().astype(np.float64)[w]
+        probs_h = torch.cat(probs).cpu().numpy().astype(np.float64)[w]
+        labels_h = np.concatenate(labels)[w]
+        auc = roc_auc(labels_h, probs_h)
+        ll = binary_log_loss(labels_h, probs_h)
+        self.eval_metrics.append([auc, ll])
+        _log = {"learning_rate": self._current_lr(), "eval_auc": auc,
+                "eval_loss": ll, "avg_logits": float(logits_h.mean()),
+                "avg_probs": float(probs_h.mean())}
+        logger.info(str(_log))
+        if not test_eval:
+            if auc > self.best_eval_auc:
+                self.best_eval_auc = auc
+                self.best_eval_step = self.global_step
+                self._patience = 0
+                self.save_model(self.args.output_dir)
+            else:
+                self._patience += 1
+            if self._patience > self.args.patience:
+                self._stop_training = True
+        return _log
+
+    def save_model(self, model_dir: str) -> str:
+        path = checkpoints.save_model(self.model.state_dict(), model_dir,
+                                      self.global_step)
+        if self.args.save_total_limit:
+            checkpoints.prune_checkpoints(model_dir, self.args.save_total_limit)
+        return path
+
+    def load_model(self, load_step: int, model_dir: str) -> None:
+        self.model.load_state_dict(checkpoints.load_model(model_dir, load_step))
+
+    def test(self, load_step: int = -1, model_dir: Optional[str] = None
+             ) -> Dict[str, float]:
+        if load_step == -1:
+            load_step = self.best_eval_step
+        self.load_model(load_step, model_dir or self.args.output_dir)
+        return self.eval("test", test_eval=True)

@@ -4,13 +4,17 @@ Marked `cuda`: each test skips without a CUDA device. On a machine with one
 (and without JAX) run them as
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 Shapes here are the awkward ones (odd batch, ragged D, E not a multiple of
-4); chip_smoke.py holds the same kernels at the serving shapes.
+4, empty and all-duplicate id segments); chip_smoke.py holds the same kernels
+at the serving and training shapes.
 """
 
 import pytest
 import torch
 
-from map_tpu_torch.ops import cross, embedding
+from map_tpu_torch import models
+from map_tpu_torch.config import Config
+from map_tpu_torch.ops import cross, embedding, fused_adamw, scatter
+from map_tpu_torch.objectives.supervised import bce_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -46,9 +50,10 @@ def test_gather_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):
         embedding.embedding_lookup(table.double(),
                                    torch.zeros(3, dtype=torch.int32, device=dev))
-    with pytest.raises(NotImplementedError):
-        embedding.embedding_lookup(table.requires_grad_(),
-                                   torch.zeros(3, dtype=torch.int32, device=dev))
+    # a table that needs a gradient goes through K4 forward and K3 backward
+    out = embedding.embedding_lookup(table.requires_grad_(),
+                                     torch.zeros(3, dtype=torch.int32, device=dev))
+    assert out.grad_fn is not None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -98,3 +103,162 @@ def test_cross_rejects_what_it_does_not_take(dev):
         cross.cross_net(x0.t(), w, b)
     with pytest.raises(ValueError):
         cross.cross_net(x0, w[:, :16], b)
+
+
+# ---- K1: fused AdamW ---------------------------------------------------------
+
+def _adam_state(shape, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn(shape, generator=g)
+    mu = torch.randn(shape, generator=g) * 1e-2
+    nu = torch.rand(shape, generator=g) * 1e-4
+    grad = torch.randn(shape, generator=g) * 1e-2
+    return [t.to(dev) for t in (p, mu, nu, grad)]
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (1001, 1), (37, 12), (1013, 16),
+                                   (1000, 384), (3, 64)])
+@pytest.mark.parametrize("wd", [0.1, 0.0])
+def test_adamw_matches_plain(dev, shape, wd):
+    p, mu, nu, grad = _adam_state(shape, sum(shape), dev)
+    s = fused_adamw.scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3)
+    ref = [t.clone() for t in (p, mu, nu)]
+    fused_adamw.fused_adamw_plain(*ref, grad, s)
+    before = fused_adamw.launches
+    fused_adamw.fused_adamw(p, mu, nu, grad, s)
+    assert fused_adamw.launches == before + 1
+    for got, want in zip((p, mu, nu), ref):
+        # every operation rounds on its own in both, in the same order
+        torch.testing.assert_close(got, want, atol=1e-9, rtol=1e-6)
+
+
+def test_adamw_unaligned_takes_the_scalar_path(dev):
+    # each tensor starts one element into its buffer: not 16-byte aligned
+    bufs = _adam_state((4 * 1000 + 1,), 5, dev)
+    p, mu, nu, grad = (b[1:] for b in bufs)
+    assert p.data_ptr() % 16 != 0
+    s = fused_adamw.scalars(1e-3, 0.1, 0.9, 0.999, 1e-8, 1)
+    ref = [t.clone() for t in (p, mu, nu)]
+    fused_adamw.fused_adamw_plain(*ref, grad, s)
+    fused_adamw.fused_adamw(p, mu, nu, grad, s)
+    for got, want in zip((p, mu, nu), ref):
+        torch.testing.assert_close(got, want, atol=1e-9, rtol=1e-6)
+    assert bufs[0][0].item() == _adam_state((4 * 1000 + 1,), 5, "cpu")[0][0].item()
+
+
+def test_adamw_rejects_what_it_does_not_take(dev):
+    p, mu, nu, grad = _adam_state((64, 8), 1, dev)
+    s = fused_adamw.scalars(1e-3, 0.1, 0.9, 0.999, 1e-8, 1)
+    with pytest.raises(ValueError):
+        fused_adamw.fused_adamw(p.double(), mu, nu, grad, s)
+    with pytest.raises(ValueError):
+        fused_adamw.fused_adamw(p, mu, nu, grad.cpu(), s)
+    with pytest.raises(ValueError):
+        fused_adamw.fused_adamw(p.t(), mu.t(), nu.t(), grad.t(), s)
+    with pytest.raises(ValueError):
+        fused_adamw.fused_adamw(p, mu, nu, grad[:32], s)
+
+
+# ---- K3: gradient scatter-add ------------------------------------------------
+
+def _summation_bound(ids, grads, vocab):
+    """Per element of the (V, E) result: 2 (n - 1) u sum|g| over the row's n
+    gradients, u = 2**-24, the sum of two f32 recursive-summation bounds."""
+    flat = ids.reshape(-1).long()
+    e = grads.shape[-1]
+    g = grads.reshape(-1, e).double()
+    abs_sum = torch.zeros(vocab, e, dtype=torch.float64, device=g.device)
+    abs_sum.index_add_(0, flat, g.abs())
+    count = torch.bincount(flat, minlength=vocab).double()
+    ref = torch.zeros(vocab, e, dtype=torch.float64, device=g.device).index_add_(0, flat, g)
+    return ref, 2 * (count - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
+
+
+def _ragged_ids(kind, n, vocab, g):
+    if kind == "all_duplicate":
+        return torch.full((n,), 3, dtype=torch.int32)
+    if kind == "sparse":  # most rows have an empty segment
+        return torch.randint(0, 40, (n,), generator=g, dtype=torch.int32) * 97
+    return torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("e", [1, 12, 16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["uniform", "sparse", "all_duplicate"])
+def test_scatter_matches_plain(dev, e, dtype, kind):
+    g = torch.Generator().manual_seed(e)
+    vocab, n = 4001, 1037  # n not a multiple of any block
+    ids = _ragged_ids(kind, n, vocab, g).to(dev)
+    grads = torch.randn(n, e, generator=g).to(dev, dtype)
+    before = scatter.launches
+    out = scatter.scatter_add(ids, grads, vocab)
+    assert scatter.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (vocab, e)
+    ref64, bound = _summation_bound(ids, grads, vocab)
+    assert bool(((out.double() - ref64).abs() <= bound).all())
+    plain = scatter.scatter_add_plain(ids, grads, vocab)
+    assert bool(((out.double() - plain.double()).abs() <= 2 * bound).all())
+    untouched = torch.bincount(ids.long(), minlength=vocab) == 0
+    assert not out[untouched].any()
+
+
+def test_scatter_is_deterministic(dev):
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 50, (4096, 24), generator=g, dtype=torch.int32).to(dev)
+    grads = torch.randn(4096, 24, 16, generator=g).to(dev, torch.bfloat16)
+    a = scatter.scatter_add(ids, grads, 1000)
+    b = scatter.scatter_add(ids, grads, 1000)
+    assert torch.equal(a, b)
+
+
+def test_scatter_rejects_what_it_does_not_take(dev):
+    ids = torch.zeros(8, dtype=torch.int32, device=dev)
+    grads = torch.randn(8, 16, device=dev)
+    with pytest.raises(ValueError):
+        scatter.scatter_add(ids.long(), grads, 10)
+    with pytest.raises(ValueError):
+        scatter.scatter_add(ids, grads.half(), 10)
+    with pytest.raises(ValueError):
+        scatter.scatter_add(ids.cpu(), grads, 10)
+    with pytest.raises(ValueError):
+        scatter.scatter_add(ids, torch.randn(16, 8, device=dev).t(), 10)
+    with pytest.raises(ValueError):
+        scatter.scatter_add(ids[:4], grads, 10)
+
+
+# ---- the kernels under autograd: a small DCNv2 ---------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dcnv2_gradients_match_the_plain_versions(dev, dtype):
+    cfg = Config(model_name="dcnv2", input_size=700, num_fields=6, embed_size=16,
+                 hidden_size=64, num_hidden_layers=2, num_cross_layers=2,
+                 compute_dtype=dtype)
+    model = models.from_config(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 700, (300, 6), generator=g, dtype=torch.int32)
+    labels = torch.randint(0, 2, (300,), generator=g).float()
+    weight = (torch.arange(300) < 290).float()
+
+    def grads(m, device):
+        m = m.to(device).train()
+        loss = bce_loss(m(ids.to(device)).reshape(-1), labels.to(device),
+                        weight.to(device))
+        m.zero_grad()
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    import copy
+
+    before = (embedding.launches, scatter.launches, cross.launches)
+    loss, got = grads(copy.deepcopy(model), dev)
+    assert (embedding.launches, scatter.launches, cross.launches) == tuple(
+        x + 1 for x in before)
+    ref_loss, ref = grads(model, "cpu")  # the plain versions
+    # f32: sums in other orders; bf16: one bf16 ulp in the forward moves the
+    # gradients by about 2**-8 of their scale
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    assert abs(loss - ref_loss) <= tol * max(1.0, abs(ref_loss))
+    for name, r in ref.items():
+        scale = float(r.abs().max()) + 1e-12
+        torch.testing.assert_close(got[name], r, atol=tol * scale, rtol=tol,
+                                   msg=name)

@@ -125,3 +125,140 @@ def test_wrappers_reject_devices_without_a_kernel():
     with pytest.raises(ValueError):
         port_cross.cross_net(x0, torch.zeros(1, 8, 8, device="meta"),
                              torch.zeros(1, 8, device="meta"))
+
+
+# ---- K1: fused AdamW -------------------------------------------------------
+
+def test_adamw_scalars_match_pack_scalars():
+    from map_tpu.ops.fused_adamw import pack_scalars
+    from map_tpu_torch.ops import fused_adamw as port_adamw
+
+    for count_inc in (1, 2, 7, 1000):
+        ref = np.asarray(pack_scalars(1e-3, 0.1, 0.9, 0.999, 1e-8, count_inc))[0, :7]
+        got = np.asarray(port_adamw.scalars(1e-3, 0.1, 0.9, 0.999, 1e-8, count_inc),
+                         np.float32)
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("wd", [0.1, 0.0])
+def test_adamw_plain_matches_pallas(wd):
+    from map_tpu.ops.fused_adamw import fused_adamw_dense, pack_scalars
+    from map_tpu_torch.ops import fused_adamw as port_adamw
+
+    rng = np.random.default_rng(11)
+    shape = (1024, 128)  # the Pallas path: rows a multiple of 512, lanes of 128
+    p = rng.normal(size=shape).astype(np.float32)
+    mu = (rng.normal(size=shape) * 1e-2).astype(np.float32)
+    nu = (rng.random(size=shape) * 1e-4).astype(np.float32)
+    g = (rng.normal(size=shape) * 1e-2).astype(np.float32)
+    ref = fused_adamw_dense(jnp.asarray(p), jnp.asarray(mu), jnp.asarray(nu),
+                            jnp.asarray(g), pack_scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3),
+                            interpret=True)
+    tp, tmu, tnu = _t(p.copy()), _t(mu.copy()), _t(nu.copy())
+    before = port_adamw.launches
+    port_adamw.fused_adamw(tp, tmu, tnu, _t(g),
+                           port_adamw.scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3))
+    assert port_adamw.launches == before  # the CPU path launches nothing
+    for got, want in zip((tp, tmu, tnu), ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-9)
+
+
+# ---- K3: gradient scatter-add ----------------------------------------------
+
+@pytest.mark.parametrize("e", [16, 8, 3])
+@pytest.mark.parametrize("upstream", ["float32", "bfloat16"])
+def test_scatter_plain_matches_pallas(e, upstream):
+    from map_tpu.ops import pallas_scatter
+    from map_tpu_torch.ops import scatter as port_scatter
+
+    rng = np.random.default_rng(e)
+    vocab = 1000
+    # duplicates, a run of one hot id, and rows no id touches
+    ids = np.concatenate([rng.integers(0, 200, 500), np.full(100, 7),
+                          rng.integers(600, vocab, 37)]).astype(np.int32)
+    rng.shuffle(ids)
+    grads = rng.normal(size=(ids.size, e)).astype(np.float32)
+    if upstream == "bfloat16":  # the same values reach both sides
+        grads = _bf16_as_f32(jnp.asarray(grads, jnp.bfloat16))
+    ref = pallas_scatter.scatter_add(jnp.asarray(ids), jnp.asarray(grads), vocab,
+                                     interpret=True)
+    g = _t(grads).to(getattr(torch, upstream))
+    before = port_scatter.launches
+    out = port_scatter.scatter_add(_t(ids), g, vocab)
+    assert out.dtype == torch.float32 and out.shape == (vocab, e)
+    assert port_scatter.launches == before
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    assert not out.numpy()[200:600].any()
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+def test_embedding_backward_matches_gather_rows_vjp(out_dtype):
+    import jax
+
+    from map_tpu.ops.embedding import gather_rows
+
+    rng = np.random.default_rng(5)
+    table = rng.normal(size=(300, 16)).astype(np.float32)
+    ids = rng.integers(0, 40, size=(24, 8)).astype(np.int32)  # many duplicates
+    cot = rng.normal(size=(24, 8, 16)).astype(np.float32)
+    if out_dtype is not None:
+        cot = _bf16_as_f32(jnp.asarray(cot, jnp.bfloat16))
+    _, vjp = jax.vjp(lambda t: gather_rows(t, jnp.asarray(ids)), jnp.asarray(table))
+    (ref,) = vjp(jnp.asarray(cot))
+    tt = _t(table).requires_grad_()
+    out = port_emb.embedding_lookup(tt, _t(ids), out_dtype)
+    assert out.dtype == (out_dtype or torch.float32) and out.grad_fn is not None
+    out.backward(_t(cot).to(out.dtype))
+    assert tt.grad.dtype == torch.float32
+    np.testing.assert_allclose(tt.grad.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+# ---- K2 backward: the cross net under autograd -------------------------------
+
+def _port_cross_vjp(x0, kernels, biases, cot, dtype):
+    w, b = _port_weights(kernels, biases, dtype)
+    x = _t(x0).to(dtype).requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    y = port_cross.cross_net(x, w, b)
+    assert y.grad_fn is not None and y.dtype == dtype
+    y.backward(_t(cot).to(dtype))
+    # the port's dW is (L, out, in); map_tpu's is (L, in, out)
+    return (x.grad.float().numpy(), w.grad.float().numpy().transpose(0, 2, 1),
+            b.grad.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_backward_matches_pallas_vjp(dtype):
+    import jax
+
+    x0, kernels, biases = _cross_inputs(48, 128, 3, seed=4)
+    cot = np.random.default_rng(9).normal(size=x0.shape).astype(np.float32)
+    jdt = jnp.dtype(dtype)
+    if dtype == "bfloat16":  # both sides start from the same bf16 values
+        x0, kernels, biases, cot = (_bf16_as_f32(jnp.asarray(a, jdt))
+                                    for a in (x0, kernels, biases, cot))
+
+    def f(x, ks, bs):
+        return pallas_cross.cross_net_pallas(x, list(ks), list(bs), interpret=True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x0, jdt), jnp.asarray(kernels, jdt),
+                     jnp.asarray(biases, jdt))
+    ref = [_bf16_as_f32(r) for r in vjp(jnp.asarray(cot, jdt))]
+    got = _port_cross_vjp(x0, kernels, biases, cot, getattr(torch, dtype))
+    tol = (1e-5, 1e-5) if dtype == "float32" else (BF16_ATOL, BF16_RTOL)
+    for name, g, r in zip(("dx0", "dW", "db"), got, ref):
+        np.testing.assert_allclose(g, r, atol=tol[0], rtol=tol[1], err_msg=name)
+
+
+def test_cross_backward_ragged_width_matches_xla_autodiff():
+    import jax
+
+    x0, kernels, biases = _cross_inputs(37, 40, 2, seed=6)
+    cot = np.random.default_rng(2).normal(size=x0.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, ks, bs: cross_net_xla(x, list(ks), list(bs)),
+                     jnp.asarray(x0), jnp.asarray(kernels), jnp.asarray(biases))
+    ref = vjp(jnp.asarray(cot))
+    got = _port_cross_vjp(x0, kernels, biases, cot, torch.float32)
+    for name, g, r in zip(("dx0", "dW", "db"), got, ref):
+        np.testing.assert_allclose(g, np.asarray(r), atol=1e-5, rtol=1e-5, err_msg=name)

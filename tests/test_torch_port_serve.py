@@ -161,7 +161,7 @@ def test_predictor_needs_a_card_unless_asked_for_the_cpu(jax_run):
         Predictor(model_dir, STEP, source="jax")
 
 
-_FORBIDDEN = ("jax", "flax", "optax")
+_FORBIDDEN = ("jax", "flax", "optax", "pandas")
 
 
 def _is_forbidden(module: str) -> bool:
