@@ -34,10 +34,24 @@ each; any failure ends the run with a nonzero exit code.
    through the kernels and through the plain versions on the card, losses
    and parameters compared; step time and examples/s; a few steps under
    torch.profiler;
-8. times: median ms of each kernel (CUDA events, L2 flushed before each
+8. MFP pretraining in bf16 (run_script/run_DCNv2_MFP.sh: mask ratio 0.3,
+   randint, 25 negatives, proj 32, lr 1e-3 cosine, wd 5e-2) through the
+   Trainer on the same train split, whose unigram is the noise: one epoch of
+   --train_steps steps and one masked eval. Checks: window loss finite and
+   falling, eval accuracy above chance 1/(1+k), the launches of K1-K5 equal
+   to what the step and batch counts give; the distinct candidate ids of
+   every step beside the capacity. K5 (sorted-unique scatter) against its
+   plain version on one step's folded candidate stream, both modes, exact
+   and deterministic. Then 5 MFP steps from the same weights and draws
+   through the kernels and through the plain versions, in bf16 and f32; the
+   step time and a few steps under torch.profiler;
+9. finetune: supervised DCNv2 from the MFP checkpoint (13 tensors loaded,
+   4 skipped), one epoch, eval AUC > 0.6, launches checked;
+10. times: median ms of each kernel (CUDA events, L2 flushed before each
    launch), its bound on an H100 SXM, its plain version and one-call
-   library yardstick;
-9. the `kernels` line, nvidia-smi's line, and last
+   library yardstick; K3 also on the MFP step's corrupted ids;
+11. the `kernels` line (launches from the MFP run, which launches all five),
+   nvidia-smi's line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -52,6 +66,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -100,6 +115,11 @@ PARITY_STEPS = 5
 # than 1e-5; the L1 share counts how much.
 TOL_PARITY_LOSS = {"float32": 1e-5, "bfloat16": 2e-2}
 TOL_PARITY_UPDATE_L1 = {"float32": 1e-2, "bfloat16": 0.25}
+
+# MFP pretraining: run_script/run_DCNv2_MFP.sh
+MFP_LR, MFP_WD = 1e-3, 5e-2
+MFP_MASK_RATIO, MFP_NEG, MFP_PROJ = 0.3, 25, 32
+MAP_TPU_CAPACITY = 1 << 17  # map_tpu's static decoder capacity (dedup_scatter.py:161)
 
 
 def emit(phase: str, **fields) -> None:
@@ -177,6 +197,30 @@ def profile(fn, top_n: int = 10) -> dict:
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
 
+def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> None:
+    """PARITY_STEPS steps through the kernels against the same through the
+    plain versions: losses within TOL_PARITY_LOSS relative, parameters at
+    most 2 lr k apart, and the L1 norm of their difference a share of the
+    updates' own L1 norm (see TOL_PARITY_UPDATE_L1)."""
+    loss_rel = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
+    max_d = diff_l1 = update_l1 = 0.0
+    close = total = 0
+    for n, ref in p_params.items():
+        d = (k_params[n] - ref).abs()
+        max_d = max(max_d, float(d.max()))
+        diff_l1 += float(d.double().sum())
+        update_l1 += float((ref - p0[n].detach().to(ref.device)).abs().double().sum())
+        close += int((d <= 1e-5 + 1e-5 * ref.abs()).sum())
+        total += d.numel()
+    check(name, loss_rel <= TOL_PARITY_LOSS[dname]
+          and max_d <= 2 * lr * PARITY_STEPS * 1.01
+          and diff_l1 <= TOL_PARITY_UPDATE_L1[dname] * update_l1,
+          losses_kernels=k_loss.tolist(), losses_plain=p_loss.tolist(),
+          loss_max_rel=loss_rel, param_max_abs=max_d,
+          update_l1_share=diff_l1 / update_l1,
+          param_share_within_1e5=close / total)
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -207,17 +251,237 @@ def teacher_dataset(rng: np.random.Generator, train_rows: int):
 @contextlib.contextmanager
 def plain_layers():
     """The DCNv2 layers with the gather and the cross net swapped for their
-    plain versions (differentiated by autograd), for the comparison run."""
+    plain versions (differentiated by autograd), and the MFP decoder's
+    gather and K5 for theirs, for the comparison runs."""
     from map_tpu_torch.nn import layers
-    from map_tpu_torch.ops import cross, embedding
+    from map_tpu_torch.ops import cross, dedup_scatter, embedding, scatter_unique
 
-    saved = layers.embedding_lookup, layers.cross_net
+    saved = (layers.embedding_lookup, layers.cross_net,
+             dedup_scatter.embedding_lookup, dedup_scatter.scatter_unique_sorted)
     layers.embedding_lookup = embedding.embedding_lookup_plain
     layers.cross_net = cross.cross_net_plain
+    dedup_scatter.embedding_lookup = embedding.embedding_lookup_plain
+    dedup_scatter.scatter_unique_sorted = scatter_unique.scatter_unique_sorted_plain
     try:
         yield
     finally:
-        layers.embedding_lookup, layers.cross_net = saved
+        (layers.embedding_lookup, layers.cross_net,
+         dedup_scatter.embedding_lookup, dedup_scatter.scatter_unique_sorted) = saved
+
+
+def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
+    """8. MFP pretraining through the Trainer in bf16, K5 on one step's
+    candidate stream, kernels-vs-plain parity, step time and profile.
+    Returns what the finetune, times and summary phases read."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.config import TrainingArguments
+    from map_tpu_torch.data.dataset import compute_feat_count
+    from map_tpu_torch.data.loader import Batcher
+    from map_tpu_torch.objectives.corruption import mask_num_of, mfp_corrupt
+    from map_tpu_torch.ops import dedup_scatter, fused_adamw, scatter_unique
+    from map_tpu_torch.train.optimizer import build_optimizer
+    from map_tpu_torch.train.train_step import draw_mfp, make_mfp_steps
+    from map_tpu_torch.train.trainer import Trainer
+
+    _, _, vocab = field_blocks()
+    num_fields = len(FIELD_SIZES)
+    feat_count = compute_feat_count(data.X["train"], vocab)
+    mask_num = mask_num_of(num_fields, MFP_MASK_RATIO)
+    n_cand = TRAIN_BATCH * mask_num * (1 + MFP_NEG)  # the port's capacity
+    work = tempfile.mkdtemp(prefix="chip_smoke_mfp_")
+
+    def mfp_cfg(dname):
+        return dataclasses.replace(cfg, compute_dtype=dname, pretrain=True,
+                                   pt_type="MFP", proj_size=MFP_PROJ,
+                                   pt_neg_num=MFP_NEG, nce_loss_type="nce",
+                                   feat_count=feat_count)
+
+    def fresh(c):
+        return models.from_config(c, torch.Generator().manual_seed(args.seed))
+
+    cfg_m = mfp_cfg("bfloat16")
+    targs = TrainingArguments(
+        output_dir=os.path.join(work, "pretrain"), dataset_name="in-memory",
+        data_dir=work, per_device_train_batch_size=TRAIN_BATCH,
+        per_device_eval_batch_size=EVAL_BATCH, learning_rate=MFP_LR,
+        weight_decay=MFP_WD, lr_sched="cosine", num_train_epochs=1,
+        logging_steps=10, mask_ratio=MFP_MASK_RATIO, sampling_method="randint",
+        pretrain=True, pt_type="MFP", compute_dtype="bfloat16", seed=args.seed)
+    t0 = time.perf_counter()
+    trainer = Trainer(fresh(cfg_m), cfg_m, targs, data)  # builds the alias table
+    setup_s = time.perf_counter() - t0
+    num_params = len(list(trainer.model.parameters()))
+
+    # each training step's count of distinct candidate ids, kept on the card
+    # (the decoder's backward folds once a step; the eval folds nothing)
+    unique = []
+    fold = dedup_scatter.sort_and_fold
+
+    def counting_fold(*fold_args):
+        folded = fold(*fold_args)
+        unique.append(folded[2])
+        return folded
+
+    dedup_scatter.sort_and_fold = counting_fold
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer.MFP_pretrain()
+    finally:
+        dedup_scatter.sort_and_fold = fold
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = trainer.global_step
+    eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
+    expected = {"embedding_gather": 2 * (steps + eval_batches),
+                "cross_net": steps + eval_batches, "scatter_add": steps,
+                "fused_adamw": steps * num_params, "scatter_unique_sorted": steps}
+    distinct = torch.stack(unique).cpu().tolist()
+    losses = [w["window_loss"] for w in trainer.train_windows]
+    eval_loss, eval_acc = trainer.eval_metrics[-1]
+    emit("mfp_training", compute_dtype="bfloat16", steps=steps, batch=TRAIN_BATCH,
+         setup_s=setup_s, wall_s=wall, windows=trainer.train_windows,
+         eval_mfp_loss=eval_loss, eval_mfp_acc=eval_acc, launches=launches,
+         expected_launches=expected, num_params=num_params,
+         distinct_candidates=dict(min=min(distinct), max=max(distinct),
+                                  mean=sum(distinct) / len(distinct),
+                                  capacity=n_cand, map_tpu_capacity=MAP_TPU_CAPACITY,
+                                  steps_over_map_tpu_capacity=sum(
+                                      d > MAP_TPU_CAPACITY for d in distinct)),
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(f"mfp: {args.train_steps} steps", steps == args.train_steps)
+    check("mfp: 17 parameters", num_params == 17)
+    check("mfp: window loss finite and falling",
+          all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          first_window_loss=losses[0], last_window_loss=losses[-1])
+    check("mfp: eval accuracy above chance", eval_acc > 1.0 / (1 + MFP_NEG),
+          eval_mfp_acc=eval_acc, chance=1.0 / (1 + MFP_NEG))
+    check("mfp: launches", launches == expected)
+    check("mfp: every step's distinct candidates within the capacity",
+          len(distinct) == steps and max(distinct) <= n_cand)
+    ckpt = os.path.join(targs.output_dir, f"{steps}.model")
+    check("mfp: checkpoint at the last step", os.path.exists(ckpt))
+
+    # K5 on one step's folded candidate stream, at the path's shape
+    batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH,
+                           shuffle=True, seed=args.seed).epoch(0))[:PARITY_STEPS]
+    draw_gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    draws = [draw_mfp(draw_gen, trainer.noise, TRAIN_BATCH, num_fields, mask_num,
+                      MFP_NEG, "randint") for _ in batches]
+    ids0 = torch.from_numpy(batches[0]["input_ids"]).to(dev)
+    corrupted, labels = mfp_corrupt(ids0, draws[0].masked_index)
+    cand = torch.cat([labels[..., None], draws[0].noise], -1).reshape(-1)
+    gen = torch.Generator().manual_seed(args.seed)
+    g = (torch.randn(cand.numel(), MFP_PROJ + 1, generator=gen) * 1e-3).to(dev)
+    uids, vals, num_unique = dedup_scatter.sort_and_fold(cand, g, vocab)
+    num_unique = int(num_unique)
+    k5_err = 0.0
+    for mode in scatter_unique.MODES:
+        got = scatter_unique.scatter_unique_sorted(uids, vals, vocab, (MFP_PROJ, 1), mode)
+        ref = scatter_unique.scatter_unique_sorted_plain(uids, vals, vocab,
+                                                         (MFP_PROJ, 1), mode)
+        torch.cuda.synchronize()
+        for part, a, r in zip(("emb", "bias"), got, ref):
+            k5_err = max(k5_err, compare(
+                f"K5 {mode} {part}, {n_cand} candidates ({num_unique} distinct) "
+                f"-> {vocab} x {MFP_PROJ + 1}", a, r, 0.0, 0.0))
+        again = scatter_unique.scatter_unique_sorted(uids, vals, vocab, (MFP_PROJ, 1), mode)
+        check(f"K5 {mode} deterministic", all(torch.equal(a, b) for a, b in zip(got, again)))
+
+    # 5 MFP steps from the same weights and draws, kernels vs plain versions
+    for dname in ("bfloat16", "float32"):
+        def five_steps(plain: bool):
+            m = fresh(mfp_cfg(dname)).to(dev)
+            opt, _ = build_optimizer(
+                m, targs, args.train_steps, 0,
+                update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw)
+            step, _ = make_mfp_steps(m, opt, m.config, MFP_MASK_RATIO, "randint",
+                                     trainer.noise, torch.Generator(device=dev), dev)
+            before = read_counts()
+            with plain_layers() if plain else contextlib.nullcontext():
+                losses = torch.stack([step(b, d)["loss"]
+                                      for b, d in zip(batches, draws)]).cpu()
+            if plain and read_counts() != before:
+                raise AssertionError("the plain run launched a kernel")
+            return losses, {n: p.detach() for n, p in m.named_parameters()}
+
+        k_loss, k_params = five_steps(plain=False)
+        p_loss, p_params = five_steps(plain=True)
+        parity_check(f"mfp {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
+                     dname, MFP_LR, k_loss, p_loss, k_params, p_params,
+                     dict(fresh(mfp_cfg(dname)).named_parameters()))
+        del k_params, p_params
+
+    # step time and where it goes
+    step = trainer.train_step
+    for b in batches[:3]:
+        step(b)
+    torch.cuda.synchronize()
+    timed = 20
+    t0 = time.perf_counter()
+    for i in range(timed):
+        step(batches[i % PARITY_STEPS])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    emit("mfp_training_time", compute_dtype="bfloat16", batch=TRAIN_BATCH,
+         step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
+         trainer_window_time_cost=[w["time_cost"] for w in trainer.train_windows])
+    prof_steps = 5
+    prof = profile(lambda: [step(batches[i]) for i in range(prof_steps)], top_n=14)
+    k3_ms = sum(e["device_ms"] for e in prof["top"] if "scatter_rows" in e["name"])
+    emit("mfp_training_profile", compute_dtype="bfloat16", steps=prof_steps,
+         busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+         k3_share_of_busy=k3_ms / prof["device_busy_ms"], **prof)
+    return dict(launches=launches, ckpt=ckpt, work=work, k5_err=k5_err,
+                k5_stream=(uids, vals, num_unique), fold_inputs=(cand, g),
+                corrupted=corrupted)
+
+
+def finetune_phase(args, dev, cfg, data, ckpt, reset_counts, read_counts) -> None:
+    """9. Supervised DCNv2 (run_script/run_DCNv2_finetune.sh) from the MFP
+    checkpoint."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.config import TrainingArguments
+    from map_tpu_torch.train.trainer import Trainer
+
+    cfg_f = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    targs = TrainingArguments(
+        output_dir=os.path.join(os.path.dirname(os.path.dirname(ckpt)), "finetune"),
+        dataset_name="in-memory", data_dir="", per_device_train_batch_size=TRAIN_BATCH,
+        per_device_eval_batch_size=EVAL_BATCH, learning_rate=LR,
+        weight_decay=WEIGHT_DECAY, lr_sched="const", num_train_epochs=1,
+        logging_steps=10, compute_dtype="bfloat16", seed=args.seed, finetune=True,
+        pretrained_model_path=ckpt)
+    trainer = Trainer(models.from_config(cfg_f, torch.Generator().manual_seed(args.seed)),
+                      cfg_f, targs, data)
+    check("finetune: 13 tensors loaded, 4 skipped", trainer.finetune_counts == (13, 4),
+          loaded_skipped=trainer.finetune_counts)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    test = trainer.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = trainer.global_step
+    eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)
+    expected = {"embedding_gather": steps + eval_batches,
+                "cross_net": steps + eval_batches, "scatter_add": steps,
+                "fused_adamw": steps * len(list(trainer.model.parameters())),
+                "scatter_unique_sorted": 0}
+    emit("finetune", compute_dtype="bfloat16", steps=steps, wall_s=wall,
+         windows=trainer.train_windows, eval_auc_logloss=trainer.eval_metrics,
+         test=test, launches=launches, expected_launches=expected)
+    check("finetune: eval AUC > 0.6", trainer.eval_metrics[0][0] > 0.6,
+          eval_auc=trainer.eval_metrics[0][0])
+    check("finetune: launches", launches == expected)
 
 
 def main(argv=None) -> int:
@@ -245,7 +509,14 @@ def main(argv=None) -> int:
     from map_tpu_torch.data.loader import Batcher
     from map_tpu_torch.kernels import build
     from map_tpu_torch.nn import init
-    from map_tpu_torch.ops import cross, embedding, fused_adamw, scatter
+    from map_tpu_torch.ops import (
+        cross,
+        dedup_scatter,
+        embedding,
+        fused_adamw,
+        scatter,
+        scatter_unique,
+    )
     from map_tpu_torch.serve import Predictor
     from map_tpu_torch.train import checkpoints
     from map_tpu_torch.train.optimizer import build_optimizer
@@ -254,7 +525,8 @@ def main(argv=None) -> int:
     from map_tpu_torch.utils.metrics import roc_auc
 
     kernel_modules = {"embedding_gather": embedding, "cross_net": cross,
-                      "fused_adamw": fused_adamw, "scatter_add": scatter}
+                      "fused_adamw": fused_adamw, "scatter_add": scatter,
+                      "scatter_unique_sorted": scatter_unique}
 
     def reset_counts():
         for mod in kernel_modules.values():
@@ -421,7 +693,7 @@ def main(argv=None) -> int:
     emit("serving_launches", launches=serving_launches, expected_each=expected)
     check("serving launches", serving_launches == {
         "embedding_gather": expected, "cross_net": expected,
-        "fused_adamw": 0, "scatter_add": 0})
+        "fused_adamw": 0, "scatter_add": 0, "scatter_unique_sorted": 0})
 
     def plain_forward(m, ids_t):
         """The Predictor's DCNv2 with both kernels swapped for their plain versions."""
@@ -454,7 +726,6 @@ def main(argv=None) -> int:
     data = teacher_dataset(rng, args.train_steps * TRAIN_BATCH)
     num_params = len(list(model.parameters()))
     eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)  # valid once, test once
-    training_launches = {}
     train_dirs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     for dname in ("bfloat16", "float32"):
         cfg_d = dataclasses.replace(cfg, compute_dtype=dname)
@@ -476,11 +747,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
-        training_launches[dname] = counts
         steps = trainer.global_step
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
-                    "scatter_add": steps, "fused_adamw": steps * num_params}
+                    "scatter_add": steps, "fused_adamw": steps * num_params,
+                    "scatter_unique_sorted": 0}
         windows = trainer.train_windows
         losses = [w["window_loss"] for w in windows]
         emit("training", compute_dtype=dname, steps=steps, batch=TRAIN_BATCH,
@@ -525,24 +796,8 @@ def main(argv=None) -> int:
         p_loss, p_params = five_steps(plain=True)
         p0 = dict(models.from_config(cfg_d, torch.Generator().manual_seed(args.seed))
                   .named_parameters())
-        loss_rel = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
-        max_d = diff_l1 = update_l1 = 0.0
-        close = total = 0
-        for n, ref in p_params.items():
-            d = (k_params[n] - ref).abs()
-            max_d = max(max_d, float(d.max()))
-            diff_l1 += float(d.double().sum())
-            update_l1 += float((ref - p0[n].to(dev)).abs().double().sum())
-            close += int((d <= 1e-5 + 1e-5 * ref.abs()).sum())
-            total += d.numel()
-        check(f"training {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
-              loss_rel <= TOL_PARITY_LOSS[dname]
-              and max_d <= 2 * LR * PARITY_STEPS * 1.01
-              and diff_l1 <= TOL_PARITY_UPDATE_L1[dname] * update_l1,
-              losses_kernels=k_loss.tolist(), losses_plain=p_loss.tolist(),
-              loss_max_rel=loss_rel, param_max_abs=max_d,
-              update_l1_share=diff_l1 / update_l1,
-              param_share_within_1e5=close / total)
+        parity_check(f"training {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
+                     dname, LR, k_loss, p_loss, k_params, p_params, p0)
         del k_params, p_params, p0
 
         # step time and where it goes
@@ -566,7 +821,12 @@ def main(argv=None) -> int:
         del trainer, pred
     train_dirs.cleanup()
 
-    # 8. times at the serving and training shapes
+    # 8-9. MFP pretraining, and the finetune from its checkpoint
+    mfp = mfp_phase(args, dev, cfg, data, reset_counts, read_counts)
+    finetune_phase(args, dev, cfg, data, mfp["ckpt"], reset_counts, read_counts)
+    shutil.rmtree(mfp["work"], ignore_errors=True)
+
+    # 10. times at the serving, training and MFP shapes
     n_ids = ids.numel()
     unique_rows = int(torch.unique(ids).numel())
     k4_bytes = n_ids * 4 + unique_rows * EMBED * 4 + n_ids * EMBED * 4
@@ -634,9 +894,13 @@ def main(argv=None) -> int:
         # about 1000 gradient rows that one thread sums in order
         uniform_ids = torch.randint(0, vocab, tuple(train_ids.shape), generator=gen,
                                     dtype=torch.int32).to(dev)
+        # and on an MFP step's corrupted ids, where every masked position
+        # holds the <mask> id 3: one segment of about 25,000 rows
         for key, dname, k3_ids in (("K3 bfloat16", "bfloat16", train_ids),
                                    ("K3 float32", "float32", train_ids),
-                                   ("K3 bfloat16, uniform ids", "bfloat16", uniform_ids)):
+                                   ("K3 bfloat16, uniform ids", "bfloat16", uniform_ids),
+                                   ("K3 bfloat16, MFP corrupted ids", "bfloat16",
+                                    mfp["corrupted"])):
             g = k3_grads[dname]
             g32 = g.reshape(-1, EMBED).float()
             k3_ids_long = k3_ids.reshape(-1).long()
@@ -650,11 +914,34 @@ def main(argv=None) -> int:
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 ids=k3_ids.numel(),
                 max_duplicates=int(torch.bincount(k3_ids_long).max()))
+
+        # K5 on the MFP step's folded candidate stream: the dense output
+        # written once, the num_unique valid entries (id and 33 values) read
+        # once; the sentinel tail is not needed, and the library call adds
+        # the valid entries only
+        uids, vals, num_unique = mfp["k5_stream"]
+        valid_ids, valid_vals = uids[:num_unique].long(), vals[:num_unique]
+        width = vals.shape[1]
+        nbytes = vocab * width * 4 + num_unique * (width + 1) * 4
+        for mode in scatter_unique.MODES:
+            times[f"K5 {mode}"] = dict(
+                ms=time_ms(lambda: scatter_unique.scatter_unique_sorted(
+                    uids, vals, vocab, (width - 1, 1), mode)),
+                plain_ms=time_ms(lambda: scatter_unique.scatter_unique_sorted_plain(
+                    uids, vals, vocab, (width - 1, 1), mode)),
+                library_ms=time_ms(lambda: torch.zeros(vocab, width, device=dev)
+                                   .index_add_(0, valid_ids, valid_vals)),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                stream=uids.numel(), num_unique=num_unique)
+        # the fold around K5 in the decoder's backward (PyTorch ops)
+        times["K5 highest"]["fold_ms"] = time_ms(
+            lambda: dedup_scatter.sort_and_fold(*mfp["fold_inputs"], vocab))
     emit("times", card=smi, unique_rows=unique_rows, kernels=times)
 
-    # 9. summary; launches are the bf16 training run's (the slice's main path)
+    # 11. summary; launches are the MFP run's (this slice's main path, which
+    # launches all five kernels)
     src = "map_tpu_torch/csrc"
-    main_path = training_launches["bfloat16"]
+    main_path = mfp["launches"]
 
     def entry(name, source, replaces, err, timing):
         return dict(name=name, route="cuda", source=f"{src}/{source}",
@@ -671,6 +958,8 @@ def main(argv=None) -> int:
               k1_err["table"], times["K1 table"]),
         entry("scatter_add", "scatter_add.cu", "map_tpu/ops/pallas_scatter.py:171",
               k3_err["bfloat16"], times["K3 bfloat16"]),
+        entry("scatter_unique_sorted", "scatter_unique_sorted.cu",
+              "map_tpu/ops/pallas_scatter.py:64", mfp["k5_err"], times["K5 highest"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,12 +1,15 @@
 """Run flags and the model config. Counterpart: `map_tpu/config.py`.
 
-`TrainingArguments` and `ModelArguments` are the supervised DCNv2 subset of
-map_tpu's flags (`config.py:21-245`) with map_tpu's defaults, plus the port's
+`TrainingArguments` and `ModelArguments` are the DCNv2 subset of map_tpu's
+flags (`config.py:21-245`) with map_tpu's defaults: supervised training, MFP
+pretraining with per-position noise, and finetune transfer; plus the port's
 own `--device` (default: the card). `parse_args` registers every field as a
 `--flag`; a bool whose default is True takes `BooleanOptionalAction`, so
 `--no-<flag>` can turn it off (map_tpu registers every bool as store_true,
 which cannot). `build_config` assembles the model `Config` from the flags and
-the dataset, as `config.py:330` does.
+the dataset, as `config.py:330` does. Pretraining options the port does not
+have yet (RFD, shared or per-field noise, the `full` loss) raise
+`NotImplementedError` in `check_supported`.
 
 `Config` holds the model fields of map_tpu's `config.json` that the port
 reads (map_tpu's `Config` / `Config.load`). map_tpu's Config is a free-form
@@ -14,7 +17,8 @@ bag; the port keeps a dataclass of the fields its modules read and carries
 every other key along in `extra`, unread. Defaults are what map_tpu's
 model code assumes when a key is absent (`getattr(config, key, default)` in
 `map_tpu/models/zoo.py`), so a config.json without `compute_dtype` runs in
-float32 in both packages.
+float32 in both packages. `feat_count` (the train split's unigram counts,
+for MFP) is never written to config.json, as in map_tpu.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import json
 import os
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 @dataclass
@@ -45,6 +51,12 @@ class Config:
     packed_tables: bool = False
     idx_low: Optional[List[int]] = None
     idx_high: Optional[List[int]] = None
+    pretrain: bool = False
+    pt_type: str = "MFP"
+    pt_neg_num: int = 25
+    proj_size: int = 32
+    nce_loss_type: str = "nce"
+    feat_count: Optional[np.ndarray] = field(default=None, repr=False)
     extra: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -55,6 +67,11 @@ class Config:
             known.pop("compute_dtype", None)
         return cls(**known, extra={k: v for k, v in d.items() if k not in names})
 
+    @property
+    def mfp(self) -> bool:
+        """The model carries the MFP head instead of fc_out."""
+        return bool(self.pretrain) and self.pt_type == "MFP"
+
     @classmethod
     def load(cls, load_directory: str) -> "Config":
         with open(os.path.join(load_directory, "config.json"), "r",
@@ -63,7 +80,7 @@ class Config:
 
     def to_dict(self) -> Dict[str, Any]:
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
-             if f.name != "extra"}
+             if f.name not in ("extra", "feat_count")}
         return {**self.extra, **d}
 
     def save(self, save_directory: str) -> None:
@@ -75,7 +92,7 @@ class Config:
 
 @dataclass
 class TrainingArguments:
-    """Run-level flags (map_tpu `config.py:21-57`, supervised subset)."""
+    """Run-level flags (map_tpu `config.py:21-74`, the ported subset)."""
 
     output_dir: str = ""
     dataset_name: str = "avazu"
@@ -95,7 +112,15 @@ class TrainingArguments:
     logging_steps: int = 1000
     save_total_limit: Optional[int] = 20
     seed: int = 42
-    pretrain: bool = False  # not ported: run.py raises
+    # pretraining (map_tpu config.py:59-74); MFP with per-position noise only
+    sampling_method: str = "normal"  # normal (no repeats in a row) | randint
+    mask_ratio: float = 0.1
+    pretrain: bool = False
+    pt_type: str = "MFP"  # MFP | RFD (RFD not ported: check_supported raises)
+    finetune: bool = False
+    pretrained_model_path: Optional[str] = None
+    pt_per_field_noise: bool = False  # not ported
+    pt_shared_noise: bool = False  # not ported
     compute_dtype: str = "bfloat16"  # float32 | bfloat16 for activations
     device: Optional[str] = None  # None: the card ("cuda"); "cpu" for the plain path
 
@@ -110,7 +135,8 @@ class TrainingArguments:
 
 @dataclass
 class ModelArguments:
-    """DCNv2's hyperparameters (map_tpu `config.py:176-204`)."""
+    """DCNv2's and the MFP head's hyperparameters (map_tpu
+    `config.py:176-235`)."""
 
     model_name: str = "dcnv2"
     embed_size: int = 32
@@ -122,6 +148,9 @@ class ModelArguments:
     layer_norm_eps: float = 1e-12
     embed_norm: bool = False
     num_cross_layers: int = 1
+    pt_neg_num: int = 25
+    proj_size: int = 32
+    nce_loss_type: str = "nce"  # nce | sampled (full not ported)
 
 
 def _flag_type(f: dataclasses.Field) -> type:
@@ -152,15 +181,44 @@ def parse_args(argv: Optional[Sequence[str]] = None
     ns = vars(parser.parse_args(argv))
     pick = lambda cls: cls(**{f.name: ns[f.name]  # noqa: E731
                               for f in dataclasses.fields(cls)})
-    return pick(ModelArguments), pick(TrainingArguments)
+    model_args, training_args = pick(ModelArguments), pick(TrainingArguments)
+    check_supported(model_args, training_args)
+    return model_args, training_args
+
+
+def check_supported(model_args: ModelArguments,
+                    training_args: TrainingArguments) -> None:
+    """Raise on the pretraining options map_tpu has and the port not yet."""
+    if not training_args.pretrain:
+        return
+    missing = []
+    if training_args.pt_type != "MFP":
+        missing.append(f"pt_type={training_args.pt_type}")
+    if training_args.pt_shared_noise:
+        missing.append("pt_shared_noise")
+    if training_args.pt_per_field_noise:
+        missing.append("pt_per_field_noise")
+    if model_args.nce_loss_type not in ("nce", "sampled"):
+        missing.append(f"nce_loss_type={model_args.nce_loss_type}")
+    if missing:
+        raise NotImplementedError(
+            f"map_tpu_torch pretrains with MFP, per-position noise and the nce "
+            f"or sampled loss; {', '.join(missing)} is queued in ROADMAP.md")
 
 
 def build_config(model_args: ModelArguments, training_args: TrainingArguments,
                  dataset) -> Config:
     """Flags + the dataset's input_size and num_fields (the reserved <rsv>
-    field not counted) -> the model Config."""
+    field not counted), its per-field id ranges and, for pretraining, its
+    unigram `feat_count` -> the model Config."""
+    check_supported(model_args, training_args)
     d = dataclasses.asdict(model_args)
+    idx = lambda a: None if a is None else [int(x) for x in a]  # noqa: E731
     d.update(input_size=dataset.input_size, num_fields=dataset.num_fields,
              compute_dtype=training_args.compute_dtype, packed_tables=False,
-             data_dir=training_args.data_dir, pretrain=training_args.pretrain)
+             data_dir=training_args.data_dir, pretrain=training_args.pretrain,
+             pt_type=training_args.pt_type,
+             feat_count=getattr(dataset, "feat_count", None),
+             idx_low=idx(getattr(dataset, "idx_low", None)),
+             idx_high=idx(getattr(dataset, "idx_high", None)))
     return Config.from_dict(d)

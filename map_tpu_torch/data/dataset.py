@@ -5,6 +5,12 @@ readers of `map_tpu/data/artifacts.py` it uses: `{name}-meta.json`
 (field_names, feat_map, field_map with the `<rsv>` field first), `split.pkl`
 ({train,valid,test}_index arrays) and `{name}.h5` (feat_ids, labels). The
 >RAM memmap mode is not ported yet (ROADMAP.md).
+
+Pretraining statistics, as map_tpu derives them (`dataset.py:101-124`):
+`feat_count`, the unigram of the train split (a float32 bincount over the
+vocabulary), cached in `{data_dir}/feat-count.npy` (map_tpu's file and
+format, so either package reuses the other's cache) and loaded only for a
+pretraining run; `idx_low` / `idx_high`, each field's id range over all rows.
 """
 
 from __future__ import annotations
@@ -12,18 +18,29 @@ from __future__ import annotations
 import json
 import os
 import pickle
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 
+def feat_count_path(data_dir: str) -> str:
+    return os.path.join(data_dir, "feat-count.npy")
+
+
+def compute_feat_count(train_feat_ids: np.ndarray, vocab_size: int) -> np.ndarray:
+    """Global per-feature frequency over the train split (map_tpu
+    `artifacts.py:225`)."""
+    return np.bincount(train_feat_ids.ravel(), minlength=vocab_size).astype(np.float32)
+
+
 class CTRDataset:
     """`X[split]` int32 (N, F) field-blocked ids and `Y[split]` float32 (N,)
-    labels for the train / valid / test splits."""
+    labels for the train / valid / test splits; `feat_count` (None unless
+    `pretrain`), `idx_low` and `idx_high` (F,) int32."""
 
     split_names = ("train", "valid", "test")
 
-    def __init__(self, data_dir: str, dataset_name: str):
+    def __init__(self, data_dir: str, dataset_name: str, pretrain: bool = False):
         import h5py
 
         with open(os.path.join(data_dir, f"{dataset_name}-meta.json"), "r") as f:
@@ -42,6 +59,17 @@ class CTRDataset:
             idx = np.asarray(split_index[f"{s}_index"])
             self.X[s] = feat_ids[idx]
             self.Y[s] = labels[idx]
+        # over all rows: valid / test ids may be unseen in train
+        self.idx_low = feat_ids.min(axis=0).astype(np.int32)
+        self.idx_high = (feat_ids.max(axis=0) + 1).astype(np.int32)
+        self.feat_count: Optional[np.ndarray] = None
+        if pretrain:
+            path = feat_count_path(data_dir)
+            if os.path.exists(path):
+                self.feat_count = np.load(path)
+            else:
+                self.feat_count = compute_feat_count(self.X["train"], self.input_size)
+                np.save(path, self.feat_count)
 
     @property
     def num_fields(self) -> int:

@@ -9,7 +9,9 @@ Layout changes on the way:
 - lane-packed tables (map_tpu `ops/packed_table.py`, (R, p*E) with p = 128//E
   and padding rows up to a 512-row multiple) are unpacked to (V, E) with
   `reshape(-1, E)[:V]`, which drops the padding rows; a plain (V, E) table
-  passes through the same reshape unchanged;
+  passes through the same reshape unchanged. The MFP decoder's tables go the
+  same way: `emb` (R, 4 * 32) or (V, 32) to (V, proj_size), `bias` (R, 128)
+  or (V,) to the reference's (V, 1);
 - Dense and cross kernels are flax (in, out) and become torch (out, in);
 - LayerNorm `scale` / `bias` become `weight` / `bias`.
 """
@@ -38,16 +40,24 @@ def dcnv2_rules(config: Config) -> List[Rule]:
         fp = ("parallel_dnn", f"layer_{j}", "dense")
         rules += [(f"parallel_dnn.dnn.{3 * j}.weight", fp + ("kernel",), "t"),
                   (f"parallel_dnn.dnn.{3 * j}.bias", fp + ("bias",), "id")]
-    rules += [("fc_out.weight", ("fc_out", "dense", "kernel"), "t"),
-              ("fc_out.bias", ("fc_out", "dense", "bias"), "id")]
+    if config.mfp:  # the MFP head replaces fc_out (torch_import.py:281-289)
+        rules += [("feat_encoder.weight", ("feat_encoder", "dense", "kernel"), "t"),
+                  ("feat_encoder.bias", ("feat_encoder", "dense", "bias"), "id"),
+                  ("mfp_criterion.emb.weight", ("mfp_decoder", "emb"), "proj_table"),
+                  ("mfp_criterion.bias.weight", ("mfp_decoder", "bias"), "bias_table")]
+    else:
+        rules += [("fc_out.weight", ("fc_out", "dense", "kernel"), "t"),
+                  ("fc_out.bias", ("fc_out", "dense", "bias"), "id")]
     return rules
 
 
 def _transform(kind: str, arr: np.ndarray, config: Config) -> np.ndarray:
     if kind == "t":
         return arr.T
-    if kind == "table":
-        return arr.reshape(-1, config.embed_size)[:config.input_size]
+    width = {"table": config.embed_size, "proj_table": config.proj_size,
+             "bias_table": 1}.get(kind)
+    if width is not None:
+        return arr.reshape(-1, width)[:config.input_size]
     return arr
 
 

@@ -46,6 +46,10 @@ _SIGNATURES = {
     # (sorted_ids, perm, grads, out, n, vocab, e, grads_bf16, stream)
     "map_tpu_scatter_add": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, _P],
+    # (uids, vals, out0, out1, c, vocab, ew, e0, bf16x2, stream)
+    "map_tpu_scatter_unique_sorted": [_P, _P, _P, _P, ctypes.c_longlong,
+                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, _P],
 }
 
 

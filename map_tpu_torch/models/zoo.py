@@ -18,6 +18,8 @@ from map_tpu_torch.nn.layers import (
 
 class DCNV2(CTRModel):
     """CrossNetV2 || MLP -> concat -> fc_out. final_dim = F*E + hidden_size.
+    With `config.mfp` the MFP head (`models/base.py`) replaces fc_out, as in
+    map_tpu (`zoo.py:215-218`): 17 parameters at 3 cross and 3 MLP layers.
 
     In bf16 the rounding points are map_tpu's: rows gathered in float32 and
     cast to bf16, the cross net and the MLP in bf16 (f32 accumulate), and
@@ -43,7 +45,10 @@ class DCNV2(CTRModel):
                      c.hidden_dropout_rate, dtype=dt)
             if c.num_hidden_layers > 0 else None)
         final_dim = dim + (c.hidden_size if self.parallel_dnn is not None else 0)
-        self.fc_out = TorchDense(final_dim, 1)
+        if c.mfp:
+            self.create_pretraining_predictor(final_dim)
+        else:
+            self.fc_out = TorchDense(final_dim, 1)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         self.embed.reset_parameters(generator)
@@ -52,7 +57,10 @@ class DCNV2(CTRModel):
             for layer in self.parallel_dnn.dnn:
                 if isinstance(layer, TorchDense):
                     layer.reset_parameters(generator)
-        self.fc_out.reset_parameters(generator)
+        if self.config.mfp:
+            self.reset_pretraining_predictor(generator)
+        else:
+            self.fc_out.reset_parameters(generator)
 
     def backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
         feat_embed = self.embed(input_ids).reshape(input_ids.shape[0], -1)

@@ -1,4 +1,4 @@
-"""Training CLI, supervised only. Counterpart: `map_tpu/run.py`.
+"""Training CLI. Counterpart: `map_tpu/run.py`.
 
     python -m map_tpu_torch.run --model_name=dcnv2 --output_dir=out \\
         --dataset_name=avazu --data_dir=data/avazu \\
@@ -7,11 +7,16 @@
         --num_train_epochs=1 --embed_size=16 --hidden_size=1000 \\
         --num_hidden_layers=3 --num_cross_layers=3 [--device cpu]
 
-takes the flags of `run_script/run_DCNv2_scratch.sh`. Lifecycle as map_tpu's:
-parse -> idempotency check (results.log exists -> exit) -> logging ->
-dataset -> config.json -> model from --seed -> train -> test on the best
-step -> train.log copied to results.log. Runs on the card unless
-`--device cpu`. `--pretrain` (MFP / RFD) is not ported yet.
+takes the flags of `run_script/run_DCNv2_scratch.sh`; with `--pretrain
+--pt_type=MFP --mask_ratio=0.3 --sampling_method=randint --pt_neg_num=25
+--proj_size=32` those of `run_DCNv2_MFP.sh`, and with `--finetune
+--pretrained_model_path=<dir>/<step>.model` those of `run_DCNv2_finetune.sh`.
+Lifecycle as map_tpu's: parse -> idempotency check (results.log exists ->
+exit) -> logging -> dataset -> config.json -> model from --seed (finetune:
+restored from the checkpoint where names and shapes match) -> train and test
+on the best step, or MFP pretraining (no test phase) -> train.log copied to
+results.log. Runs on the card unless `--device cpu`. RFD pretraining is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -31,11 +36,7 @@ from map_tpu_torch.utils.logging import (
 
 
 def main(argv=None) -> int:
-    model_args, training_args = parse_args(argv)
-    if training_args.pretrain:
-        raise NotImplementedError(
-            "map_tpu_torch trains supervised only; MFP / RFD pretraining is "
-            "queued in ROADMAP.md")
+    model_args, training_args = parse_args(argv)  # raises on what is not ported
     if job_already_finished(training_args.output_dir):
         print("job already finished, quit")
         return 0
@@ -44,14 +45,18 @@ def main(argv=None) -> int:
 
     from map_tpu_torch.data.dataset import CTRDataset
 
-    dataset = CTRDataset(training_args.data_dir, training_args.dataset_name)
+    dataset = CTRDataset(training_args.data_dir, training_args.dataset_name,
+                         pretrain=training_args.pretrain)
     config = build_config(model_args, training_args, dataset)
     config.save(training_args.output_dir)
     model = models.from_config(config,
                                torch.Generator().manual_seed(training_args.seed))
     trainer = Trainer(model, config, training_args, dataset)
-    trainer.train()
-    trainer.test()
+    if config.mfp:
+        trainer.MFP_pretrain()
+    else:
+        trainer.train()
+        trainer.test()
     mark_job_finished(training_args.output_dir)
     return 0
 

@@ -1,5 +1,5 @@
-"""Checkpoint I/O. Counterpart: `map_tpu/train/checkpoints.py:24-50` and
-`prune_checkpoints` (:65-81).
+"""Checkpoint I/O. Counterpart: `map_tpu/train/checkpoints.py:24-50`,
+`prune_checkpoints` (:65-81) and `partial_restore` (:120-140).
 
 The port's `{step}.model` is `torch.save` of the model's state_dict (the
 reference's own format, `code/trainer.py:517-519`), written to a temporary
@@ -8,16 +8,23 @@ file and renamed, so a crash never leaves a torn checkpoint.
 `load_jax_model_file` reads map_tpu's `{step}.model`: flax's msgpack
 serialization of the variables tree, decoded here with the `msgpack` package
 alone (mirroring `flax/serialization.py` `_MsgpackExtType`,
-`_ndarray_from_bytes` and `_unchunk`).
+`_ndarray_from_bytes` and `_unchunk`). `load_any_model_file` takes either
+kind (a torch file is a zip archive) and returns a port state_dict.
 """
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Any, Dict
+import zipfile
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+
+from map_tpu_torch.config import Config
+
+logger = logging.getLogger(__name__)
 
 # flax/serialization.py _MsgpackExtType
 _EXT_NDARRAY = 1
@@ -93,3 +100,38 @@ def load_jax_model_file(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         tree = msgpack.unpackb(f.read(), ext_hook=_ext_hook, raw=False)
     return _unchunk(tree)
+
+
+def load_any_model_file(path: str, config: Config) -> Dict[str, torch.Tensor]:
+    """A port `{step}.model` or map_tpu's msgpack one -> a port state_dict
+    on the CPU. A map_tpu checkpoint is carried with the config.json of its
+    run directory when there is one (its model config: heads, packing),
+    else with `config`."""
+    if zipfile.is_zipfile(path):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    from map_tpu_torch.interop.from_jax import state_dict_from_jax
+
+    run_dir = os.path.dirname(os.path.abspath(path))
+    if os.path.exists(os.path.join(run_dir, "config.json")):
+        config = Config.load(run_dir)
+    return state_dict_from_jax(load_jax_model_file(path), config)
+
+
+def partial_restore(state_dict: Dict[str, torch.Tensor],
+                    target: Dict[str, torch.Tensor]
+                    ) -> Tuple[Dict[str, torch.Tensor], int, int]:
+    """Copy every tensor of `target` whose name AND shape match one of
+    `state_dict`; keep the rest. Returns (merged, loaded, skipped), counted
+    over `target` as map_tpu counts them."""
+    merged = dict(state_dict)
+    loaded = skipped = 0
+    for name, value in target.items():
+        if name in merged and tuple(merged[name].shape) == tuple(value.shape):
+            merged[name] = value.to(merged[name].dtype)
+            logger.info(f"Load tensor: {name}, {tuple(value.shape)}")
+            loaded += 1
+        else:
+            logger.info(f"Unmatched tensor in the target model: {name}, "
+                        f"{tuple(value.shape)}")
+            skipped += 1
+    return merged, loaded, skipped

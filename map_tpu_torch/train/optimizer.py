@@ -32,11 +32,13 @@ UpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
 
 def decays(name: str) -> bool:
     """True = weight decay applies. map_tpu's rule (`no_decay_mask`: no decay
-    for leaves named bias* and for norm scales) on torch names: `*.bias*` and
-    a LayerNorm's `weight` (`embed.layer_norm.weight`) take none."""
-    parts = name.split(".")
-    if parts[-1].startswith("bias"):
+    for leaves named bias* and for norm scales) on torch names, which is the
+    reference's own (`"bias" in name`): any name holding `bias` (a Linear's
+    `*.bias`, the NCE decoder's `mfp_criterion.bias.weight`) and a
+    LayerNorm's `weight` (`embed.layer_norm.weight`) take none."""
+    if "bias" in name:
         return False
+    parts = name.split(".")
     return not (parts[-1] == "weight" and len(parts) > 1 and "norm" in parts[-2])
 
 

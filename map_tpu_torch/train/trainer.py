@@ -1,7 +1,9 @@
-"""Supervised trainer: train -> eval per epoch -> best-step checkpoint -> test.
-Counterpart: `map_tpu/train/trainer.py` (`train` :740-796, `_window_auc`
-:799-808, the exact-AUC `eval` :810-923, `save_model` / `load_model` /
-`test` :1057-1117).
+"""Trainer: supervised train -> eval per epoch -> best-step checkpoint ->
+test; MFP pretraining; finetune transfer. Counterpart:
+`map_tpu/train/trainer.py` (the noise setup :89-114, `load_for_finetune`
+:671-680, `train` :740-796, `_window_auc` :799-808, the exact-AUC `eval`
+:810-923, `MFP_pretrain` / `MFP_pretrain_eval` :929-987, `save_model` /
+`load_model` / `test` :1057-1117).
 
 - train: epochs of `data/loader.Batcher` batches through the train step;
   every `logging_steps` steps the window's losses and probabilities are read
@@ -11,6 +13,18 @@ Counterpart: `map_tpu/train/trainer.py` (`train` :740-796, `_window_auc`
   every epoch; a better AUC saves `{step}.model` (keeping the newest
   `save_total_limit`), `patience` evals without one stop the run.
 - test: reload the best step and evaluate the test split.
+- MFP_pretrain (a model built with `config.mfp`): epochs of MFP steps, the
+  window loss and accuracy (sum of hits / sum of counts) every
+  `logging_steps`, one masked eval per epoch (`eval_mfp_loss` and
+  `eval_mfp_acc`, weighted by each batch's count, drawn from a generator
+  seeded anew for every eval, so every eval masks the same way), then the
+  model saved at the last step. The noise is map_tpu's: the unigram of
+  `config.feat_count` with backoff, log q, norm_term = log V, and the alias
+  table, cached in `data_dir` when that is a directory.
+- finetune (`--finetune --pretrained_model_path`): every tensor of the
+  checkpoint whose name and shape match the model's is copied in before
+  training (`checkpoints.partial_restore`); the checkpoint is the port's
+  `{step}.model` or map_tpu's msgpack one, carried through `interop`.
 
 The model comes built (`models.from_config`), as map_tpu's Trainer takes it;
 the dataset is any object with `X[split]` (N, F) int ids and `Y[split]` (N,)
@@ -26,7 +40,7 @@ from __future__ import annotations
 
 import logging
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,9 +49,14 @@ from map_tpu_torch import resolve_device
 from map_tpu_torch.config import Config, TrainingArguments
 from map_tpu_torch.data.loader import Batcher
 from map_tpu_torch.nn.layers import set_dropout_generator
+from map_tpu_torch.objectives import alias
 from map_tpu_torch.train import checkpoints
 from map_tpu_torch.train.optimizer import build_optimizer
-from map_tpu_torch.train.train_step import make_supervised_steps
+from map_tpu_torch.train.train_step import (
+    NoiseTables,
+    make_mfp_steps,
+    make_supervised_steps,
+)
 from map_tpu_torch.utils.metrics import binary_log_loss, roc_auc
 
 logger = logging.getLogger(__name__)
@@ -65,6 +84,19 @@ class Trainer:
         self._stop_training = False
         self.optimizer = self.schedule = None
         self.train_step = self.eval_step = None
+        self.noise: Optional[NoiseTables] = None
+        self.finetune_counts: Optional[Tuple[int, int]] = None  # (loaded, skipped)
+        if model_config.mfp:
+            self.noise = self._noise_tables()
+        if training_args.finetune and training_args.pretrained_model_path:
+            self.load_for_finetune(training_args.pretrained_model_path)
+
+    def _noise_tables(self) -> NoiseTables:
+        probs, logprob, norm_term = alias.noise_log_prior(self.config.feat_count)
+        prob, alias_ids = alias.load_or_build_alias(self.args.data_dir, probs)
+        fused = alias.build_fused_alias(prob, alias_ids, logprob)
+        return NoiseTables(torch.from_numpy(fused).to(self.device),
+                           torch.from_numpy(logprob).to(self.device), norm_term)
 
     def get_batcher(self, split: str, is_training: bool) -> Batcher:
         bs = (self.args.train_batch_size if is_training
@@ -77,11 +109,18 @@ class Trainer:
         self._t_warmup = int(self._t_total * self.args.warmup_ratio)
         self.optimizer, self.schedule = build_optimizer(
             self.model, self.args, self._t_total, self._t_warmup)
-        self.train_step, self.eval_step = make_supervised_steps(
-            self.model, self.optimizer, self.device)
+        if self.noise is not None:
+            self.train_step, self.eval_step = make_mfp_steps(
+                self.model, self.optimizer, self.config, self.args.mask_ratio,
+                self.args.sampling_method, self.noise,
+                torch.Generator(device=self.device).manual_seed(self.args.seed + 1),
+                self.device)
+        else:
+            self.train_step, self.eval_step = make_supervised_steps(
+                self.model, self.optimizer, self.device)
 
-    def _log_run_header(self) -> None:
-        logger.info("\n***** running training *****")
+    def _log_run_header(self, title: str = "training") -> None:
+        logger.info(f"\n***** running {title} *****")
         logger.info(f"  dataset_name = {self.args.dataset_name}")
         logger.info(f"  input_size = {self.config.input_size}")
         logger.info(f"  num_fields = {self.config.num_fields}")
@@ -141,14 +180,75 @@ class Trainer:
             self.eval()
             if self._stop_training:
                 break
-        logger.info(self._metrics_table())
+        logger.info(self._metrics_table("auc", "log_loss"))
 
-    def _metrics_table(self) -> str:
+    def _metrics_table(self, *columns: str) -> str:
         """The final eval table, as map_tpu prints its pandas DataFrame."""
-        rows = [f"{'':>4} {'auc':>10} {'log_loss':>10}"]
-        rows += [f"{i:>4} {auc:>10.6f} {ll:>10.6f}"
-                 for i, (auc, ll) in enumerate(self.eval_metrics)]
+        rows = [f"{'':>4} " + " ".join(f"{c:>10}" for c in columns)]
+        rows += [f"{i:>4} " + " ".join(f"{x:>10.6f}" for x in metrics)
+                 for i, metrics in enumerate(self.eval_metrics)]
         return "\n".join(rows)
+
+    def MFP_pretrain(self) -> None:
+        batcher = self.get_batcher("train", True)
+        self.build_steps(len(batcher))
+        self._log_run_header("pretraining")
+        logger.info(f"  mask_ratio = {self.args.mask_ratio}")
+        logger.info(f"  pt_neg_num = {self.config.pt_neg_num}")
+        logger.info(f"  pt_type = {self.config.pt_type}")
+        window: Dict[str, List[torch.Tensor]] = {"loss": [], "count": [], "acc_count": []}
+        window_t0 = time.time()
+        for epoch in range(self.args.num_train_epochs):
+            logger.info(f"-------------------- epoch-{epoch} --------------------")
+            for batch in batcher.epoch(epoch):
+                prev = self.global_step
+                metrics = self.train_step(batch)
+                self.global_step += 1
+                for key, values in window.items():
+                    values.append(metrics[key])
+                if self._should_log(prev):
+                    host = {k: torch.stack(v).cpu().numpy().astype(np.float64)
+                            for k, v in window.items()}
+                    dt = time.time() - window_t0
+                    _log = {"window_loss": float(host["loss"].mean()),
+                            "window_acc": float(host["acc_count"].sum()
+                                                / host["count"].sum()),
+                            "time_cost": round(dt, 3)}
+                    logger.info(f"step = {self.global_step}, {_log}")
+                    self.train_windows.append({"step": self.global_step, **_log})
+                    window = {k: [] for k in window}
+                    window_t0 = time.time()
+            self.MFP_pretrain_eval()
+        self.save_model(self.args.output_dir)
+        logger.info(self._metrics_table("mfp_loss", "mfp_acc"))
+
+    def MFP_pretrain_eval(self) -> Dict[str, float]:
+        if self.eval_step is None:
+            self.build_steps(len(self.get_batcher("train", True)))
+        batcher = self.get_batcher("valid", False)
+        logger.info("***** running eval *****")
+        logger.info(f"  num examples = {batcher.num_examples()}")
+        gen = torch.Generator(device=self.device).manual_seed(self.args.seed + 2)
+        metrics = [self.eval_step(batch, gen) for batch in batcher.epoch(0)]
+        host = {k: torch.stack([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
+                for k in ("loss", "count", "acc_count")}
+        count = host["count"].sum()
+        _log = {"learning_rate": self._current_lr(),
+                "eval_mfp_loss": float((host["loss"] * host["count"]).sum() / count),
+                "eval_mfp_acc": float(host["acc_count"].sum() / count)}
+        self.eval_metrics.append([_log["eval_mfp_loss"], _log["eval_mfp_acc"]])
+        logger.info(str(_log))
+        return _log
+
+    def load_for_finetune(self, model_path: str) -> None:
+        """Copy in every tensor of the checkpoint at `model_path` whose name
+        and shape match (map_tpu's `load_for_finetune`)."""
+        merged, loaded, skipped = checkpoints.partial_restore(
+            self.model.state_dict(), checkpoints.load_any_model_file(model_path,
+                                                                     self.config))
+        self.model.load_state_dict(merged)
+        self.finetune_counts = (loaded, skipped)
+        logger.info(f"finetune restore: {loaded} tensors loaded, {skipped} skipped")
 
     @staticmethod
     def _window_auc(labels: np.ndarray, probs: np.ndarray) -> float:

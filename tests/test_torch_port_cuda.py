@@ -13,7 +13,14 @@ import torch
 
 from map_tpu_torch import models
 from map_tpu_torch.config import Config
-from map_tpu_torch.ops import cross, embedding, fused_adamw, scatter
+from map_tpu_torch.ops import (
+    cross,
+    dedup_scatter,
+    embedding,
+    fused_adamw,
+    scatter,
+    scatter_unique,
+)
 from map_tpu_torch.objectives.supervised import bce_loss
 
 pytestmark = pytest.mark.cuda
@@ -262,3 +269,144 @@ def test_dcnv2_gradients_match_the_plain_versions(dev, dtype):
         scale = float(r.abs().max()) + 1e-12
         torch.testing.assert_close(got[name], r, atol=tol * scale, rtol=tol,
                                    msg=name)
+
+
+# ---- K5: sorted-unique scatter and the decoder gather -------------------------
+
+def _unique_stream(n, vocab, width, capacity, g):
+    """A folded candidate stream as the decoder's backward builds it: the
+    distinct ids of n Zipf-like draws ascending, then sentinels, cut to
+    `capacity` entries: "n", the whole stream, as the port sizes it;
+    "static", a capacity a little above the distinct count, as map_tpu's
+    131,072 is when it fits; "none", no sentinel at all."""
+    ids = (torch.rand(n, generator=g) ** 4 * vocab).int().clamp(max=vocab - 1)
+    uids, vals, num_unique = dedup_scatter.sort_and_fold(
+        ids, torch.randn(n, width, generator=g), vocab)
+    assert int(num_unique) == len(torch.unique(ids))
+    c = {"n": n, "static": int(num_unique) + 100, "none": int(num_unique)}[capacity]
+    return uids[:c].contiguous(), vals[:c].contiguous(), int(num_unique)
+
+
+@pytest.mark.parametrize("vocab,width,widths", [(100_003, 33, (32, 1)),
+                                                (5000, 33, None),
+                                                (4096, 16, None),
+                                                (777, 6, (5, 1)),
+                                                (3000, 3, (1, 2))])
+@pytest.mark.parametrize("matmul", ["highest", "bf16x2"])
+@pytest.mark.parametrize("capacity", ["n", "static", "none"])
+def test_scatter_unique_sorted_is_exact(dev, vocab, width, widths, matmul, capacity):
+    g = torch.Generator().manual_seed(vocab + width)
+    uids, vals, num_unique = _unique_stream(20_000, vocab, width, capacity, g)
+    uids, vals = uids.to(dev), vals.to(dev)
+    before = scatter_unique.launches
+    got = scatter_unique.scatter_unique_sorted(uids, vals, vocab, widths, matmul)
+    assert scatter_unique.launches == before + 1
+    ref = scatter_unique.scatter_unique_sorted_plain(uids, vals, vocab, widths, matmul)
+    assert len(got) == len(ref) == len(widths or (width,))
+    for a, b in zip(got, ref):
+        assert a.is_contiguous() and a.dtype == torch.float32 and a.shape == b.shape
+        assert torch.equal(a, b)
+    out = torch.cat(got, 1)
+    assert int((out != 0).any(1).sum()) <= num_unique
+    # the same call writes the same bits
+    again = scatter_unique.scatter_unique_sorted(uids, vals, vocab, widths, matmul)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_scatter_unique_sorted_dense_and_empty_streams(dev):
+    # every row named (full windows), then no row named (sentinels only)
+    vocab = 2 * 256 + 37
+    vals = torch.randn(vocab, 33, device=dev)
+    full = torch.arange(vocab, dtype=torch.int32, device=dev)
+    (out,) = scatter_unique.scatter_unique_sorted(full, vals, vocab)
+    assert torch.equal(out, vals)
+    empty = torch.full((64,), vocab, dtype=torch.int32, device=dev)
+    (out,) = scatter_unique.scatter_unique_sorted(empty, vals[:64], vocab)
+    assert not out.any()
+
+
+def test_scatter_unique_sorted_rejects_what_it_does_not_take(dev):
+    uids = torch.arange(8, dtype=torch.int32, device=dev)
+    vals = torch.randn(8, 33, device=dev)
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids.long(), vals, 10)
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids, vals.double(), 10)
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids.cpu(), vals, 10)
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids, vals.t().contiguous().t(), 10)
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids[:4], vals, 10)
+
+
+def test_decoder_gather_gradient_through_k5(dev):
+    # the card's fold (sort, cumsum, compaction, K5) against a float64
+    # index_add_: float32 prefix differences carry the rounding of the
+    # running prefix, so 16 ulps of each column's largest prefix
+    g = torch.Generator().manual_seed(0)
+    vocab, e = 50_000, 32
+    ids = ((torch.rand(64, 7, 26, generator=g) ** 3) * vocab).int()
+    emb = torch.randn(vocab, e, generator=g)
+    bias = torch.randn(vocab, 1, generator=g)
+    cot_rows = torch.randn(64, 7, 26, e, generator=g)
+    cot_b = torch.randn(64, 7, 26, generator=g)
+    t_emb, t_bias = emb.to(dev).requires_grad_(), bias.to(dev).requires_grad_()
+    before = (embedding.launches, scatter_unique.launches)
+    rows, b = dedup_scatter.decoder_gather(t_emb, t_bias, ids.to(dev))
+    assert torch.equal(rows.cpu(), emb[ids]) and torch.equal(b.cpu(), bias[ids][..., 0])
+    torch.autograd.backward((rows, b), (cot_rows.to(dev), cot_b.to(dev)))
+    assert (embedding.launches, scatter_unique.launches) == (before[0] + 1, before[1] + 1)
+    flat = ids.reshape(-1).long()
+    gcat = torch.cat([cot_rows.reshape(-1, e), cot_b.reshape(-1, 1)], 1).double()
+    ref = torch.zeros(vocab, e + 1, dtype=torch.float64).index_add_(0, flat, gcat)
+    order = torch.sort(flat, stable=True).indices
+    ulps = 16 * 2.0 ** -24 * gcat[order].cumsum(0).abs().max(0).values
+    got = torch.cat([t_emb.grad, t_bias.grad], 1).cpu().double()
+    assert bool(((got - ref).abs() <= 1e-6 + ulps).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mfp_dcnv2_gradients_match_the_plain_versions(dev, dtype):
+    import numpy as np
+
+    from map_tpu_torch.train.train_step import MFPDraws
+
+    cfg = Config(model_name="dcnv2", input_size=3000, num_fields=6, embed_size=16,
+                 hidden_size=64, num_hidden_layers=2, num_cross_layers=2,
+                 compute_dtype=dtype, pretrain=True, pt_type="MFP", proj_size=32,
+                 pt_neg_num=25, feat_count=np.arange(3000, dtype=np.float32))
+    model = models.from_config(cfg, torch.Generator().manual_seed(0))
+    assert len(list(model.parameters())) == 13
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(10, 3000, (300, 6), generator=g, dtype=torch.int32)
+    draws = MFPDraws(torch.randint(0, 6, (300, 2), generator=g),
+                     torch.randint(10, 3000, (300, 2, 25), generator=g, dtype=torch.int32),
+                     None)
+    from map_tpu_torch.objectives.corruption import mfp_corrupt
+
+    corrupted, labels = mfp_corrupt(ids, draws.masked_index)
+    cand = torch.cat([labels[..., None], draws.noise], -1)
+
+    def grads(m, device):
+        m = m.to(device).train()
+        logits = m.mfp_candidate_logits(corrupted.to(device), draws.masked_index.to(device),
+                                        cand.to(device))
+        loss = torch.log_softmax(logits, -1)[..., 0].mean().neg()
+        m.zero_grad()
+        loss.backward()
+        return loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()}
+
+    import copy
+
+    counts = lambda: (embedding.launches, scatter.launches, cross.launches,  # noqa: E731
+                      scatter_unique.launches)
+    before = counts()
+    loss, got = grads(copy.deepcopy(model), dev)
+    assert counts() == (before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1)
+    ref_loss, ref = grads(model, "cpu")  # the plain versions
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    assert abs(loss - ref_loss) <= tol * max(1.0, abs(ref_loss))
+    for name, r in ref.items():
+        scale = float(r.abs().max()) + 1e-12
+        torch.testing.assert_close(got[name], r, atol=tol * scale, rtol=tol, msg=name)

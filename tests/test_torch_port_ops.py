@@ -151,10 +151,12 @@ def test_adamw_plain_matches_pallas(wd):
     mu = (rng.normal(size=shape) * 1e-2).astype(np.float32)
     nu = (rng.random(size=shape) * 1e-4).astype(np.float32)
     g = (rng.normal(size=shape) * 1e-2).astype(np.float32)
+    # the port's copies first: the Pallas call updates p, mu, nu in place
+    # and runs asynchronously
+    tp, tmu, tnu = _t(p.copy()), _t(mu.copy()), _t(nu.copy())
     ref = fused_adamw_dense(jnp.asarray(p), jnp.asarray(mu), jnp.asarray(nu),
                             jnp.asarray(g), pack_scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3),
                             interpret=True)
-    tp, tmu, tnu = _t(p.copy()), _t(mu.copy()), _t(nu.copy())
     before = port_adamw.launches
     port_adamw.fused_adamw(tp, tmu, tnu, _t(g),
                            port_adamw.scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3))
@@ -262,3 +264,114 @@ def test_cross_backward_ragged_width_matches_xla_autodiff():
     got = _port_cross_vjp(x0, kernels, biases, cot, torch.float32)
     for name, g, r in zip(("dx0", "dW", "db"), got, ref):
         np.testing.assert_allclose(g, np.asarray(r), atol=1e-5, rtol=1e-5, err_msg=name)
+
+
+# ---- K5: sorted-unique scatter, and the decoder gather around it ---------------
+
+def _unique_stream(case):
+    """(uids (C,) int32 with the sentinel V behind the valid ids, vals (C, E)
+    float32, V) for the Pallas kernel's own test shapes: C a multiple of 512
+    and at least 1024."""
+    rng = np.random.default_rng(len(case))
+    if case == "dense_window":  # every id of the table, every window full
+        v, c = 2048, 2048
+        uids = np.arange(c, dtype=np.int32)
+    else:  # "sparse", or a vocabulary that is not a multiple of the tile
+        v, c, nu = (4096, 1024, 700) if case == "sparse" else (3000, 1024, 400)
+        uids = np.concatenate([np.sort(rng.choice(v, nu, replace=False)),
+                               np.full(c - nu, v)]).astype(np.int32)
+    vals = rng.normal(size=(c, 33)).astype(np.float32)
+    vals[uids >= v] = 0.0
+    return uids, vals, v
+
+
+@pytest.mark.parametrize("case", ["sparse", "vocab_not_tile_multiple", "dense_window"])
+@pytest.mark.parametrize("matmul", ["highest", "bf16x2"])
+def test_scatter_unique_sorted_plain_matches_pallas(case, matmul):
+    from map_tpu.ops.pallas_scatter import scatter_unique_sorted as jax_k5
+    from map_tpu_torch.ops import scatter_unique
+
+    uids, vals, v = _unique_stream(case)
+    ref = np.asarray(jax_k5(jnp.asarray(uids), jnp.asarray(vals), v, interpret=True,
+                            matmul=matmul))
+    before = scatter_unique.launches
+    (out,) = scatter_unique.scatter_unique_sorted(_t(uids), _t(vals), v, matmul=matmul)
+    assert scatter_unique.launches == before  # the CPU path launches nothing
+    assert out.dtype == torch.float32 and out.shape == (v, 33)
+    np.testing.assert_array_equal(out.numpy(), ref)  # exact in both modes
+    # the decoder's split: the emb columns and the bias column, contiguous
+    emb, bias = scatter_unique.scatter_unique_sorted(_t(uids), _t(vals), v,
+                                                     widths=(32, 1), matmul=matmul)
+    assert emb.is_contiguous() and bias.shape == (v, 1)
+    np.testing.assert_array_equal(torch.cat([emb, bias], 1).numpy(), ref)
+
+
+def test_scatter_unique_sorted_rejects_what_it_does_not_take():
+    from map_tpu_torch.ops import scatter_unique
+
+    uids, vals = torch.zeros(4, dtype=torch.int32), torch.zeros(4, 33)
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids, vals, 10, widths=(32, 2))
+    with pytest.raises(ValueError):
+        scatter_unique.scatter_unique_sorted(uids, vals, 10, matmul="default")
+    with pytest.raises(ValueError):  # no kernel for a meta tensor
+        scatter_unique.scatter_unique_sorted(uids.to("meta"), vals.to("meta"), 10)
+
+
+@pytest.mark.parametrize("num_distinct", [5, 60, 3000])
+def test_decoder_gather_matches_map_tpu(num_distinct):
+    import jax
+
+    from map_tpu.ops import dedup_scatter as jax_ds
+    from map_tpu_torch.ops import dedup_scatter
+
+    rng = np.random.default_rng(num_distinct)
+    v, e, b, m, c = 4000, 8, 16, 3, 26
+    pool = rng.choice(v, num_distinct, replace=False)
+    ids = rng.choice(pool, size=(b, m, c)).astype(np.int32)
+    emb = rng.normal(size=(v, e)).astype(np.float32)
+    bias = rng.normal(size=v).astype(np.float32)
+    x = rng.normal(size=(b, m, e)).astype(np.float32)
+
+    def jax_loss(emb_, bias_):
+        rows, bb = jax_ds.decoder_gather(emb_, bias_, jnp.asarray(ids), True)
+        return jnp.sum(jnp.tanh(jnp.einsum("bmke,bme->bmk", rows, jnp.asarray(x)) + bb))
+
+    ref_rows, ref_b = jax_ds.decoder_gather(jnp.asarray(emb), jnp.asarray(bias),
+                                            jnp.asarray(ids), True)
+    ref_demb, ref_dbias = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(emb),
+                                                             jnp.asarray(bias))
+    t_emb = _t(emb).requires_grad_()
+    t_bias = _t(bias).reshape(-1, 1).requires_grad_()
+    rows, bb = dedup_scatter.decoder_gather(t_emb, t_bias, _t(ids))
+    np.testing.assert_array_equal(rows.detach().numpy(), np.asarray(ref_rows))
+    np.testing.assert_array_equal(bb.detach().numpy(), np.asarray(ref_b))
+    torch.sum(torch.tanh(torch.einsum("bmke,bme->bmk", rows, _t(x)) + bb)).backward()
+    # Both fold by float32 prefix-sum differences, summed in other orders, so
+    # a folded value carries the rounding of the running prefix, not of its
+    # own size: 1e-5 + 1e-5 |ref|, plus 16 ulps of the largest prefix of its
+    # column (measured: differences of up to 9 such ulps, 3.1e-5, where the
+    # bias column's prefix, a sum of positive terms, reaches 405).
+    s = 1.0 - np.tanh(np.einsum("bmke,bme->bmk", emb[ids].astype(np.float64), x)
+                      + bias[ids]) ** 2
+    g = np.concatenate([(s[..., None] * x[:, :, None, :]).reshape(-1, e),
+                        s.reshape(-1, 1)], axis=1)[np.argsort(ids.ravel(), kind="stable")]
+    ulps = 16 * 2.0 ** -24 * np.abs(np.cumsum(g, axis=0)).max(axis=0)
+    np.testing.assert_array_less(np.abs(t_emb.grad.numpy() - np.asarray(ref_demb)),
+                                 1e-5 + 1e-5 * np.abs(ref_demb) + ulps[:e])
+    np.testing.assert_array_less(np.abs(t_bias.grad.numpy()[:, 0] - np.asarray(ref_dbias)),
+                                 1e-5 + 1e-5 * np.abs(ref_dbias) + ulps[e])
+    untouched = np.setdiff1d(np.arange(v), ids)
+    assert not t_emb.grad.numpy()[untouched].any()
+
+
+def test_sort_and_fold_compacts_the_distinct_ids():
+    from map_tpu_torch.ops.dedup_scatter import sort_and_fold
+
+    ids = torch.tensor([7, 3, 7, 9, 3, 3], dtype=torch.int32)
+    g = torch.arange(12, dtype=torch.float32).reshape(6, 2)
+    uids, vals, num_unique = sort_and_fold(ids, g, 10)
+    assert num_unique.item() == 3 and uids.dtype == torch.int32
+    assert uids.tolist() == [3, 7, 9, 10, 10, 10]
+    assert vals.tolist() == [[2 + 8 + 10, 3 + 9 + 11], [0 + 4, 1 + 5], [6, 7],
+                             [0, 0], [0, 0], [0, 0]]

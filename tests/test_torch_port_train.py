@@ -118,6 +118,31 @@ def test_no_decay_mask_and_table_rule_match_map_tpu(packed):
     assert decays("embed.embedding.weight")
 
 
+def test_no_decay_rule_matches_map_tpu_on_the_mfp_head():
+    # map_tpu leaves the NCE decoder's bias table undecayed (leaf `bias`);
+    # its torch name is `mfp_criterion.bias.weight`
+    cfg = base_model_config(input_size=600, num_hidden_layers=3, num_cross_layers=3,
+                            pretrain=True, pt_type="MFP", proj_size=8, pt_neg_num=5)
+    cfg.feat_count = np.ones(600, np.float32)
+    cfg.logprob_noise = np.full(600, -np.log(600), np.float32)
+    cfg.norm_term = float(np.log(600))
+    variables = jax_models.from_config(cfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((2, 8), jnp.int32),
+        masked_index=jnp.zeros((2, 2), jnp.int32),
+        candidates=jnp.zeros((2, 2, 6), jnp.int32))
+    mask = traverse_util.flatten_dict(no_decay_mask(variables["params"]))
+    port_cfg = Config.from_dict(cfg.to_dict())
+    names = [n for n, _ in models.from_config(port_cfg).named_parameters()]
+    assert len(names) == 17  # 13 of the backbone + feat_encoder + the decoder
+    rules = dcnv2_rules(port_cfg)
+    assert sorted(names) == sorted(key for key, _, _ in rules)
+    assert len(mask) == 17
+    for key, path, _ in rules:
+        assert decays(key) == mask[path], key
+    assert not decays("mfp_criterion.bias.weight")
+    assert decays("mfp_criterion.emb.weight") and decays("feat_encoder.weight")
+
+
 @pytest.mark.parametrize("shuffle", [True, False])
 def test_batcher_stream_matches_map_tpu(shuffle):
     rng = np.random.default_rng(3)
@@ -371,8 +396,18 @@ def test_cli_takes_the_scratch_script_flags():
 
 
 def test_cli_pretrain_is_not_ported(tmp_path):
+    # MFP is ported (tests/test_torch_port_mfp.py); RFD raises
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main([f"--output_dir={tmp_path}", "--pretrain", "--device", "cpu"])
+        port_main([f"--output_dir={tmp_path}", "--pretrain", "--pt_type=RFD",
+                   "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flag", ["--pt_shared_noise", "--pt_per_field_noise",
+                                  "--nce_loss_type=full"])
+def test_cli_rejects_mfp_options_not_ported(tmp_path, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        port_main([f"--output_dir={tmp_path}", "--pretrain", flag, "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "train.log")
 
 
 def test_trainer_needs_a_card_unless_told_cpu():
