@@ -38,20 +38,37 @@ each; any failure ends the run with a nonzero exit code.
    randint, 25 negatives, proj 32, lr 1e-3 cosine, wd 5e-2) through the
    Trainer on the same train split, whose unigram is the noise: one epoch of
    --train_steps steps and one masked eval. Checks: window loss finite and
-   falling, eval accuracy above chance 1/(1+k), the launches of K1-K5 equal
-   to what the step and batch counts give; the distinct candidate ids of
-   every step beside the capacity. K5 (sorted-unique scatter) against its
-   plain version on one step's folded candidate stream, both modes, exact
-   and deterministic. Then 5 MFP steps from the same weights and draws
-   through the kernels and through the plain versions, in bf16 and f32; the
-   step time and a few steps under torch.profiler;
+   falling, eval accuracy above chance 1/(1+k), the launches of K1-K5 and
+   K8 equal to what the step and batch counts give; the distinct candidate
+   ids of every step beside the capacity. K5 (sorted-unique scatter)
+   against its plain version on one step's folded candidate stream, both
+   modes, exact and deterministic. Then 5 MFP steps from the same weights
+   and draws through the kernels and through the plain versions, in bf16
+   and f32; the step time and a few steps under torch.profiler;
+8b. MFP with per-field shared noise at k = 100 and the sparse table update
+   (bench_pretrain.py's fast configuration; otherwise as phase 8), through
+   the Trainer in bf16: one epoch, one masked eval. Checks: window loss
+   finite and falling, eval accuracy above 1/(1+k), the launches of every
+   kernel, K7 (sparse-stream decoder AdamW) and K8 (block scan) included.
+   K7 against its plain version on one step's real streams (exact, the same
+   bits twice); K8 against its plain version and a float64 scan on the
+   per-position fold's (745,472, 33) stream and this path's target fold
+   (28,672, 33) and noise fold; 5 f32 steps with K7 against 5 on the dense
+   route (K5 + K1 on the decoder emb), bit-equal; 5 steps through the
+   kernels against the plain versions in bf16 and f32; step time and a few
+   steps under torch.profiler;
+8c. the other noise modes, 5 steps each through the kernels against the
+   plain versions in bf16: global shared noise (k = 25, sparse update),
+   per-field per-position noise (k = 25) and the `full` loss (batch 64);
 9. finetune: supervised DCNv2 from the MFP checkpoint (13 tensors loaded,
    4 skipped), one epoch, eval AUC > 0.6, launches checked;
 10. times: median ms of each kernel (CUDA events, L2 flushed before each
    launch), its bound on an H100 SXM, its plain version and one-call
-   library yardstick; K3 also on the MFP step's corrupted ids;
-11. the `kernels` line (launches from the MFP run, which launches all five),
-   nvidia-smi's line, and last
+   library yardstick; K3 also on the MFP step's corrupted ids; K7 beside
+   two yardsticks (index_add_ x 2 + torch._fused_adamw_, and the dense
+   route K5 x 2 + K1), K8 beside torch.cumsum over dim 0;
+11. the `kernels` line (launches from the per-field shared run of 8b, which
+   launches all seven), nvidia-smi's line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -120,6 +137,11 @@ TOL_PARITY_UPDATE_L1 = {"float32": 1e-2, "bfloat16": 0.25}
 MFP_LR, MFP_WD = 1e-3, 5e-2
 MFP_MASK_RATIO, MFP_NEG, MFP_PROJ = 0.3, 25, 32
 MAP_TPU_CAPACITY = 1 << 17  # map_tpu's static decoder capacity (dedup_scatter.py:161)
+# per-field shared noise, bench_pretrain.py:123,142-143 (validation/README.md)
+PFS_NEG = 100
+FULL_BATCH = 64  # the full loss's (B, M, V) scores: 116 GB at batch 4096
+# K8 against a float64 scan: within this share of the largest prefix of |x|
+TOL_SCAN = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -252,21 +274,67 @@ def teacher_dataset(rng: np.random.Generator, train_rows: int):
 def plain_layers():
     """The DCNv2 layers with the gather and the cross net swapped for their
     plain versions (differentiated by autograd), and the MFP decoder's
-    gather and K5 for theirs, for the comparison runs."""
+    gather, K8 and K5 for theirs, for the comparison runs."""
     from map_tpu_torch.nn import layers
-    from map_tpu_torch.ops import cross, dedup_scatter, embedding, scatter_unique
+    from map_tpu_torch.ops import cross, dedup_scatter, embedding, scan, scatter_unique
 
-    saved = (layers.embedding_lookup, layers.cross_net,
-             dedup_scatter.embedding_lookup, dedup_scatter.scatter_unique_sorted)
+    saved = (layers.embedding_lookup, layers.cross_net, dedup_scatter.embedding_lookup,
+             dedup_scatter.block_cumsum, dedup_scatter.scatter_unique_sorted)
     layers.embedding_lookup = embedding.embedding_lookup_plain
     layers.cross_net = cross.cross_net_plain
     dedup_scatter.embedding_lookup = embedding.embedding_lookup_plain
+    dedup_scatter.block_cumsum = scan.block_cumsum_plain
     dedup_scatter.scatter_unique_sorted = scatter_unique.scatter_unique_sorted_plain
     try:
         yield
     finally:
-        (layers.embedding_lookup, layers.cross_net,
-         dedup_scatter.embedding_lookup, dedup_scatter.scatter_unique_sorted) = saved
+        (layers.embedding_lookup, layers.cross_net, dedup_scatter.embedding_lookup,
+         dedup_scatter.block_cumsum, dedup_scatter.scatter_unique_sorted) = saved
+
+
+def mfp_args(output_dir: str, seed: int, **kw):
+    """run_script/run_DCNv2_MFP.sh's flags, bf16, batch TRAIN_BATCH."""
+    from map_tpu_torch.config import TrainingArguments
+
+    return TrainingArguments(
+        output_dir=output_dir, dataset_name="in-memory", data_dir=output_dir,
+        per_device_train_batch_size=TRAIN_BATCH, per_device_eval_batch_size=EVAL_BATCH,
+        learning_rate=MFP_LR, weight_decay=MFP_WD, lr_sched="cosine", num_train_epochs=1,
+        logging_steps=10, mask_ratio=MFP_MASK_RATIO, sampling_method="randint",
+        pretrain=True, pt_type="MFP", compute_dtype="bfloat16", seed=seed, **kw)
+
+
+def mfp_steps(dev, cfg, targs, tables, batches, draws, read_counts, *, seed: int,
+              shared: bool, sparse: bool, plain: bool):
+    """MFP steps of `cfg`'s mode from the weights of `seed`, one per (batch,
+    draws), through the kernels or (plain) through their plain versions;
+    sparse: the decoder emb updated from its streams (K7 or its plain
+    version). -> (losses (n,), {name: parameter}, launches during the steps)."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.ops import fused_adamw, sparse_adamw
+    from map_tpu_torch.train.optimizer import build_optimizer
+    from map_tpu_torch.train.train_step import make_mfp_steps
+
+    m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    handoff = sparse_adamw.StreamHandoff() if sparse else None
+    m.mfp_criterion.handoff = handoff
+    opt, _ = build_optimizer(
+        m, targs, len(batches), 0,
+        update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw,
+        sparse={"mfp_criterion.emb.weight": handoff} if sparse else None,
+        sparse_update=sparse_adamw.sparse_adamw_plain if plain else sparse_adamw.sparse_adamw)
+    step, _ = make_mfp_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", tables,
+                             torch.Generator(device=dev), dev, shared_noise=shared)
+    before = read_counts()
+    with plain_layers() if plain else contextlib.nullcontext():
+        losses = torch.stack([step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu()
+    after = read_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    if plain and any(launched.values()):
+        raise AssertionError(f"the plain run launched kernels: {launched}")
+    return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
 
 
 def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
@@ -276,13 +344,11 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     import torch
 
     from map_tpu_torch import models
-    from map_tpu_torch.config import TrainingArguments
     from map_tpu_torch.data.dataset import compute_feat_count
     from map_tpu_torch.data.loader import Batcher
     from map_tpu_torch.objectives.corruption import mask_num_of, mfp_corrupt
-    from map_tpu_torch.ops import dedup_scatter, fused_adamw, scatter_unique
-    from map_tpu_torch.train.optimizer import build_optimizer
-    from map_tpu_torch.train.train_step import draw_mfp, make_mfp_steps
+    from map_tpu_torch.ops import dedup_scatter, scatter_unique
+    from map_tpu_torch.train.train_step import draw_mfp
     from map_tpu_torch.train.trainer import Trainer
 
     _, _, vocab = field_blocks()
@@ -302,13 +368,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         return models.from_config(c, torch.Generator().manual_seed(args.seed))
 
     cfg_m = mfp_cfg("bfloat16")
-    targs = TrainingArguments(
-        output_dir=os.path.join(work, "pretrain"), dataset_name="in-memory",
-        data_dir=work, per_device_train_batch_size=TRAIN_BATCH,
-        per_device_eval_batch_size=EVAL_BATCH, learning_rate=MFP_LR,
-        weight_decay=MFP_WD, lr_sched="cosine", num_train_epochs=1,
-        logging_steps=10, mask_ratio=MFP_MASK_RATIO, sampling_method="randint",
-        pretrain=True, pt_type="MFP", compute_dtype="bfloat16", seed=args.seed)
+    targs = mfp_args(os.path.join(work, "pretrain"), args.seed)
     t0 = time.perf_counter()
     trainer = Trainer(fresh(cfg_m), cfg_m, targs, data)  # builds the alias table
     setup_s = time.perf_counter() - t0
@@ -340,7 +400,8 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": 2 * (steps + eval_batches),
                 "cross_net": steps + eval_batches, "scatter_add": steps,
-                "fused_adamw": steps * num_params, "scatter_unique_sorted": steps}
+                "fused_adamw": steps * num_params, "scatter_unique_sorted": steps,
+                "block_cumsum": steps, "sparse_adamw": 0}
     distinct = torch.stack(unique).cpu().tolist()
     losses = [w["window_loss"] for w in trainer.train_windows]
     eval_loss, eval_acc = trainer.eval_metrics[-1]
@@ -395,23 +456,10 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
 
     # 5 MFP steps from the same weights and draws, kernels vs plain versions
     for dname in ("bfloat16", "float32"):
-        def five_steps(plain: bool):
-            m = fresh(mfp_cfg(dname)).to(dev)
-            opt, _ = build_optimizer(
-                m, targs, args.train_steps, 0,
-                update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw)
-            step, _ = make_mfp_steps(m, opt, m.config, MFP_MASK_RATIO, "randint",
-                                     trainer.noise, torch.Generator(device=dev), dev)
-            before = read_counts()
-            with plain_layers() if plain else contextlib.nullcontext():
-                losses = torch.stack([step(b, d)["loss"]
-                                      for b, d in zip(batches, draws)]).cpu()
-            if plain and read_counts() != before:
-                raise AssertionError("the plain run launched a kernel")
-            return losses, {n: p.detach() for n, p in m.named_parameters()}
-
-        k_loss, k_params = five_steps(plain=False)
-        p_loss, p_params = five_steps(plain=True)
+        (k_loss, k_params, _), (p_loss, p_params, _) = (
+            mfp_steps(dev, mfp_cfg(dname), targs, trainer.noise, batches, draws,
+                      read_counts, seed=args.seed, shared=False, sparse=False,
+                      plain=plain) for plain in (False, True))
         parity_check(f"mfp {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
                      dname, MFP_LR, k_loss, p_loss, k_params, p_params,
                      dict(fresh(mfp_cfg(dname)).named_parameters()))
@@ -437,9 +485,219 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     emit("mfp_training_profile", compute_dtype="bfloat16", steps=prof_steps,
          busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
          k3_share_of_busy=k3_ms / prof["device_busy_ms"], **prof)
+    # the per-position fold's scan input: the candidates' gradient rows in
+    # sorted order, as sort_and_fold hands it to K8
+    fold_scan = g.index_select(0, torch.sort(cand.int(), stable=True)[1])
     return dict(launches=launches, ckpt=ckpt, work=work, k5_err=k5_err,
                 k5_stream=(uids, vals, num_unique), fold_inputs=(cand, g),
-                corrupted=corrupted)
+                fold_scan=fold_scan, corrupted=corrupted, feat_count=feat_count,
+                noise=trainer.noise)
+
+
+def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
+    """8b. Per-field shared noise, k = PFS_NEG, with the sparse table update,
+    through the Trainer in bf16; K7 and K8 on the path's data; K7 against
+    the dense route; kernels-vs-plain parity; step time and profile. 8c.
+    The other noise modes' parity. Returns what the times and summary
+    phases read."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.data.loader import Batcher
+    from map_tpu_torch.objectives.corruption import mask_num_of
+    from map_tpu_torch.ops import dedup_scatter, scan, sparse_adamw
+    from map_tpu_torch.train.train_step import draw_mfp
+    from map_tpu_torch.train.trainer import Trainer
+
+    num_fields = len(FIELD_SIZES)
+    mask_num = mask_num_of(num_fields, MFP_MASK_RATIO)
+    work = tempfile.mkdtemp(prefix="chip_smoke_pfs_")
+
+    def mode_cfg(dname, k=PFS_NEG, per_field=True, loss="nce"):
+        return dataclasses.replace(cfg, compute_dtype=dname, pretrain=True,
+                                   pt_type="MFP", proj_size=MFP_PROJ, pt_neg_num=k,
+                                   nce_loss_type=loss, pt_per_field_noise=per_field,
+                                   feat_count=mfp["feat_count"])
+
+    cfg_s = mode_cfg("bfloat16")
+    targs = mfp_args(os.path.join(work, "pretrain"), args.seed, pt_shared_noise=True,
+                     pt_per_field_noise=True, sparse_table_update=True)
+    t0 = time.perf_counter()
+    trainer = Trainer(models.from_config(cfg_s, torch.Generator().manual_seed(args.seed)),
+                      cfg_s, targs, data)  # builds the per-field alias tables
+    setup_s = time.perf_counter() - t0
+    num_params = len(list(trainer.model.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.MFP_pretrain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = trainer.global_step
+    eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
+    # a train step gathers the input rows, the targets and the (F, k) noise
+    # rows (K4 x 3, as the eval step); folds the targets' and the noise's
+    # gradients (K8 x 2), writes their bias gradients (K5 x 2) and hands
+    # their emb streams to K7; K1 updates the 16 other parameters
+    expected = {"embedding_gather": 3 * (steps + eval_batches),
+                "cross_net": steps + eval_batches, "scatter_add": steps,
+                "fused_adamw": steps * (num_params - 1), "scatter_unique_sorted": 2 * steps,
+                "block_cumsum": 2 * steps, "sparse_adamw": steps}
+    losses = [w["window_loss"] for w in trainer.train_windows]
+    eval_loss, eval_acc = trainer.eval_metrics[-1]
+    emit("mfp_pf_shared_training", compute_dtype="bfloat16", steps=steps,
+         batch=TRAIN_BATCH, k=PFS_NEG, setup_s=setup_s, wall_s=wall,
+         windows=trainer.train_windows, eval_mfp_loss=eval_loss, eval_mfp_acc=eval_acc,
+         launches=launches, expected_launches=expected,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check("pf-shared: sparse table update engaged",
+          trainer.model.mfp_criterion.handoff is not None and bool(trainer.optimizer.sparse))
+    check(f"pf-shared: {args.train_steps} steps", steps == args.train_steps)
+    check("pf-shared: window loss finite and falling",
+          all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          first_window_loss=losses[0], last_window_loss=losses[-1])
+    check("pf-shared: eval accuracy above chance", eval_acc > 1.0 / (1 + PFS_NEG),
+          eval_mfp_acc=eval_acc, chance=1.0 / (1 + PFS_NEG))
+    check("pf-shared: launches", launches == expected)
+
+    # one step's real K7 streams and K8 inputs
+    batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH,
+                           shuffle=True, seed=args.seed).epoch(0))[:PARITY_STEPS]
+
+    def draws_of(tables, method, seed, k=PFS_NEG, shared=True, full=False, batch=TRAIN_BATCH):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [draw_mfp(gen, tables, batch, num_fields, mask_num, k, method,
+                         shared_noise=shared, full=full) for _ in batches]
+
+    draws = draws_of(trainer.noise, "randint", args.seed + 4)
+    captured = {"scan": []}
+    opt, k7, k8 = trainer.optimizer, trainer.optimizer.sparse_update, dedup_scatter.block_cumsum
+
+    def capture_update(p, mu, nu, target, noise, s):
+        captured["k7"] = (target, noise, s, p.clone(), mu.clone(), nu.clone())
+        k7(p, mu, nu, target, noise, s)
+
+    def capture_scan(x):
+        captured["scan"].append(x.clone())
+        return k8(x)
+
+    opt.sparse_update, dedup_scatter.block_cumsum = capture_update, capture_scan
+    try:
+        trainer.train_step(batches[0], draws[0])
+    finally:
+        opt.sparse_update, dedup_scatter.block_cumsum = k7, k8
+    target, noise, s, p0, mu0, nu0 = captured["k7"]
+    vocab, e = p0.shape
+    valid = [int((st.uids < vocab).sum()) for st in (target, noise)]
+    ref = [t.clone() for t in (p0, mu0, nu0)]
+    sparse_adamw.sparse_adamw_plain(*ref, target, noise, s)
+    got, again = ([t.clone() for t in (p0, mu0, nu0)] for _ in range(2))
+    sparse_adamw.sparse_adamw(*got, target, noise, s)
+    sparse_adamw.sparse_adamw(*again, target, noise, s)
+    torch.cuda.synchronize()
+    label = (f"{vocab} x {e}, target stream {target.uids.numel()} ({valid[0]} distinct), "
+             f"noise stream {noise.uids.numel()} ({valid[1]} distinct)")
+    k7_err = max(compare(f"K7 {part}, {label}", a, r, 0.0, 0.0)
+                 for part, a, r in zip(("p", "mu", "nu"), got, ref))
+    check("K7 deterministic", all(torch.equal(a, b) for a, b in zip(got, again)))
+    del ref, got, again
+
+    # autograd runs the noise rows' backward first; the folds differ in length
+    folds = {x.shape[0]: x for x in captured["scan"]}
+    k8_inputs = {"per-position fold": mfp["fold_scan"],
+                 "target fold": folds.get(TRAIN_BATCH * mask_num),
+                 "noise fold": folds.get(num_fields * PFS_NEG)}
+    check("K8 inputs: a step scans the target fold's (B * M, E + 1) and the noise "
+          "fold's (F * k, E + 1)", len(captured["scan"]) == 2
+          and all(x is not None and x.shape[1] == MFP_PROJ + 1 for x in k8_inputs.values()),
+          shapes=[list(x.shape) for x in captured["scan"]])
+    k8_err = {}
+    for key, x in k8_inputs.items():
+        out, out2 = scan.block_cumsum(x), scan.block_cumsum(x)
+        plain = scan.block_cumsum_plain(x)
+        exact = x.double().cumsum(0)
+        tol = TOL_SCAN * float(x.double().abs().cumsum(0).max())
+        err64 = float((out.double() - exact).abs().max())
+        k8_err[key] = float((out - plain).abs().max())
+        plain64 = float((plain.double() - exact).abs().max())
+        check(f"K8 {key} {tuple(x.shape)}: within {TOL_SCAN} max cumsum|x| of float64, "
+              "and of the plain version", err64 <= tol and k8_err[key] <= 2 * tol
+              and bool(out.isfinite().all()), max_abs_err_f64=err64, tol=tol,
+              max_abs_err_plain=k8_err[key], plain_max_abs_err_f64=plain64)
+        check(f"K8 {key} deterministic", torch.equal(out, out2))
+
+    # 5 f32 steps with K7 against the dense route, from the same weights and
+    # draws. Masked positions without repeats ('normal'), so that no step
+    # adds into one element twice through atomics (the encoder gather's
+    # backward): then every op of both runs is deterministic, and target +
+    # noise is one float32 add either way, so the runs are bit-equal.
+    det_draws = draws_of(trainer.noise, "normal", args.seed + 5)
+    runs = {sparse: mfp_steps(dev, mode_cfg("float32"), targs, trainer.noise, batches,
+                              det_draws, read_counts, seed=args.seed, shared=True,
+                              sparse=sparse, plain=False) for sparse in (True, False)}
+    max_d = max(float((runs[True][1][n] - p).abs().max()) for n, p in runs[False][1].items())
+    check(f"pf-shared f32: {PARITY_STEPS} steps, K7 vs the dense route (K5 + K1 on emb)",
+          max_d == 0.0 and torch.equal(runs[True][0], runs[False][0])
+          and runs[True][2]["sparse_adamw"] == PARITY_STEPS
+          and runs[False][2]["sparse_adamw"] == 0,
+          param_max_abs=max_d, losses_k7=runs[True][0].tolist(),
+          losses_dense=runs[False][0].tolist(), launches_k7=runs[True][2],
+          launches_dense=runs[False][2])
+    del runs
+
+    # 5 steps through the kernels against the plain versions: this path in
+    # bf16 and f32; then the other modes in bf16
+    base = dict(read_counts=read_counts, seed=args.seed)
+    small = [{k: v[:FULL_BATCH] for k, v in b.items()} for b in batches]
+    cases = [
+        ("pf-shared bfloat16", mode_cfg("bfloat16"), trainer.noise, batches, draws, True, True),
+        ("pf-shared float32", mode_cfg("float32"), trainer.noise, batches, draws, True, True),
+        ("global shared k=25 bfloat16", mode_cfg("bfloat16", MFP_NEG, False), mfp["noise"],
+         batches, draws_of(mfp["noise"], "randint", args.seed + 6, MFP_NEG), True, True),
+        ("per-field per-position k=25 bfloat16", mode_cfg("bfloat16", MFP_NEG),
+         trainer.noise, batches,
+         draws_of(trainer.noise, "randint", args.seed + 7, MFP_NEG, shared=False),
+         False, False),
+        (f"full loss batch {FULL_BATCH} bfloat16",
+         mode_cfg("bfloat16", MFP_NEG, False, "full"), mfp["noise"], small,
+         draws_of(mfp["noise"], "randint", args.seed + 8, shared=False, full=True,
+                  batch=FULL_BATCH), False, False),
+    ]
+    for name, c, tables, bs, ds, shared, sparse in cases:
+        (k_loss, k_params, launched), (p_loss, p_params, _) = (
+            mfp_steps(dev, c, targs, tables, bs, ds, shared=shared, sparse=sparse,
+                      plain=plain, **base) for plain in (False, True))
+        check(f"{name}: K7 launched in every step of a sparse run only",
+              launched["sparse_adamw"] == (len(bs) if sparse else 0), launched=launched)
+        parity_check(f"{name}: {PARITY_STEPS} steps, kernels vs plain versions",
+                     c.compute_dtype, MFP_LR, k_loss, p_loss, k_params, p_params,
+                     dict(models.from_config(c, torch.Generator().manual_seed(args.seed))
+                          .named_parameters()))
+        del k_params, p_params
+
+    # step time and where it goes
+    step = trainer.train_step
+    for b in batches[:3]:
+        step(b)
+    torch.cuda.synchronize()
+    timed = 20
+    t0 = time.perf_counter()
+    for i in range(timed):
+        step(batches[i % PARITY_STEPS])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    emit("mfp_pf_shared_time", compute_dtype="bfloat16", batch=TRAIN_BATCH, k=PFS_NEG,
+         step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
+         trainer_window_time_cost=[w["time_cost"] for w in trainer.train_windows])
+    prof_steps = 5
+    prof = profile(lambda: [step(batches[i]) for i in range(prof_steps)], top_n=16)
+    emit("mfp_pf_shared_profile", compute_dtype="bfloat16", steps=prof_steps,
+         busy_ms_per_step=prof["device_busy_ms"] / prof_steps, **prof)
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, k7_err=k7_err, k8_err=k8_err["target fold"],
+                k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs)
 
 
 def finetune_phase(args, dev, cfg, data, ckpt, reset_counts, read_counts) -> None:
@@ -475,7 +733,8 @@ def finetune_phase(args, dev, cfg, data, ckpt, reset_counts, read_counts) -> Non
     expected = {"embedding_gather": steps + eval_batches,
                 "cross_net": steps + eval_batches, "scatter_add": steps,
                 "fused_adamw": steps * len(list(trainer.model.parameters())),
-                "scatter_unique_sorted": 0}
+                "scatter_unique_sorted": 0,
+                "block_cumsum": 0, "sparse_adamw": 0}
     emit("finetune", compute_dtype="bfloat16", steps=steps, wall_s=wall,
          windows=trainer.train_windows, eval_auc_logloss=trainer.eval_metrics,
          test=test, launches=launches, expected_launches=expected)
@@ -515,7 +774,9 @@ def main(argv=None) -> int:
         embedding,
         fused_adamw,
         scatter,
+        scan,
         scatter_unique,
+        sparse_adamw,
     )
     from map_tpu_torch.serve import Predictor
     from map_tpu_torch.train import checkpoints
@@ -526,7 +787,8 @@ def main(argv=None) -> int:
 
     kernel_modules = {"embedding_gather": embedding, "cross_net": cross,
                       "fused_adamw": fused_adamw, "scatter_add": scatter,
-                      "scatter_unique_sorted": scatter_unique}
+                      "scatter_unique_sorted": scatter_unique, "block_cumsum": scan,
+                      "sparse_adamw": sparse_adamw}
 
     def reset_counts():
         for mod in kernel_modules.values():
@@ -693,7 +955,8 @@ def main(argv=None) -> int:
     emit("serving_launches", launches=serving_launches, expected_each=expected)
     check("serving launches", serving_launches == {
         "embedding_gather": expected, "cross_net": expected,
-        "fused_adamw": 0, "scatter_add": 0, "scatter_unique_sorted": 0})
+        "fused_adamw": 0, "scatter_add": 0, "scatter_unique_sorted": 0,
+                "block_cumsum": 0, "sparse_adamw": 0})
 
     def plain_forward(m, ids_t):
         """The Predictor's DCNv2 with both kernels swapped for their plain versions."""
@@ -751,7 +1014,8 @@ def main(argv=None) -> int:
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
                     "scatter_add": steps, "fused_adamw": steps * num_params,
-                    "scatter_unique_sorted": 0}
+                    "scatter_unique_sorted": 0,
+                "block_cumsum": 0, "sparse_adamw": 0}
         windows = trainer.train_windows
         losses = [w["window_loss"] for w in windows]
         emit("training", compute_dtype=dname, steps=steps, batch=TRAIN_BATCH,
@@ -823,6 +1087,7 @@ def main(argv=None) -> int:
 
     # 8-9. MFP pretraining, and the finetune from its checkpoint
     mfp = mfp_phase(args, dev, cfg, data, reset_counts, read_counts)
+    pfs = mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts)
     finetune_phase(args, dev, cfg, data, mfp["ckpt"], reset_counts, read_counts)
     shutil.rmtree(mfp["work"], ignore_errors=True)
 
@@ -936,12 +1201,58 @@ def main(argv=None) -> int:
         # the fold around K5 in the decoder's backward (PyTorch ops)
         times["K5 highest"]["fold_ms"] = time_ms(
             lambda: dedup_scatter.sort_and_fold(*mfp["fold_inputs"], vocab))
+
+        # K7 on the per-field shared step's streams: p, mu, nu read and
+        # written once, each stream's valid entries (id and E values) read
+        # once; no single PyTorch call computes it, so two yardsticks: the
+        # library chain, and the port's dense route that K7 replaces
+        target, noise, s, p0, mu0, nu0 = pfs["k7_inputs"]
+        v7, e7 = p0.shape
+        state = [t.clone() for t in (p0, mu0, nu0)]
+        valid = [(st.uids[:n].long(), st.vals[:n])
+                 for st, n in zip((target, noise), pfs["k7_valid"])]
+        step_t = torch.ones((), device=dev)
+        byte_ms = (24 * v7 * e7 + sum(pfs["k7_valid"]) * (e7 + 1) * 4) / HBM_BYTES_PER_S * 1e3
+        op_ms = 16 * v7 * e7 / PEAK_FLOPS["float32"] * 1e3  # K1's 14 and two adds
+
+        def k7_chain():
+            g = torch.zeros(v7, e7, device=dev)
+            for stream_ids, stream_vals in valid:
+                g.index_add_(0, stream_ids, stream_vals)
+            torch._fused_adamw_([state[0]], [g], [state[1]], [state[2]], [], [step_t],
+                                lr=s.lr, beta1=s.b1, beta2=s.b2, weight_decay=s.wd,
+                                eps=s.eps, amsgrad=False, maximize=False)
+
+        def k7_dense_route():
+            g = (scatter_unique.scatter_unique_sorted(*target, v7)[0]
+                 + scatter_unique.scatter_unique_sorted(*noise, v7)[0])
+            fused_adamw.fused_adamw(*state, g, s)
+
+        times["K7"] = dict(
+            ms=time_ms(lambda: sparse_adamw.sparse_adamw(*state, target, noise, s)),
+            plain_ms=time_ms(lambda: sparse_adamw.sparse_adamw_plain(*state, target, noise, s)),
+            library_ms=None, chain_ms=time_ms(k7_chain), dense_route_ms=time_ms(k7_dense_route),
+            bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",
+            shape=[v7, e7], streams=[target.uids.numel(), noise.uids.numel()],
+            valid=pfs["k7_valid"])
+        del state
+
+        # K8: x read once, the scan written once; torch.cumsum over dim 0 is
+        # one library call (slow at the fold's length: few timed calls there)
+        for key, x in pfs["k8_inputs"].items():
+            times[f"K8 {key}"] = dict(
+                ms=time_ms(lambda: scan.block_cumsum(x)),
+                plain_ms=time_ms(lambda: scan.block_cumsum_plain(x)),
+                library_ms=time_ms(lambda: torch.cumsum(x, 0),
+                                   reps=3 if x.shape[0] > 100_000 else 20),
+                bound_ms=2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                shape=list(x.shape))
     emit("times", card=smi, unique_rows=unique_rows, kernels=times)
 
-    # 11. summary; launches are the MFP run's (this slice's main path, which
-    # launches all five kernels)
+    # 11. summary; launches are the per-field shared MFP run's (this slice's
+    # main path, which launches all seven kernels)
     src = "map_tpu_torch/csrc"
-    main_path = mfp["launches"]
+    main_path = pfs["launches"]
 
     def entry(name, source, replaces, err, timing):
         return dict(name=name, route="cuda", source=f"{src}/{source}",
@@ -960,6 +1271,10 @@ def main(argv=None) -> int:
               k3_err["bfloat16"], times["K3 bfloat16"]),
         entry("scatter_unique_sorted", "scatter_unique_sorted.cu",
               "map_tpu/ops/pallas_scatter.py:64", mfp["k5_err"], times["K5 highest"]),
+        entry("sparse_adamw", "sparse_adamw.cu", "map_tpu/ops/sparse_adamw.py:229",
+              pfs["k7_err"], times["K7"]),
+        entry("block_cumsum", "block_cumsum.cu", "map_tpu/ops/pallas_scan.py:35",
+              pfs["k8_err"], times["K8 target fold"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,14 +2,15 @@
 
 `TrainingArguments` and `ModelArguments` are the DCNv2 subset of map_tpu's
 flags (`config.py:21-245`) with map_tpu's defaults: supervised training, MFP
-pretraining with per-position noise, and finetune transfer; plus the port's
-own `--device` (default: the card). `parse_args` registers every field as a
-`--flag`; a bool whose default is True takes `BooleanOptionalAction`, so
-`--no-<flag>` can turn it off (map_tpu registers every bool as store_true,
-which cannot). `build_config` assembles the model `Config` from the flags and
-the dataset, as `config.py:330` does. Pretraining options the port does not
-have yet (RFD, shared or per-field noise, the `full` loss) raise
-`NotImplementedError` in `check_supported`.
+pretraining (per-position, shared, per-field and per-field-shared noise; the
+`nce`, `sampled` and `full` losses; the sparse table update), and finetune
+transfer; plus the port's own `--device` (default: the card). `parse_args`
+registers every field as a `--flag`; a bool whose default is True takes
+`BooleanOptionalAction`, so `--no-<flag>` can turn it off (map_tpu registers
+every bool as store_true, which cannot). `build_config` assembles the model
+`Config` from the flags and the dataset, as `config.py:330` does. RFD
+pretraining, not ported yet, raises `NotImplementedError` in
+`check_supported`.
 
 `Config` holds the model fields of map_tpu's `config.json` that the port
 reads (map_tpu's `Config` / `Config.load`). map_tpu's Config is a free-form
@@ -19,6 +20,9 @@ model code assumes when a key is absent (`getattr(config, key, default)` in
 `map_tpu/models/zoo.py`), so a config.json without `compute_dtype` runs in
 float32 in both packages. `feat_count` (the train split's unigram counts,
 for MFP) is never written to config.json, as in map_tpu.
+`pt_per_field_noise` is a run flag in map_tpu, whose trainer hands the
+model the per-field noise prior through the config (`trainer.py:89-109`);
+the port's model reads the flag itself to start its decoder bias there.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ class Config:
     idx_high: Optional[List[int]] = None
     pretrain: bool = False
     pt_type: str = "MFP"
+    pt_per_field_noise: bool = False
     pt_neg_num: int = 25
     proj_size: int = 32
     nce_loss_type: str = "nce"
@@ -112,15 +117,19 @@ class TrainingArguments:
     logging_steps: int = 1000
     save_total_limit: Optional[int] = 20
     seed: int = 42
-    # pretraining (map_tpu config.py:59-74); MFP with per-position noise only
+    # the MFP decoder table's AdamW from its sorted gradient streams (K7,
+    # map_tpu config.py:102-111); engages in a shared-noise mode without a
+    # clip (ops/sparse_adamw.engages)
+    sparse_table_update: bool = False
+    # pretraining (map_tpu config.py:59-74)
     sampling_method: str = "normal"  # normal (no repeats in a row) | randint
     mask_ratio: float = 0.1
     pretrain: bool = False
     pt_type: str = "MFP"  # MFP | RFD (RFD not ported: check_supported raises)
     finetune: bool = False
     pretrained_model_path: Optional[str] = None
-    pt_per_field_noise: bool = False  # not ported
-    pt_shared_noise: bool = False  # not ported
+    pt_per_field_noise: bool = False  # noise from the masked field's own unigram
+    pt_shared_noise: bool = False  # one noise set a step (a field), not a position
     compute_dtype: str = "bfloat16"  # float32 | bfloat16 for activations
     device: Optional[str] = None  # None: the card ("cuda"); "cpu" for the plain path
 
@@ -150,7 +159,7 @@ class ModelArguments:
     num_cross_layers: int = 1
     pt_neg_num: int = 25
     proj_size: int = 32
-    nce_loss_type: str = "nce"  # nce | sampled (full not ported)
+    nce_loss_type: str = "nce"  # nce | sampled | full
 
 
 def _flag_type(f: dataclasses.Field) -> type:
@@ -189,21 +198,10 @@ def parse_args(argv: Optional[Sequence[str]] = None
 def check_supported(model_args: ModelArguments,
                     training_args: TrainingArguments) -> None:
     """Raise on the pretraining options map_tpu has and the port not yet."""
-    if not training_args.pretrain:
-        return
-    missing = []
-    if training_args.pt_type != "MFP":
-        missing.append(f"pt_type={training_args.pt_type}")
-    if training_args.pt_shared_noise:
-        missing.append("pt_shared_noise")
-    if training_args.pt_per_field_noise:
-        missing.append("pt_per_field_noise")
-    if model_args.nce_loss_type not in ("nce", "sampled"):
-        missing.append(f"nce_loss_type={model_args.nce_loss_type}")
-    if missing:
+    if training_args.pretrain and training_args.pt_type != "MFP":
         raise NotImplementedError(
-            f"map_tpu_torch pretrains with MFP, per-position noise and the nce "
-            f"or sampled loss; {', '.join(missing)} is queued in ROADMAP.md")
+            f"map_tpu_torch pretrains with MFP; pt_type={training_args.pt_type} is "
+            f"queued in ROADMAP.md")
 
 
 def build_config(model_args: ModelArguments, training_args: TrainingArguments,
@@ -218,6 +216,7 @@ def build_config(model_args: ModelArguments, training_args: TrainingArguments,
              compute_dtype=training_args.compute_dtype, packed_tables=False,
              data_dir=training_args.data_dir, pretrain=training_args.pretrain,
              pt_type=training_args.pt_type,
+             pt_per_field_noise=training_args.pt_per_field_noise,
              feat_count=getattr(dataset, "feat_count", None),
              idx_low=idx(getattr(dataset, "idx_low", None)),
              idx_high=idx(getattr(dataset, "idx_high", None)))

@@ -17,13 +17,11 @@
 // per byte. At the canonical table (1,013,519 x 16 f32) that is 454 MB, or
 // 0.1355 ms at 3.35 TB/s.
 //
-// Rounding: every operation is an explicit round-to-nearest intrinsic
-// (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), which nvcc never contracts
-// into an FMA. The kernel therefore rounds after each operation, in the
-// order above, as the plain PyTorch version (map_tpu_torch/ops/fused_adamw.py
-// fused_adamw_plain) and XLA's elementwise ops do; kernel and plain version
-// are expected to agree bit for bit, and chip_smoke.py holds them to
-// |d| <= 1e-9 + 1e-6 |ref|.
+// Rounding: the arithmetic is adamw_math.cuh's, shared with K7: every
+// operation rounds on its own, in the order above, as the plain PyTorch
+// version (map_tpu_torch/ops/fused_adamw.py fused_adamw_plain) and XLA's
+// elementwise ops do; kernel and plain version are expected to agree bit for
+// bit, and chip_smoke.py holds them to |d| <= 1e-9 + 1e-6 |ref|.
 //
 // The vector path needs all four pointers 16-byte aligned; the tail of an
 // element count that is not a multiple of 4, and any unaligned tensor, go
@@ -31,25 +29,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adamw_math.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 65535;
-
-struct Scalars {
-  float lr, wd, b1, b2, eps, bc1, bc2, one_minus_b1, one_minus_b2;
-};
-
-__device__ __forceinline__ void adamw_elem(float& p, float& m, float& v,
-                                           const float g, const Scalars& s) {
-  m = __fadd_rn(__fmul_rn(s.b1, m), __fmul_rn(s.one_minus_b1, g));
-  v = __fadd_rn(__fmul_rn(s.b2, v), __fmul_rn(__fmul_rn(s.one_minus_b2, g), g));
-  const float m_hat = __fdiv_rn(m, s.bc1);
-  const float v_hat = __fdiv_rn(v, s.bc2);
-  const float upd = __fadd_rn(__fdiv_rn(m_hat, __fadd_rn(__fsqrt_rn(v_hat), s.eps)),
-                              __fmul_rn(s.wd, p));
-  p = __fsub_rn(p, __fmul_rn(s.lr, upd));
-}
 
 __global__ void __launch_bounds__(kThreads)
 adamw_kernel(float* __restrict__ p, float* __restrict__ mu, float* __restrict__ nu,
@@ -97,9 +82,7 @@ extern "C" int map_tpu_fused_adamw(void* p, void* mu, void* nu, const void* g,
                                    float b2, float eps, float bc1, float bc2,
                                    void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  // float minus float on the host is one IEEE single-precision subtraction,
-  // as XLA's `1.0 - b1` on a float32 scalar
-  const Scalars s{lr, wd, b1, b2, eps, bc1, bc2, 1.0f - b1, 1.0f - b2};
+  const Scalars s = make_scalars(lr, wd, b1, b2, eps, bc1, bc2);
   const int vec = aligned16(p) && aligned16(mu) && aligned16(nu) && aligned16(g);
   const long long items = vec ? (n + 3) / 4 : n;
   long long blocks = (items + kThreads - 1) / kThreads;

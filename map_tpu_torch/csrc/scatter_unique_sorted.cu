@@ -14,8 +14,7 @@
 // table tile, because the TPU has no fast scattered writes; none of that
 // carries over. Here each block owns a tile of kRows output rows. Two of its
 // warps find where the tile's window of the stream starts and ends, each with
-// one warp-wide 33-way search (about 4 dependent loads over a million
-// entries, where a per-row binary search would cost 20 per row). Since the
+// one warp-wide 33-way search (sorted_stream.cuh, shared with K7). Since the
 // ids are unique, at most kRows entries fall in the window: the block reads
 // them once into a row -> slot map in shared memory and then writes every row
 // of its tile exactly once, the value or zeros, with 16-byte stores where the
@@ -31,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sorted_stream.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -45,25 +46,6 @@ __device__ __forceinline__ float split_bf16x2(float v) {
 __device__ __forceinline__ float value(const float* __restrict__ p, int bf16x2) {
   const float v = __ldg(p);
   return bf16x2 ? split_bf16x2(v) : v;
-}
-
-// first j in [0, n) with a[j] >= key (n if none), by one whole warp: each
-// step its 32 lanes probe 32 points of the remaining range, which shrinks
-// about 33-fold
-__device__ long long warp_lower_bound(const int* __restrict__ a, long long n,
-                                      long long key) {
-  const int lane = threadIdx.x & 31;
-  long long lo = 0, hi = n;  // a[j] < key for j < lo, a[j] >= key for j >= hi
-  while (lo < hi) {
-    const long long d = hi - lo;
-    const long long p = lo + d * (lane + 1) / 33;  // in [lo, hi)
-    // the probes ascend, so the lanes whose probe is below key are a prefix
-    const int c = __popc(__ballot_sync(0xffffffffu, __ldg(a + p) < key));
-    const long long new_lo = c > 0 ? lo + d * c / 33 + 1 : lo;
-    if (c < 32) hi = lo + d * (c + 1) / 33;
-    lo = new_lo;
-  }
-  return lo;
 }
 
 __global__ void __launch_bounds__(kThreads)

@@ -50,6 +50,13 @@ _SIGNATURES = {
     "map_tpu_scatter_unique_sorted": [_P, _P, _P, _P, ctypes.c_longlong,
                                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                       ctypes.c_int, _P],
+    # (p, mu, nu, t_uids, t_vals, nt, n_uids, n_vals, nn, vocab, e,
+    #  lr, wd, b1, b2, eps, bc1, bc2, stream)
+    "map_tpu_sparse_adamw": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
+                             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+                            + [ctypes.c_float] * 7 + [_P],
+    # (x, out, scratch, n, w, stream)
+    "map_tpu_block_cumsum": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
 }
 
 

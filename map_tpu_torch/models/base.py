@@ -1,7 +1,9 @@
 """CTRModel protocol: backbone -> final_vec -> supervised head or MFP head.
 
 Counterpart: `map_tpu/models/base.py` `CTRModel` (`create_pretraining_predictor`
-:34-47, `_select_masked` :50, `mfp_candidate_logits` :62, `__call__` :132).
+:34-47, `_select_masked` :50, `mfp_candidate_logits` :62,
+`mfp_shared_noise_logits` :76, `mfp_per_field_shared_logits` :90,
+`mfp_full_scores` :107, `__call__` :132).
 The MFP head, built instead of the supervised one when `config.mfp`, is the
 reference's (`code/models.py:114-126`): `feat_encoder` (Linear final_dim ->
 num_fields * proj_size) and `mfp_criterion` (`objectives/nce.py`
@@ -15,7 +17,7 @@ from torch import nn
 
 from map_tpu_torch.config import Config
 from map_tpu_torch.nn.layers import TorchDense
-from map_tpu_torch.objectives.alias import noise_log_prior
+from map_tpu_torch.objectives.alias import noise_log_prior, per_field_log_prior
 from map_tpu_torch.objectives.nce import IndexLinearDecoder
 
 
@@ -33,13 +35,24 @@ class CTRModel(nn.Module):
         self.mfp_criterion = IndexLinearDecoder(c.input_size, c.proj_size)
 
     def reset_pretraining_predictor(self, generator: torch.Generator) -> None:
-        """The decoder bias starts at log q + log V, q the noise
-        distribution of `config.feat_count`."""
+        """The decoder bias starts at log q + norm_term, q the noise
+        distribution of `config.feat_count`: the global unigram and log V,
+        or with `config.pt_per_field_noise` each id's unigram within its field
+        and log of its field's size (map_tpu's trainer sets
+        `config.logprob_noise` and `config.norm_term` so, `trainer.py:89-109`,
+        and the decoder's init reads them, `objectives/nce.py:63-65`)."""
         c = self.config
         if c.feat_count is None:
             raise ValueError("the MFP head needs config.feat_count, the train "
                              "split's unigram counts")
-        _, logprob, norm_term = noise_log_prior(c.feat_count)
+        if c.pt_per_field_noise:
+            if c.idx_low is None or c.idx_high is None:
+                raise ValueError("per-field noise needs config.idx_low / idx_high, "
+                                 "the fields' id ranges")
+            logprob, norm_term = per_field_log_prior(c.feat_count, c.idx_low,
+                                                     c.idx_high)
+        else:
+            _, logprob, norm_term = noise_log_prior(c.feat_count)
         self.feat_encoder.reset_parameters(generator)
         self.mfp_criterion.reset_parameters(generator, logprob, norm_term)
 
@@ -50,16 +63,45 @@ class CTRModel(nn.Module):
         idx = masked_index.long()[..., None].expand(-1, -1, enc.shape[-1])
         return torch.gather(enc, 1, idx)
 
+    def _masked_encoding(self, input_ids: torch.Tensor,
+                         masked_index: torch.Tensor) -> torch.Tensor:
+        """(B, F) corrupted ids, (B, M) masked positions -> (B, M, proj)."""
+        c = self.config
+        final_vec = self.backbone(input_ids)
+        enc = self.feat_encoder(final_vec).reshape(final_vec.shape[0], c.num_fields,
+                                                   c.proj_size)
+        return self._select_masked(enc, masked_index)
+
     def mfp_candidate_logits(self, input_ids: torch.Tensor,
                              masked_index: torch.Tensor,
                              candidates: torch.Tensor) -> torch.Tensor:
         """(B, F) corrupted ids, (B, M) masked positions, (B, M, 1+k)
         [target || noise] ids -> raw decoder logits (B, M, 1+k)."""
-        c = self.config
-        final_vec = self.backbone(input_ids)
-        enc = self.feat_encoder(final_vec).reshape(final_vec.shape[0], c.num_fields,
-                                                   c.proj_size)
-        return self.mfp_criterion(self._select_masked(enc, masked_index), candidates)
+        return self.mfp_criterion(self._masked_encoding(input_ids, masked_index),
+                                  candidates)
+
+    def mfp_shared_noise_logits(self, input_ids: torch.Tensor,
+                                masked_index: torch.Tensor, target_idx: torch.Tensor,
+                                noise_idx: torch.Tensor) -> torch.Tensor:
+        """One noise set (k,) shared by the batch -> (B, M, 1+k)."""
+        return self.mfp_criterion.shared_noise_logits(
+            self._masked_encoding(input_ids, masked_index), target_idx, noise_idx)
+
+    def mfp_per_field_shared_logits(self, input_ids: torch.Tensor,
+                                    masked_index: torch.Tensor,
+                                    target_idx: torch.Tensor,
+                                    noise_f: torch.Tensor) -> torch.Tensor:
+        """One noise set per field, noise_f (F, k); the masked position is
+        the field, so it selects each position's set -> (B, M, 1+k)."""
+        return self.mfp_criterion.per_field_shared_noise_logits(
+            self._masked_encoding(input_ids, masked_index), target_idx,
+            masked_index, noise_f)
+
+    def mfp_full_scores(self, input_ids: torch.Tensor,
+                        masked_index: torch.Tensor) -> torch.Tensor:
+        """Scores over the whole vocabulary for the `full` loss -> (B, M, V)."""
+        return self.mfp_criterion.full_scores(
+            self._masked_encoding(input_ids, masked_index))
 
     def backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError

@@ -1,6 +1,8 @@
 """Walker alias sampling of the MFP noise. Counterpart:
 `map_tpu/objectives/alias.py` (`noise_distribution`, `build_alias_table`,
-`load_or_build_alias`, `build_fused_alias`, `alias_draw`, `alias_draw_logq`).
+`load_or_build_alias`, `build_fused_alias`, `alias_draw`, `alias_draw_logq`,
+and the per-field noise: `build_per_field_alias`, `per_field_alias_draw`,
+`per_field_alias_draw_logq`).
 
 The table is built on the host with map_tpu's Python loop (about 1.5 s at
 V = 1,013,519; map_tpu's C++ builder is not ported) and cached in the data
@@ -11,12 +13,19 @@ failing it, the bucket's alias (the reference's `alias_multinomial.py:81-97`).
 torch's random streams are not jax.random's, so the tests compare
 distributions, and hand map_tpu's own draws to the port where they compare
 values.
+
+Per-field noise (`--pt_per_field_noise`) draws a masked position's noise
+from the unigram of its own field's id block: one flat table over the whole
+vocabulary in which each field's block [idx_low, idx_high) is an alias
+table of its own, its redirects global ids. Ids outside every block (the
+reserved ones) keep probability 1, themselves as alias and log q =
+log(1e-10).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +115,74 @@ def alias_draw_logq(generator: torch.Generator, fused: torch.Tensor,
                        device=fused.device, dtype=torch.int32)
     rows = fused[kk]
     keep = torch.rand(shape, generator=generator, device=fused.device) < rows[..., 0]
+    al = rows[..., 1].contiguous().view(torch.int32)
+    return (torch.where(keep, kk, al),
+            torch.where(keep, rows[..., 2], rows[..., 3]))
+
+
+def per_field_log_prior(feat_count: np.ndarray, idx_low: Sequence[int],
+                        idx_high: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """(logq (V,) float32, lnz (V,) float32): log q of each id within its
+    field, and log of its field's size, the per-field norm_term; the
+    per-field decoder bias starts at logq + lnz."""
+    v = len(feat_count)
+    logq = np.full(v, np.log(BACKOFF_PROB), np.float32)
+    lnz = np.zeros(v, np.float32)
+    for lo, hi in zip(idx_low, idx_high):
+        lo, hi = int(lo), int(hi)
+        logq[lo:hi] = np.log(noise_distribution(feat_count[lo:hi])).astype(np.float32)
+        lnz[lo:hi] = np.log(hi - lo)
+    return logq, lnz
+
+
+def build_per_field_alias(feat_count: np.ndarray, idx_low: Sequence[int],
+                          idx_high: Sequence[int]
+                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(prob (V,) float32, alias (V,) int32 global ids, logq, lnz) of the
+    per-field noise, each field's block built by `build_alias_table`."""
+    v = len(feat_count)
+    prob_all = np.ones(v, np.float32)
+    alias_all = np.arange(v, dtype=np.int32)
+    for lo, hi in zip(idx_low, idx_high):
+        lo, hi = int(lo), int(hi)
+        p, a = build_alias_table(noise_distribution(feat_count[lo:hi]))
+        prob_all[lo:hi] = p
+        alias_all[lo:hi] = a + lo
+    return (prob_all, alias_all, *per_field_log_prior(feat_count, idx_low, idx_high))
+
+
+def _per_field_buckets(generator: torch.Generator, idx_low: torch.Tensor,
+                       field_sizes: torch.Tensor, fields: torch.Tensor,
+                       num_samples: int) -> torch.Tensor:
+    """Uniform global bucket ids (..., num_samples) int32 in each position's
+    field block: lo + floor(u * size) in float32, as map_tpu draws them."""
+    lo = idx_low[fields.long()][..., None]
+    size = field_sizes[fields.long()][..., None].float()
+    u = torch.rand((*fields.shape, num_samples), generator=generator,
+                   device=idx_low.device)
+    return lo + torch.floor(u * size).int()
+
+
+def per_field_alias_draw(generator: torch.Generator, prob: torch.Tensor,
+                         alias: torch.Tensor, idx_low: torch.Tensor,
+                         field_sizes: torch.Tensor, fields: torch.Tensor,
+                         num_samples: int) -> torch.Tensor:
+    """`num_samples` int32 ids per position from the field block of each
+    position's field: fields (...) int -> (..., num_samples)."""
+    kk = _per_field_buckets(generator, idx_low, field_sizes, fields, num_samples)
+    keep = torch.rand(kk.shape, generator=generator, device=kk.device) < prob[kk]
+    return torch.where(keep, kk, alias[kk])
+
+
+def per_field_alias_draw_logq(generator: torch.Generator, fused: torch.Tensor,
+                              idx_low: torch.Tensor, field_sizes: torch.Tensor,
+                              fields: torch.Tensor, num_samples: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-field draw from the fused (V, 4) per-field table: (int32 ids,
+    float32 logq of the ids), both (..., num_samples)."""
+    kk = _per_field_buckets(generator, idx_low, field_sizes, fields, num_samples)
+    rows = fused[kk]
+    keep = torch.rand(kk.shape, generator=generator, device=kk.device) < rows[..., 0]
     al = rows[..., 1].contiguous().view(torch.int32)
     return (torch.where(keep, kk, al),
             torch.where(keep, rows[..., 2], rows[..., 3]))

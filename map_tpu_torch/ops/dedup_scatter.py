@@ -1,37 +1,47 @@
-"""The NCE decoder's candidate gather, with a duplicate-folding backward.
-Counterpart: `map_tpu/ops/dedup_scatter.py` `decoder_gather` with unpacked
+"""The NCE decoder's row gathers, with a duplicate-folding backward.
+Counterpart: `map_tpu/ops/dedup_scatter.py`: `decoder_gather` with unpacked
 tables and `use_pallas_scatter=True` (`_sort_ids`, `_fold_stream`,
-`_dg_bwd`), the path map_tpu takes under `nce_grad='dedup_pallas'`.
+`_dg_bwd`), the path map_tpu takes under `nce_grad='dedup_pallas'`; and the
+backwards of the shared-noise modes, the target rows' (`_dst_bwd`) and the
+noise rows' (`_nr_bwd`).
 
 Forward: rows = emb[ids] through K4 (`ops/embedding.py`) and bias[ids] by
 plain indexing; both exact row gathers (map_tpu's unique-once gather and
-expand give the same values).
+expand give the same values). The ids are the per-position candidates
+(B, M, 1 + k), the targets (B, M) of a shared-noise mode, or its noise ids
+(k,) or (F * k,).
 
-Backward (`sort_and_fold`, then K5): one stable sort of the flat candidate
-ids; the (n, E + 1) gradient [d_rows | d_bias] put in sorted order and
-folded into one value per distinct id as float32 prefix-sum differences at
-the segment ends, map_tpu's `_fold_stream` arithmetic; the folded values
-compacted to the front of the stream, the sentinel V behind them; then one
-K5 launch (`ops/scatter_unique.py`) writes the dense (V, E) emb and (V, 1)
-bias gradients.
+Backward (`sort_and_fold`, then K5 or the optimizer): one stable sort of
+the flat ids; the (n, E + 1) gradient [d_rows | d_bias] put in sorted order
+with one row gather and scanned with one K8 launch (`ops/scan.py`); each
+distinct id's sum taken as the difference of the scan at its segment's end
+and at the previous segment's end, map_tpu's `_fold_stream` arithmetic; the
+folded values compacted to the front of the stream, the sentinel V behind
+them. Then, dense: one K5 launch (`ops/scatter_unique.py`) writes the
+(V, E) emb and (V, 1) bias gradients. With a `StreamHandoff`
+(`ops/sparse_adamw.py`, the sparse table update of the shared modes): the
+emb stream goes to the handoff for K7 and no emb gradient is returned; the
+bias keeps its dense gradient through K5, as map_tpu's does
+(`dedup_scatter.py:497-499`, `:651-654`).
 
 Capacity: map_tpu compacts into a static 131,072 slots and, under a
 `lax.cond`, scatters the raw stream when a batch has more distinct ids. In
 eager PyTorch that choice needs the count on the host, a sync in the middle
-of the backward. The port sizes the compacted stream to the whole candidate
-stream (n = B * M * (1 + k)), so every distinct id fits, K5 runs every step
-and nothing waits on the host; the result is map_tpu's wherever map_tpu
-takes its folded tier.
+of the backward. The port sizes the compacted stream to the whole id
+stream, so every distinct id fits, K5 runs every step and nothing waits on
+the host; the result is map_tpu's wherever map_tpu takes its folded tier.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from map_tpu_torch.ops.embedding import embedding_lookup
+from map_tpu_torch.ops.scan import block_cumsum
 from map_tpu_torch.ops.scatter_unique import scatter_unique_sorted
+from map_tpu_torch.ops.sparse_adamw import Stream, StreamHandoff
 
 
 def sort_and_fold(flat_ids: torch.Tensor, grads: torch.Tensor, vocab_size: int
@@ -56,22 +66,19 @@ def sort_and_fold(flat_ids: torch.Tensor, grads: torch.Tensor, vocab_size: int
     end_pos.scatter_(0, torch.where(last, seg, n + pos), pos)
     end_pos = end_pos[:n]
     uids = torch.where(pos < num_unique, sids[end_pos], vocab_size)
-    # the gradient in sorted order, a row per column: PyTorch scans a
-    # contiguous 1-D tensor with one device-wide scan, but the columns of an
-    # (n, W) tensor with one thread each (260 ms for the MFP step's stream)
-    cols = grads.t()[:, order]
-    ends = torch.stack([c.cumsum(0) for c in cols])[:, end_pos]
+    ends = block_cumsum(grads.index_select(0, order))[end_pos]
     # sum of a segment = prefix at its end - prefix at the previous end; 0
     # past the last segment, whose end is the last position
-    vals = ends - torch.cat([ends.new_zeros(ends.shape[0], 1), ends[:, :-1]], 1)
-    return uids, vals.t().contiguous(), num_unique
+    vals = ends - torch.cat([ends.new_zeros(1, ends.shape[1]), ends[:-1]])
+    return uids, vals, num_unique
 
 
 class _DecoderGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, emb, bias, ids):
+    def forward(ctx, emb, bias, ids, handoff, stream):
         ctx.save_for_backward(ids)
         ctx.vocab_size = emb.shape[0]
+        ctx.handoff, ctx.stream = handoff, stream
         return embedding_lookup(emb, ids), bias[ids][..., 0]
 
     @staticmethod
@@ -81,15 +88,23 @@ class _DecoderGather(torch.autograd.Function):
         g = torch.cat([g_rows.reshape(-1, e).float(),
                        g_bias.reshape(-1, 1).float()], dim=1)
         uids, vals, _ = sort_and_fold(ids.reshape(-1), g, ctx.vocab_size)
-        d_emb, d_bias = scatter_unique_sorted(uids, vals, ctx.vocab_size,
-                                              widths=(e, 1))
-        return d_emb, d_bias, None
+        if ctx.handoff is None:
+            d_emb, d_bias = scatter_unique_sorted(uids, vals, ctx.vocab_size,
+                                                  widths=(e, 1))
+            return d_emb, d_bias, None, None, None
+        ctx.handoff.put(ctx.stream, Stream(uids, vals[:, :e].contiguous()))
+        (d_bias,) = scatter_unique_sorted(uids, vals[:, e:].contiguous(),
+                                          ctx.vocab_size)
+        return None, d_bias, None, None, None
 
 
-def decoder_gather(emb: torch.Tensor, bias: torch.Tensor, ids: torch.Tensor
+def decoder_gather(emb: torch.Tensor, bias: torch.Tensor, ids: torch.Tensor,
+                   handoff: Optional[StreamHandoff] = None, stream: str = "target"
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """emb (V, E) float32, bias (V, 1) float32, ids (...) int32 in [0, V)
-    -> (rows (..., E), bias (...)); differentiable in emb and bias."""
+    -> (rows (..., E), bias (...)); differentiable in emb and bias. With a
+    `handoff`, the backward deposits the emb gradient there as the `stream`
+    ("target" or "noise") instead of returning it."""
     if torch.is_grad_enabled() and (emb.requires_grad or bias.requires_grad):
-        return _DecoderGather.apply(emb, bias, ids)
+        return _DecoderGather.apply(emb, bias, ids, handoff, stream)
     return embedding_lookup(emb, ids), bias[ids][..., 0]

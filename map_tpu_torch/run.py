@@ -11,6 +11,10 @@ takes the flags of `run_script/run_DCNv2_scratch.sh`; with `--pretrain
 --pt_type=MFP --mask_ratio=0.3 --sampling_method=randint --pt_neg_num=25
 --proj_size=32` those of `run_DCNv2_MFP.sh`, and with `--finetune
 --pretrained_model_path=<dir>/<step>.model` those of `run_DCNv2_finetune.sh`.
+MFP takes map_tpu's noise modes and losses: `--pt_shared_noise`,
+`--pt_per_field_noise` (both: one noise set per field a step),
+`--nce_loss_type=nce|sampled|full`, and `--sparse_table_update` (the decoder
+table's AdamW from its gradient streams, in a shared mode without a clip).
 Lifecycle as map_tpu's: parse -> idempotency check (results.log exists ->
 exit) -> logging -> dataset -> config.json -> model from --seed (finetune:
 restored from the checkpoint where names and shapes match) -> train and test

@@ -15,6 +15,13 @@ bc1 = 1 - b1**t and bc2 = 1 - b2**t use t = count + 1, in float32.
 
 With `max_grad_norm > 0` the gradients are first clipped by their global
 norm, as optax.clip_by_global_norm does (`optimizer.py:170-192`).
+
+The sparse table update (`ops/sparse_adamw.py`, map_tpu `optimizer.py:129-146`):
+a parameter given a `StreamHandoff` in `sparse` (the MFP decoder's emb when
+the update engages) takes no dense gradient; each step reads its target
+and noise streams from the handoff and updates it through K7, with the same
+scalars. It raises on a dense gradient of that parameter, and on missing or
+stale streams. A clip needs every gradient, so it refuses a handoff.
 """
 
 from __future__ import annotations
@@ -24,10 +31,13 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import torch
 
 from map_tpu_torch.ops import fused_adamw as k1
+from map_tpu_torch.ops import sparse_adamw as k7
 from map_tpu_torch.train.schedules import Schedule, make_schedule
 
 UpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                      k1.AdamScalars], None]
+SparseUpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, k7.Stream,
+                           k7.Stream, k1.AdamScalars], None]
 
 
 def decays(name: str) -> bool:
@@ -72,7 +82,9 @@ class AdamW:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Schedule, b1: float, b2: float, eps: float,
                  weight_decay: float, max_grad_norm: float = 0.0,
-                 update: UpdateFn = k1.fused_adamw):
+                 update: UpdateFn = k1.fused_adamw,
+                 sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
+                 sparse_update: SparseUpdateFn = k7.sparse_adamw):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -82,6 +94,16 @@ class AdamW:
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.update = update
+        self.sparse_update = sparse_update
+        sparse = dict(sparse or {})
+        if sparse and max_grad_norm and max_grad_norm > 0:
+            raise ValueError("the sparse table update cannot run under a global-norm "
+                             "clip, which needs every dense gradient")
+        unknown = set(sparse) - set(self.names)
+        if unknown:
+            raise ValueError(f"sparse table update for unknown parameters {unknown}")
+        # parameter index -> its handoff
+        self.sparse = {self.names.index(n): h for n, h in sparse.items()}
         self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
                    for p in self.params]
         self.nu = [torch.zeros_like(m) for m in self.mu]
@@ -93,17 +115,32 @@ class AdamW:
                           self.b1, self.b2, self.eps, self.count + 1)
 
     @torch.no_grad()
-    def step(self, grads: Optional[List[torch.Tensor]] = None) -> None:
-        """One update from `grads` (default: each parameter's .grad)."""
+    def step(self, grads: Optional[List[Optional[torch.Tensor]]] = None) -> None:
+        """One update from `grads` (default: each parameter's .grad; None
+        for a parameter updated from its streams)."""
         if grads is None:
             grads = [p.grad for p in self.params]
-        grads = [g.float().contiguous() for g in grads]
+        streams = {}
+        for i, handoff in self.sparse.items():
+            if grads[i] is not None:
+                raise RuntimeError(
+                    f"sparse table update: {self.names[i]} has a dense gradient "
+                    f"beside its streams{' (pending)' if handoff.pending() else ''}")
+            streams[i] = handoff.take(self.count)
+        grads = [None if g is None else g.float().contiguous() for g in grads]
         if self.max_grad_norm and self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm)
         with_decay, without = self.scalars(True), self.scalars(False)
-        for p, mu, nu, g, d in zip(self.params, self.mu, self.nu, grads, self.decay):
-            self.update(p, mu, nu, g, with_decay if d else without)
+        for i, (p, mu, nu, g, d) in enumerate(zip(self.params, self.mu, self.nu,
+                                                  grads, self.decay)):
+            s = with_decay if d else without
+            if i in streams:
+                self.sparse_update(p, mu, nu, *streams[i], s)
+            else:
+                self.update(p, mu, nu, g, s)
         self.count += 1
+        for handoff in self.sparse.values():
+            handoff.step = self.count
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -114,12 +151,15 @@ class AdamW:
 
 
 def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
-                    num_warmup_steps: int,
-                    update: UpdateFn = k1.fused_adamw) -> Tuple[AdamW, Schedule]:
+                    num_warmup_steps: int, update: UpdateFn = k1.fused_adamw,
+                    sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
+                    sparse_update: SparseUpdateFn = k7.sparse_adamw
+                    ) -> Tuple[AdamW, Schedule]:
     beta1, beta2 = (float(x) for x in args.adam_betas.split(","))
     schedule = make_schedule(args.lr_sched, args.learning_rate,
                              num_warmup_steps, num_training_steps)
     opt = AdamW(model.named_parameters(), schedule, beta1, beta2,
                 args.adam_epsilon, args.weight_decay,
-                max_grad_norm=args.max_grad_norm or 0.0, update=update)
+                max_grad_norm=args.max_grad_norm or 0.0, update=update,
+                sparse=sparse, sparse_update=sparse_update)
     return opt, schedule

@@ -1,7 +1,6 @@
 """Supervised and MFP train and eval steps. Counterpart:
 `map_tpu/train/train_step.py:207-263 make_supervised_steps` (the exact,
-non-streaming eval step) and `:270-531 make_mfp_steps` (the per-position
-path, `nce` and `sampled` losses).
+non-streaming eval step) and `:270-531 make_mfp_steps`.
 
 A step takes one host batch from `data/loader.Batcher`, copies it to the
 device, and returns device tensors: nothing is read back, so the host runs
@@ -14,12 +13,25 @@ residuals), then one `AdamW.step` (K1 for every parameter); returns
 `torch.inference_mode`; returns {loss, logits, probs}.
 
 MFP train step: masked positions and noise drawn on the device from the
-step's generator (or handed in as `draws`), the corruption, the candidate
-logits through the MFP head (K4 for the candidate rows, K5 for their
-gradient), the per-position loss weighted by the example weights over
-max(sum w, 1) * mask_num, backward and one `AdamW.step`; returns {loss,
-count = sum w * mask_num, acc_count}. The eval step does the same forward
-under `torch.inference_mode` with the generator it is given.
+step's generator (or handed in as `draws`), the corruption, the scores
+through the MFP head, the per-position loss weighted by the example weights
+over max(sum w, 1) * mask_num, backward and one `AdamW.step`; returns
+{loss, count = sum w * mask_num, acc_count}. The eval step does the same
+forward under `torch.inference_mode` with the generator it is given. The
+modes, as map_tpu's:
+- per-position noise (`:305-321`): k ids a masked position, scored with the
+  target as (B, M, 1 + k) candidates (K4 forward, fold + K5 backward);
+- global shared noise (`--pt_shared_noise`, `:369-407`): one (k,) set a
+  step, drawn with `alias_draw` on the global alias table;
+- per-field noise (`--pt_per_field_noise`, `:311-313`): each position's k
+  ids from its masked field's block;
+- per-field shared (both flags, `:409-449`): one (F, k) set a step, a set
+  for every field;
+- the `full` loss (`:343-365`): exact cross-entropy over the vocabulary,
+  no noise.
+The norm_term is log V, a scalar, without per-field noise, and log(size of
+the masked field) with it (`:325-332`). In the shared modes the decoder's
+emb gradient goes to K7 when the Trainer engages the sparse table update.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ import torch
 from map_tpu_torch.config import Config
 from map_tpu_torch.objectives import alias, corruption
 from map_tpu_torch.objectives.nce import (
+    full_ce_loss,
     mfp_accuracy_count,
     nce_loss,
     sampled_softmax_loss,
@@ -72,62 +85,114 @@ def make_supervised_steps(model: torch.nn.Module, optimizer: AdamW,
 
 
 class MFPDraws(NamedTuple):
-    """One step's random draws: masked positions (B, M), noise ids
-    (B, M, k) int32 and their log-probabilities (B, M, k) float32."""
+    """One step's random draws: masked positions (B, M), noise ids int32
+    and their log-probabilities float32, both (B, M, k) with per-position
+    noise, (k,) with global shared noise, (F, k) with per-field shared
+    noise, None under the `full` loss."""
 
     masked_index: torch.Tensor
-    noise: torch.Tensor
-    noise_logq: torch.Tensor
+    noise: Optional[torch.Tensor] = None
+    noise_logq: Optional[torch.Tensor] = None
 
 
 class NoiseTables(NamedTuple):
     """The noise distribution on the device: the fused (V, 4) alias table
-    (`objectives/alias.build_fused_alias`), log q (V,) float32 and
-    norm_term = log V."""
+    (`objectives/alias.build_fused_alias`, of the per-field tables in
+    per-field mode), log q (V,) float32 (per field in per-field mode) and
+    norm_term = log V. The global shared mode draws from `prob` and `alias`
+    (V,); per-field mode keeps each field's first id and size, (F,) int32."""
 
     fused: torch.Tensor
     logprob: torch.Tensor
     norm_term: float
+    prob: Optional[torch.Tensor] = None
+    alias: Optional[torch.Tensor] = None
+    idx_low: Optional[torch.Tensor] = None
+    field_sizes: Optional[torch.Tensor] = None
+
+    @property
+    def per_field(self) -> bool:
+        return self.idx_low is not None
 
 
 def draw_mfp(generator: torch.Generator, tables: NoiseTables, batch_size: int,
-             num_fields: int, mask_num: int, k: int, sampling_method: str
-             ) -> MFPDraws:
+             num_fields: int, mask_num: int, k: int, sampling_method: str,
+             shared_noise: bool = False, full: bool = False) -> MFPDraws:
     masked_index = corruption.sample_masked_index(
         generator, batch_size, num_fields, mask_num, sampling_method,
         tables.fused.device)
-    noise, noise_logq = alias.alias_draw_logq(generator, tables.fused,
-                                              (batch_size, mask_num, k))
+    if full:
+        return MFPDraws(masked_index)
+    if tables.per_field:
+        fields = (torch.arange(num_fields, device=masked_index.device)
+                  if shared_noise else masked_index)
+        noise, noise_logq = alias.per_field_alias_draw_logq(
+            generator, tables.fused, tables.idx_low, tables.field_sizes, fields, k)
+    elif shared_noise:
+        noise = alias.alias_draw(generator, tables.prob, tables.alias, (k,)).int()
+        noise_logq = tables.logprob[noise]
+    else:
+        noise, noise_logq = alias.alias_draw_logq(generator, tables.fused,
+                                                  (batch_size, mask_num, k))
     return MFPDraws(masked_index, noise, noise_logq)
 
 
 def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
                    mask_ratio: float, sampling_method: str, tables: NoiseTables,
-                   generator: torch.Generator, device: torch.device):
+                   generator: torch.Generator, device: torch.device,
+                   shared_noise: bool = False):
     """-> (train_step(batch, draws=None), eval_step(batch, generator))."""
     mask_num = corruption.mask_num_of(config.num_fields, mask_ratio)
     k = int(config.pt_neg_num)
     loss_type = config.nce_loss_type
-    if loss_type not in ("nce", "sampled"):
-        raise NotImplementedError(f"nce_loss_type={loss_type} (ROADMAP.md)")
+    if loss_type not in ("nce", "sampled", "full"):
+        raise NotImplementedError(f"nce_loss_type={loss_type}")
+    if shared_noise and loss_type == "full":
+        # map_tpu's shared step scores sampled candidates only (_loss_from_logits)
+        raise NotImplementedError("the full loss scores every id: no shared noise")
+    full = loss_type == "full"
+    log_sizes = (torch.log(tables.field_sizes.float()) if tables.per_field
+                 else None)
+
+    def candidate_logits(corrupted, labels, draws: MFPDraws):
+        """-> (logits (B, M, 1+k), noise logq (B, M, k))."""
+        mi = draws.masked_index
+        if not shared_noise:
+            candidates = torch.cat([labels[..., None], draws.noise.to(labels.dtype)], -1)
+            return (model.mfp_candidate_logits(corrupted, mi, candidates),
+                    draws.noise_logq)
+        b, m = labels.shape
+        if tables.per_field:
+            return (model.mfp_per_field_shared_logits(corrupted, mi, labels, draws.noise),
+                    draws.noise_logq[mi.long()])
+        return (model.mfp_shared_noise_logits(corrupted, mi, labels, draws.noise),
+                draws.noise_logq.expand(b, m, k))
 
     def forward(b, draws: MFPDraws):
         corrupted, labels = corruption.mfp_corrupt(b["input_ids"], draws.masked_index)
-        candidates = torch.cat([labels[..., None], draws.noise.to(labels.dtype)], -1)
-        cand_logq = torch.cat([tables.logprob[labels][..., None], draws.noise_logq], -1)
-        logits = model.mfp_candidate_logits(corrupted, draws.masked_index, candidates)
-        if loss_type == "nce":
-            per_pos = nce_loss(logits, cand_logq, tables.norm_term, k)
-        else:
-            per_pos = sampled_softmax_loss(logits, cand_logq, tables.norm_term)
         w = b["weight"]
+        if full:
+            scores = model.mfp_full_scores(corrupted, draws.masked_index)
+            per_pos = full_ce_loss(scores, labels)
+            hit = (torch.argmax(scores.detach(), dim=-1) == labels.long()).float()
+            acc_count = torch.sum(hit * w[:, None])
+        else:
+            logits, noise_logq = candidate_logits(corrupted, labels, draws)
+            cand_logq = torch.cat([tables.logprob[labels][..., None], noise_logq], -1)
+            norm = (log_sizes[draws.masked_index.long()][..., None] if tables.per_field
+                    else tables.norm_term)
+            if loss_type == "nce":
+                per_pos = nce_loss(logits, cand_logq, norm, k)
+            else:
+                per_pos = sampled_softmax_loss(logits, cand_logq, norm)
+            acc_count = mfp_accuracy_count(logits.detach(), w)
         loss = (per_pos * w[:, None]).sum() / (torch.clamp_min(w.sum(), 1.0) * mask_num)
         return loss, {"loss": loss.detach(), "count": w.sum() * mask_num,
-                      "acc_count": mfp_accuracy_count(logits.detach(), w)}
+                      "acc_count": acc_count}
 
     def draw(gen, b) -> MFPDraws:
         return draw_mfp(gen, tables, b["input_ids"].shape[0], config.num_fields,
-                        mask_num, k, sampling_method)
+                        mask_num, k, sampling_method, shared_noise, full)
 
     def train_step(batch: Batch, draws: Optional[MFPDraws] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -135,7 +200,7 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
         if draws is None:
             draws = draw(generator, b)
         else:
-            draws = MFPDraws(*(t.to(device) for t in draws))
+            draws = MFPDraws(*(None if t is None else t.to(device) for t in draws))
         model.train()
         loss, metrics = forward(b, draws)
         optimizer.zero_grad()

@@ -20,7 +20,13 @@ test; MFP pretraining; finetune transfer. Counterpart:
   seeded anew for every eval, so every eval masks the same way), then the
   model saved at the last step. The noise is map_tpu's: the unigram of
   `config.feat_count` with backoff, log q, norm_term = log V, and the alias
-  table, cached in `data_dir` when that is a directory.
+  table, cached in `data_dir` when that is a directory; with
+  `--pt_per_field_noise` the per-field tables of each field's id block
+  (`alias.build_per_field_alias`, not cached, as in map_tpu).
+  `--pt_shared_noise` draws one noise set a step (a set a field with
+  per-field noise). With `--sparse_table_update`, a shared mode and no clip
+  (`ops/sparse_adamw.engages`, map_tpu `trainer.py:208-218`) the decoder's
+  emb is updated from its gradient streams through K7.
 - finetune (`--finetune --pretrained_model_path`): every tensor of the
   checkpoint whose name and shape match the model's is copied in before
   training (`checkpoints.partial_restore`); the checkpoint is the port's
@@ -50,6 +56,7 @@ from map_tpu_torch.config import Config, TrainingArguments
 from map_tpu_torch.data.loader import Batcher
 from map_tpu_torch.nn.layers import set_dropout_generator
 from map_tpu_torch.objectives import alias
+from map_tpu_torch.ops import sparse_adamw
 from map_tpu_torch.train import checkpoints
 from map_tpu_torch.train.optimizer import build_optimizer
 from map_tpu_torch.train.train_step import (
@@ -92,11 +99,27 @@ class Trainer:
             self.load_for_finetune(training_args.pretrained_model_path)
 
     def _noise_tables(self) -> NoiseTables:
-        probs, logprob, norm_term = alias.noise_log_prior(self.config.feat_count)
+        c = self.config
+
+        def on_dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        if self.args.pt_per_field_noise:
+            if c.idx_low is None or c.idx_high is None:
+                raise ValueError("per-field noise needs the fields' id ranges "
+                                 "(config.idx_low / idx_high)")
+            prob, alias_ids, logprob, _ = alias.build_per_field_alias(
+                c.feat_count, c.idx_low, c.idx_high)
+            low = np.asarray(c.idx_low, np.int32)
+            sizes = np.asarray(c.idx_high, np.int32) - low
+            return NoiseTables(on_dev(alias.build_fused_alias(prob, alias_ids, logprob)),
+                               on_dev(logprob), float(np.log(len(logprob))),
+                               idx_low=on_dev(low), field_sizes=on_dev(sizes))
+        probs, logprob, norm_term = alias.noise_log_prior(c.feat_count)
         prob, alias_ids = alias.load_or_build_alias(self.args.data_dir, probs)
         fused = alias.build_fused_alias(prob, alias_ids, logprob)
-        return NoiseTables(torch.from_numpy(fused).to(self.device),
-                           torch.from_numpy(logprob).to(self.device), norm_term)
+        return NoiseTables(on_dev(fused), on_dev(logprob), norm_term,
+                           prob=on_dev(prob), alias=on_dev(alias_ids))
 
     def get_batcher(self, split: str, is_training: bool) -> Batcher:
         bs = (self.args.train_batch_size if is_training
@@ -107,14 +130,22 @@ class Trainer:
     def build_steps(self, num_batches_per_epoch: int) -> None:
         self._t_total = int(num_batches_per_epoch * self.args.num_train_epochs)
         self._t_warmup = int(self._t_total * self.args.warmup_ratio)
+        sparse = None
+        if self.noise is not None:
+            handoff = None
+            if sparse_adamw.engages(self.args.sparse_table_update,
+                                    self.args.pt_shared_noise, self.args.max_grad_norm):
+                handoff = sparse_adamw.StreamHandoff()
+                sparse = {"mfp_criterion.emb.weight": handoff}
+            self.model.mfp_criterion.handoff = handoff
         self.optimizer, self.schedule = build_optimizer(
-            self.model, self.args, self._t_total, self._t_warmup)
+            self.model, self.args, self._t_total, self._t_warmup, sparse=sparse)
         if self.noise is not None:
             self.train_step, self.eval_step = make_mfp_steps(
                 self.model, self.optimizer, self.config, self.args.mask_ratio,
                 self.args.sampling_method, self.noise,
                 torch.Generator(device=self.device).manual_seed(self.args.seed + 1),
-                self.device)
+                self.device, shared_noise=self.args.pt_shared_noise)
         else:
             self.train_step, self.eval_step = make_supervised_steps(
                 self.model, self.optimizer, self.device)
@@ -196,6 +227,10 @@ class Trainer:
         logger.info(f"  mask_ratio = {self.args.mask_ratio}")
         logger.info(f"  pt_neg_num = {self.config.pt_neg_num}")
         logger.info(f"  pt_type = {self.config.pt_type}")
+        logger.info(f"  noise = {'per-field' if self.args.pt_per_field_noise else 'global'}"
+                    f"{', shared' if self.args.pt_shared_noise else ''}, "
+                    f"loss = {self.config.nce_loss_type}, sparse table update = "
+                    f"{self.model.mfp_criterion.handoff is not None}")
         window: Dict[str, List[torch.Tensor]] = {"loss": [], "count": [], "acc_count": []}
         window_t0 = time.time()
         for epoch in range(self.args.num_train_epochs):

@@ -18,8 +18,10 @@ from map_tpu_torch.ops import (
     dedup_scatter,
     embedding,
     fused_adamw,
+    scan,
     scatter,
     scatter_unique,
+    sparse_adamw,
 )
 from map_tpu_torch.objectives.supervised import bce_loss
 
@@ -410,3 +412,155 @@ def test_mfp_dcnv2_gradients_match_the_plain_versions(dev, dtype):
     for name, r in ref.items():
         scale = float(r.abs().max()) + 1e-12
         torch.testing.assert_close(got[name], r, atol=tol * scale, rtol=tol, msg=name)
+
+
+# ---- K8: block scan -------------------------------------------------------------
+
+@pytest.mark.parametrize("n,w", [(1, 1), (31, 5), (1000, 33), (28_672, 33),
+                                 (745_472, 33), (2048, 128), (777, 100), (5000, 1)])
+def test_block_cumsum_matches_float64(dev, n, w):
+    # the fold's stream shapes (the shared modes' target fold, the
+    # per-position fold) and ragged ones; against a float64 scan, within
+    # 1e-6 of the largest prefix of |x|, and against the plain version
+    g = torch.Generator().manual_seed(n + w)
+    x = (torch.randn(n, w, generator=g) * 1e-3).to(dev)
+    before = scan.launches
+    got = scan.block_cumsum(x)
+    assert scan.launches == before + 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    ref = x.double().cumsum(0)
+    tol = 1e-6 * float(x.double().abs().cumsum(0).max())
+    assert float((got.double() - ref).abs().max()) <= tol
+    assert float((got - scan.block_cumsum_plain(x)).abs().max()) <= 2 * tol
+    assert torch.equal(got, scan.block_cumsum(x))  # the same bits again
+
+
+def test_block_cumsum_rejects_what_it_does_not_take(dev):
+    with pytest.raises(ValueError):
+        scan.block_cumsum(torch.zeros(10, 129, device=dev))
+    with pytest.raises(ValueError):
+        scan.block_cumsum(torch.zeros(10, 4, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        scan.block_cumsum(torch.zeros(4, 10, device=dev).t())
+    with pytest.raises(ValueError):
+        scan.block_cumsum(torch.zeros(10, device=dev))
+
+
+# ---- K7: sparse-stream decoder AdamW ---------------------------------------------
+
+def _stream(n, vocab, e, g):
+    """A folded stream as the decoder's backward gives it: the distinct ids
+    of n skewed draws ascending, their summed values, sentinels behind."""
+    ids = (torch.rand(n, generator=g) ** 3 * vocab).int().clamp(max=vocab - 1)
+    uids, vals, _ = dedup_scatter.sort_and_fold(ids, torch.randn(n, e, generator=g), vocab)
+    return sparse_adamw.Stream(uids, vals)
+
+
+@pytest.mark.parametrize("vocab,e,nt,nn", [(1_013_519, 32, 28_672, 2400),
+                                           (100_003, 32, 20_000, 100),
+                                           (5000, 16, 3000, 3000),
+                                           (777, 6, 500, 25),
+                                           (300, 32, 0, 40)])
+@pytest.mark.parametrize("wd", [5e-2, 0.0])
+def test_sparse_adamw_matches_plain(dev, vocab, e, nt, nn, wd):
+    g = torch.Generator().manual_seed(vocab + e)
+    target = sparse_adamw.Stream(*(t.to(dev) for t in _stream(nt, vocab, e, g)))
+    noise = sparse_adamw.Stream(*(t.to(dev) for t in _stream(nn, vocab, e, g)))
+    p, mu, nu, _ = _adam_state((vocab, e), vocab, dev)
+    s = fused_adamw.scalars(1e-3, wd, 0.9, 0.999, 1e-8, 4)
+    ref = [t.clone() for t in (p, mu, nu)]
+    sparse_adamw.sparse_adamw_plain(*ref, target, noise, s)
+    before = sparse_adamw.launches
+    got = [t.clone() for t in (p, mu, nu)]
+    sparse_adamw.sparse_adamw(*got, target, noise, s)
+    assert sparse_adamw.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    again = [t.clone() for t in (p, mu, nu)]
+    sparse_adamw.sparse_adamw(*again, target, noise, s)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_sparse_adamw_is_k1_on_the_dense_gradient(dev):
+    # K7 on two streams == K1 on the dense sum the dense route builds (K5 of
+    # each stream, added), bit for bit
+    g = torch.Generator().manual_seed(3)
+    vocab, e = 50_000, 32
+    target = sparse_adamw.Stream(*(t.to(dev) for t in _stream(9000, vocab, e, g)))
+    noise = sparse_adamw.Stream(*(t.to(dev) for t in _stream(700, vocab, e, g)))
+    p, mu, nu, _ = _adam_state((vocab, e), 5, dev)
+    s = fused_adamw.scalars(1e-3, 5e-2, 0.9, 0.999, 1e-8, 2)
+    dense = ((scatter_unique.scatter_unique_sorted(*target, vocab)[0]
+              + scatter_unique.scatter_unique_sorted(*noise, vocab)[0]))
+    ref = [t.clone() for t in (p, mu, nu)]
+    fused_adamw.fused_adamw(*ref, dense, s)
+    got = [t.clone() for t in (p, mu, nu)]
+    sparse_adamw.sparse_adamw(*got, target, noise, s)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_sparse_adamw_rejects_what_it_does_not_take(dev):
+    p, mu, nu = (torch.zeros(100, 8, device=dev) for _ in range(3))
+    ok = sparse_adamw.Stream(torch.arange(4, dtype=torch.int32, device=dev),
+                             torch.zeros(4, 8, device=dev))
+    s = fused_adamw.scalars(1e-3, 0.0, 0.9, 0.999, 1e-8, 1)
+    bad = [sparse_adamw.Stream(ok.uids.long(), ok.vals),
+           sparse_adamw.Stream(ok.uids, ok.vals.double()),
+           sparse_adamw.Stream(ok.uids, torch.zeros(4, 7, device=dev)),
+           sparse_adamw.Stream(ok.uids.cpu(), ok.vals.cpu())]
+    for stream in bad:
+        with pytest.raises(ValueError):
+            sparse_adamw.sparse_adamw(p, mu, nu, ok, stream, s)
+    with pytest.raises(ValueError):
+        sparse_adamw.sparse_adamw(p, mu, nu[:50], ok, ok, s)
+
+
+@pytest.mark.parametrize("per_field", [True, False])
+def test_shared_noise_sparse_steps_equal_dense_steps(dev, per_field):
+    # 3 shared-noise MFP steps with K7 against 3 on the dense route (K5 + K1
+    # on emb), from the same weights and draws, f32: target + noise is one
+    # f32 add either way, so the parameters are bit-equal
+    import numpy as np
+
+    from map_tpu_torch.config import TrainingArguments
+    from map_tpu_torch.train.train_step import draw_mfp
+    from map_tpu_torch.train.trainer import Trainer
+
+    vocab, fields = 6010, 6
+    lo = [10 + 1000 * i for i in range(fields)]
+    cfg = Config(model_name="dcnv2", input_size=vocab, num_fields=fields, embed_size=16,
+                 hidden_size=64, num_hidden_layers=2, num_cross_layers=2,
+                 compute_dtype="float32", pretrain=True, pt_type="MFP", proj_size=32,
+                 pt_neg_num=25, pt_per_field_noise=per_field,
+                 feat_count=np.arange(vocab, dtype=np.float32) % 97 + 1,
+                 idx_low=lo, idx_high=[a + 1000 for a in lo])
+    g = torch.Generator().manual_seed(0)
+    ids = torch.stack([torch.randint(a, a + 1000, (3, 512), generator=g, dtype=torch.int32)
+                       for a in lo], -1)
+    batches = [{"input_ids": ids[i].numpy(), "labels": np.zeros(512, np.float32),
+                "weight": np.ones(512, np.float32)} for i in range(3)]
+
+    def run(sparse):
+        args = TrainingArguments(learning_rate=1e-3, weight_decay=5e-2, pretrain=True,
+                                 pt_shared_noise=True, pt_per_field_noise=per_field,
+                                 sparse_table_update=sparse, mask_ratio=0.3,
+                                 sampling_method="randint")
+        data = type("D", (), {"X": {"train": ids[0].numpy()},
+                              "Y": {"train": np.zeros(512, np.float32)}})()
+        trainer = Trainer(models.from_config(cfg, torch.Generator().manual_seed(0)),
+                          cfg, args, data, device=dev)
+        trainer.build_steps(10)
+        assert (trainer.model.mfp_criterion.handoff is not None) == sparse
+        gen = torch.Generator(device=dev).manual_seed(1)
+        before = sparse_adamw.launches
+        for batch in batches:
+            draws = draw_mfp(gen, trainer.noise, 512, fields, 1, 25, "randint",
+                             shared_noise=True)
+            trainer.train_step(batch, draws)
+        assert sparse_adamw.launches == before + (3 if sparse else 0)
+        return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    dense, sparse = run(False), run(True)
+    for name, ref in dense.items():
+        assert torch.equal(sparse[name], ref), name

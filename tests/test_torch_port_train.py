@@ -404,10 +404,27 @@ def test_cli_pretrain_is_not_ported(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--pt_shared_noise", "--pt_per_field_noise",
                                   "--nce_loss_type=full"])
-def test_cli_rejects_mfp_options_not_ported(tmp_path, flag):
+def test_cli_rejects_mfp_options_not_ported(synth_dir, tmp_path, flag):
+    # these MFP options are ported now (tests/test_torch_port_shared_noise.py
+    # holds them to map_tpu): the CLI pretrains with each; with RFD, still
+    # not ported, it raises before it writes anything
+    common = ["--model_name=dcnv2", "--dataset_name=synth", f"--data_dir={synth_dir}",
+              "--embed_size=8", "--hidden_size=32", "--num_hidden_layers=1",
+              "--num_cross_layers=1", "--compute_dtype", "float32",
+              "--per_device_train_batch_size=256", "--per_device_eval_batch_size=200",
+              "--num_train_epochs=1", "--logging_steps=5", "--sampling_method=randint",
+              "--mask_ratio=0.3", "--pt_neg_num=5", "--proj_size=8", "--pretrain", flag,
+              "--device", "cpu"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main([f"--output_dir={tmp_path}", "--pretrain", flag, "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "train.log")
+        port_main(common + [f"--output_dir={tmp_path / 'rfd'}", "--pt_type=RFD"])
+    assert not os.path.exists(tmp_path / "rfd" / "train.log")
+    assert port_main(common + [f"--output_dir={tmp_path / 'mfp'}", "--pt_type=MFP"]) == 0
+    log = open(tmp_path / "mfp" / "train.log").read()
+    mode = {"--pt_shared_noise": "noise = global, shared, loss = nce",
+            "--pt_per_field_noise": "noise = per-field, loss = nce",
+            "--nce_loss_type=full": "noise = global, loss = full"}[flag]
+    assert mode in log
+    assert len(re.findall(r"'eval_mfp_acc': [\d.]+", log)) == 1
 
 
 def test_trainer_needs_a_card_unless_told_cpu():
