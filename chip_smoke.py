@@ -19,6 +19,13 @@ each; any failure ends the run with a nonzero exit code.
 5. K1 (AdamW update) against its plain version on the 1,013,519 x 16 table
    and a (1000, 384) leaf; K3 (gradient scatter-add) against `index_add_`
    onto zeros at the training shape (4096 x 24 ids), bf16 and f32 gradients;
+5b. K6 (field-block kernels of the hybrid lookup) against their plain
+   versions: K6b (the 21 small fields' gradient tiles, 32,509 ids in 65
+   512-row tiles, the last one running past the table) at the training
+   shape, bf16 and f32 gradients, exact and the same bits twice; the
+   `bwd_pallas` dense gradient (K3 on the big fields, K6b on the small ones)
+   against the flat K3 one on the same ids and cotangent, the small fields'
+   rows bit-equal; K6a (their rows) at the serving shape, exact;
 6. serving: DCNv2 at full width (embed 16, 24 fields, MLP 3 x 1000, 3 cross
    layers) from --seed, saved with save_model and scored by Predictor over
    --rows field-blocked rows in bf16 and in f32, three timed passes each;
@@ -34,6 +41,16 @@ each; any failure ends the run with a nonzero exit code.
    through the kernels and through the plain versions on the card, losses
    and parameters compared; step time and examples/s; a few steps under
    torch.profiler;
+7b. RFD pretraining (run_script/run_DCNv2_RFD.sh: Unigram, mask ratio 0.3,
+   randint, proj 32, lr 1e-3 cosine, wd 5e-2) in bf16 under the K6b
+   backward (`--hybrid_mode=bwd_pallas`) through the Trainer: one epoch of
+   --train_steps steps and one eval. Checks: window loss finite and falling,
+   eval accuracy at least 1 - eval pos_ratio - 0.01, the launches (K6b and
+   K3 once a step, K3 on the big fields only). Then 5 steps through the
+   kernels against the plain versions in bf16 and f32; 5 f32 steps under
+   bwd_pallas against 5 under fwd from the same weights and draws,
+   bit-equal; the step time and a profile in both modes; and the finetune
+   of phase 9 from its checkpoint;
 8. MFP pretraining in bf16 (run_script/run_DCNv2_MFP.sh: mask ratio 0.3,
    randint, 25 negatives, proj 32, lr 1e-3 cosine, wd 5e-2) through the
    Trainer on the same train split, whose unigram is the noise: one epoch of
@@ -44,7 +61,9 @@ each; any failure ends the run with a nonzero exit code.
    against its plain version on one step's folded candidate stream, both
    modes, exact and deterministic. Then 5 MFP steps from the same weights
    and draws through the kernels and through the plain versions, in bf16
-   and f32; the step time and a few steps under torch.profiler;
+   and f32; the step time and a few steps under torch.profiler, with K3's
+   rows and share under map_tpu's MFP default, the `matmul` hybrid backward
+   (every MFP phase runs it);
 8b. MFP with per-field shared noise at k = 100 and the sparse table update
    (bench_pretrain.py's fast configuration; otherwise as phase 8), through
    the Trainer in bf16: one epoch, one masked eval. Checks: window loss
@@ -60,15 +79,19 @@ each; any failure ends the run with a nonzero exit code.
 8c. the other noise modes, 5 steps each through the kernels against the
    plain versions in bf16: global shared noise (k = 25, sparse update),
    per-field per-position noise (k = 25) and the `full` loss (batch 64);
-9. finetune: supervised DCNv2 from the MFP checkpoint (13 tensors loaded,
-   4 skipped), one epoch, eval AUC > 0.6, launches checked;
+9. finetune: supervised DCNv2 from the RFD checkpoint (run_DCNv2_finetune.sh's
+   default) and from the MFP one (13 tensors loaded, 4 skipped each), one
+   epoch, eval AUC > 0.6, launches checked;
 10. times: median ms of each kernel (CUDA events, L2 flushed before each
    launch), its bound on an H100 SXM, its plain version and one-call
    library yardstick; K3 also on the MFP step's corrupted ids; K7 beside
    two yardsticks (index_add_ x 2 + torch._fused_adamw_, and the dense
-   route K5 x 2 + K1), K8 beside torch.cumsum over dim 0;
-11. the `kernels` line (launches from the per-field shared run of 8b, which
-   launches all seven), nvidia-smi's line, and last
+   route K5 x 2 + K1), K8 beside torch.cumsum over dim 0, K6b beside
+   index_add_ onto a zero tile stack, K6a beside F.embedding and a mask; the
+   MFP step's matmul backward in its parts;
+11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
+   from the per-field shared run of 8b for K5, K7 and K8), nvidia-smi's
+   line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -273,23 +296,39 @@ def teacher_dataset(rng: np.random.Generator, train_rows: int):
 @contextlib.contextmanager
 def plain_layers():
     """The DCNv2 layers with the gather and the cross net swapped for their
-    plain versions (differentiated by autograd), and the MFP decoder's
-    gather, K8 and K5 for theirs, for the comparison runs."""
+    plain versions (differentiated by autograd), the hybrid lookup's K4, K3
+    and K6b, and the MFP decoder's gather, K8 and K5 for theirs, for the
+    comparison runs."""
     from map_tpu_torch.nn import layers
-    from map_tpu_torch.ops import cross, dedup_scatter, embedding, scan, scatter_unique
+    from map_tpu_torch.ops import (
+        cross,
+        dedup_scatter,
+        embedding,
+        field_gather,
+        hybrid_gather,
+        scan,
+        scatter,
+        scatter_unique,
+    )
 
-    saved = (layers.embedding_lookup, layers.cross_net, dedup_scatter.embedding_lookup,
-             dedup_scatter.block_cumsum, dedup_scatter.scatter_unique_sorted)
-    layers.embedding_lookup = embedding.embedding_lookup_plain
-    layers.cross_net = cross.cross_net_plain
-    dedup_scatter.embedding_lookup = embedding.embedding_lookup_plain
-    dedup_scatter.block_cumsum = scan.block_cumsum_plain
-    dedup_scatter.scatter_unique_sorted = scatter_unique.scatter_unique_sorted_plain
+    swaps = [(layers, "embedding_lookup", embedding.embedding_lookup_plain),
+             (layers, "cross_net", cross.cross_net_plain),
+             (hybrid_gather, "embedding_lookup", embedding.embedding_lookup_plain),
+             (hybrid_gather, "scatter_add", scatter.scatter_add_plain),
+             (hybrid_gather, "field_block_scatter_add",
+              field_gather.field_block_scatter_add_plain),
+             (dedup_scatter, "embedding_lookup", embedding.embedding_lookup_plain),
+             (dedup_scatter, "block_cumsum", scan.block_cumsum_plain),
+             (dedup_scatter, "scatter_unique_sorted",
+              scatter_unique.scatter_unique_sorted_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (layers.embedding_lookup, layers.cross_net, dedup_scatter.embedding_lookup,
-         dedup_scatter.block_cumsum, dedup_scatter.scatter_unique_sorted) = saved
+        for (mod, name, _), fn in zip(swaps, saved):
+            setattr(mod, name, fn)
 
 
 def mfp_args(output_dir: str, seed: int, **kw):
@@ -347,7 +386,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     from map_tpu_torch.data.dataset import compute_feat_count
     from map_tpu_torch.data.loader import Batcher
     from map_tpu_torch.objectives.corruption import mask_num_of, mfp_corrupt
-    from map_tpu_torch.ops import dedup_scatter, scatter_unique
+    from map_tpu_torch.ops import dedup_scatter, hybrid_gather, scatter_unique
     from map_tpu_torch.train.train_step import draw_mfp
     from map_tpu_torch.train.trainer import Trainer
 
@@ -358,11 +397,11 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     n_cand = TRAIN_BATCH * mask_num * (1 + MFP_NEG)  # the port's capacity
     work = tempfile.mkdtemp(prefix="chip_smoke_mfp_")
 
-    def mfp_cfg(dname):
+    def mfp_cfg(dname):  # map_tpu's MFP default: the matmul hybrid backward
         return dataclasses.replace(cfg, compute_dtype=dname, pretrain=True,
                                    pt_type="MFP", proj_size=MFP_PROJ,
                                    pt_neg_num=MFP_NEG, nce_loss_type="nce",
-                                   feat_count=feat_count)
+                                   feat_count=feat_count, hybrid_mode="matmul")
 
     def fresh(c):
         return models.from_config(c, torch.Generator().manual_seed(args.seed))
@@ -401,7 +440,8 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     expected = {"embedding_gather": 2 * (steps + eval_batches),
                 "cross_net": steps + eval_batches, "scatter_add": steps,
                 "fused_adamw": steps * num_params, "scatter_unique_sorted": steps,
-                "block_cumsum": steps, "sparse_adamw": 0}
+                "block_cumsum": steps, "sparse_adamw": 0, "field_block_gather": 0,
+                "field_block_scatter": 0}
     distinct = torch.stack(unique).cpu().tolist()
     losses = [w["window_loss"] for w in trainer.train_windows]
     eval_loss, eval_acc = trainer.eval_metrics[-1]
@@ -482,8 +522,13 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     prof_steps = 5
     prof = profile(lambda: [step(batches[i]) for i in range(prof_steps)], top_n=14)
     k3_ms = sum(e["device_ms"] for e in prof["top"] if "scatter_rows" in e["name"])
+    # under the matmul backward K3 takes the big fields' rows only
+    big = list(hybrid_gather.field_groups(tuple(zip(cfg.idx_low, cfg.idx_high)))[1])
     emit("mfp_training_profile", compute_dtype="bfloat16", steps=prof_steps,
-         busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+         hybrid_mode="matmul", busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+         k3_rows=TRAIN_BATCH * len(big),
+         k3_mask_rows=int((corrupted[:, big] == 3).sum()),
+         k3_ms_per_step=k3_ms / prof_steps,
          k3_share_of_busy=k3_ms / prof["device_busy_ms"], **prof)
     # the per-position fold's scan input: the candidates' gradient rows in
     # sorted order, as sort_and_fold hands it to K8
@@ -517,7 +562,7 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
         return dataclasses.replace(cfg, compute_dtype=dname, pretrain=True,
                                    pt_type="MFP", proj_size=MFP_PROJ, pt_neg_num=k,
                                    nce_loss_type=loss, pt_per_field_noise=per_field,
-                                   feat_count=mfp["feat_count"])
+                                   feat_count=mfp["feat_count"], hybrid_mode="matmul")
 
     cfg_s = mode_cfg("bfloat16")
     targs = mfp_args(os.path.join(work, "pretrain"), args.seed, pt_shared_noise=True,
@@ -544,7 +589,8 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     expected = {"embedding_gather": 3 * (steps + eval_batches),
                 "cross_net": steps + eval_batches, "scatter_add": steps,
                 "fused_adamw": steps * (num_params - 1), "scatter_unique_sorted": 2 * steps,
-                "block_cumsum": 2 * steps, "sparse_adamw": steps}
+                "block_cumsum": 2 * steps, "sparse_adamw": steps, "field_block_gather": 0,
+                "field_block_scatter": 0}
     losses = [w["window_loss"] for w in trainer.train_windows]
     eval_loss, eval_acc = trainer.eval_metrics[-1]
     emit("mfp_pf_shared_training", compute_dtype="bfloat16", steps=steps,
@@ -700,9 +746,10 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
                 k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs)
 
 
-def finetune_phase(args, dev, cfg, data, ckpt, reset_counts, read_counts) -> None:
-    """9. Supervised DCNv2 (run_script/run_DCNv2_finetune.sh) from the MFP
-    checkpoint."""
+def finetune_phase(args, dev, cfg, data, ckpt, source, reset_counts, read_counts) -> None:
+    """9. Supervised DCNv2 (run_script/run_DCNv2_finetune.sh) from the
+    `source` (MFP or RFD) checkpoint: the backbone's 13 tensors loaded, the
+    pretraining head's 4 skipped."""
     import torch
 
     from map_tpu_torch import models
@@ -719,8 +766,8 @@ def finetune_phase(args, dev, cfg, data, ckpt, reset_counts, read_counts) -> Non
         pretrained_model_path=ckpt)
     trainer = Trainer(models.from_config(cfg_f, torch.Generator().manual_seed(args.seed)),
                       cfg_f, targs, data)
-    check("finetune: 13 tensors loaded, 4 skipped", trainer.finetune_counts == (13, 4),
-          loaded_skipped=trainer.finetune_counts)
+    check(f"finetune from {source}: 13 tensors loaded, 4 skipped",
+          trainer.finetune_counts == (13, 4), loaded_skipped=trainer.finetune_counts)
     reset_counts()
     t0 = time.perf_counter()
     trainer.train()
@@ -733,14 +780,192 @@ def finetune_phase(args, dev, cfg, data, ckpt, reset_counts, read_counts) -> Non
     expected = {"embedding_gather": steps + eval_batches,
                 "cross_net": steps + eval_batches, "scatter_add": steps,
                 "fused_adamw": steps * len(list(trainer.model.parameters())),
-                "scatter_unique_sorted": 0,
-                "block_cumsum": 0, "sparse_adamw": 0}
-    emit("finetune", compute_dtype="bfloat16", steps=steps, wall_s=wall,
-         windows=trainer.train_windows, eval_auc_logloss=trainer.eval_metrics,
-         test=test, launches=launches, expected_launches=expected)
-    check("finetune: eval AUC > 0.6", trainer.eval_metrics[0][0] > 0.6,
+                "scatter_unique_sorted": 0, "block_cumsum": 0, "sparse_adamw": 0,
+                "field_block_gather": 0, "field_block_scatter": 0}
+    emit("finetune", source=source, compute_dtype="bfloat16", steps=steps, wall_s=wall,
+         loaded_skipped=trainer.finetune_counts, windows=trainer.train_windows,
+         eval_auc_logloss=trainer.eval_metrics, test=test, launches=launches,
+         expected_launches=expected)
+    check(f"finetune from {source}: eval AUC > 0.6", trainer.eval_metrics[0][0] > 0.6,
           eval_auc=trainer.eval_metrics[0][0])
-    check("finetune: launches", launches == expected)
+    check(f"finetune from {source}: launches", launches == expected)
+
+
+def rfd_args(output_dir: str, seed: int, **kw):
+    """run_script/run_DCNv2_RFD.sh's flags, bf16, batch TRAIN_BATCH, the
+    K6b backward."""
+    from map_tpu_torch.config import TrainingArguments
+
+    return TrainingArguments(
+        output_dir=output_dir, dataset_name="in-memory", data_dir=output_dir,
+        per_device_train_batch_size=TRAIN_BATCH, per_device_eval_batch_size=EVAL_BATCH,
+        learning_rate=MFP_LR, weight_decay=MFP_WD, lr_sched="cosine", num_train_epochs=1,
+        logging_steps=10, mask_ratio=MFP_MASK_RATIO, sampling_method="randint",
+        pretrain=True, pt_type="RFD", RFD_replace="Unigram", hybrid_mode="bwd_pallas",
+        compute_dtype="bfloat16", seed=seed, **kw)
+
+
+def rfd_step_fn(dev, cfg, targs, seed: int, plain: bool = False):
+    """An RFD train step of `cfg` from the weights of `seed`, its AdamW
+    through K1 or (plain) its plain version -> (model, step)."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.ops import fused_adamw
+    from map_tpu_torch.train.optimizer import build_optimizer
+    from map_tpu_torch.train.train_step import make_rfd_steps
+
+    m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    opt, _ = build_optimizer(
+        m, targs, 100, 0,
+        update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw)
+    step, _ = make_rfd_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", "Unigram",
+                             torch.Generator(device=dev), dev)
+    return m, step
+
+
+def rfd_steps(dev, cfg, targs, batches, draws, read_counts, *, seed: int, plain: bool):
+    """RFD steps of `cfg` from the weights of `seed`, one per (batch, draws),
+    through the kernels or (plain) through their plain versions -> (losses
+    (n,), {name: parameter}, launches during the steps)."""
+    import torch
+
+    m, step = rfd_step_fn(dev, cfg, targs, seed, plain)
+    before = read_counts()
+    with plain_layers() if plain else contextlib.nullcontext():
+        losses = torch.stack([step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu()
+    after = read_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    if plain and any(launched.values()):
+        raise AssertionError(f"the plain run launched kernels: {launched}")
+    return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
+
+
+def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
+    """7b. RFD pretraining (Unigram) in bf16 under the K6b backward
+    (`--hybrid_mode=bwd_pallas`) through the Trainer; kernels-vs-plain
+    parity; bwd_pallas against fwd, bit-equal in f32; step times in both
+    modes and profiles. Returns what the finetune, times and summary phases
+    read."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.data.loader import Batcher
+    from map_tpu_torch.objectives.corruption import draw_rfd, mask_num_of
+    from map_tpu_torch.train.trainer import Trainer
+
+    _, _, vocab = field_blocks()
+    num_fields = len(FIELD_SIZES)
+    mask_num = mask_num_of(num_fields, MFP_MASK_RATIO)
+    work = tempfile.mkdtemp(prefix="chip_smoke_rfd_")
+
+    def rfd_cfg(dname, mode="bwd_pallas"):
+        return dataclasses.replace(cfg, compute_dtype=dname, pretrain=True, pt_type="RFD",
+                                   RFD_replace="Unigram", proj_size=MFP_PROJ,
+                                   hybrid_mode=mode)
+
+    cfg_r = rfd_cfg("bfloat16")
+    targs = rfd_args(os.path.join(work, "pretrain"), args.seed)
+    trainer = Trainer(models.from_config(cfg_r, torch.Generator().manual_seed(args.seed)),
+                      cfg_r, targs, data)
+    num_params = len(list(trainer.model.parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.RFD_pretrain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    steps = trainer.global_step
+    eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
+    # a train step: K4 and K2 forward, K3 on the 3 big fields' rows and K6b
+    # on the 21 small fields' rows backward, K1 for each parameter
+    expected = {"embedding_gather": steps + eval_batches,
+                "cross_net": steps + eval_batches, "scatter_add": steps,
+                "fused_adamw": steps * num_params, "scatter_unique_sorted": 0,
+                "block_cumsum": 0, "sparse_adamw": 0, "field_block_gather": 0,
+                "field_block_scatter": steps}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = trainer.RFD_pretrain_eval()  # the last eval again: its pos_ratio
+    losses = [w["window_rfd_loss"] for w in trainer.train_windows]
+    emit("rfd_training", compute_dtype="bfloat16", hybrid_mode="bwd_pallas", steps=steps,
+         batch=TRAIN_BATCH, wall_s=wall, windows=trainer.train_windows, eval=ev,
+         launches=launches, expected_launches=expected, num_params=num_params,
+         peak_mem_gb=peak_gb)
+    check(f"rfd: {args.train_steps} steps", steps == args.train_steps)
+    check("rfd: 17 parameters", num_params == 17)
+    check("rfd: window loss finite and falling",
+          all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          first_window_loss=losses[0], last_window_loss=losses[-1])
+    # the drawn ids are independent, so only each field's prior is learnable:
+    # the all-"original" guess scores 1 - pos_ratio
+    floor = 1.0 - ev["eval_pos_ratio"] - 0.01
+    check("rfd: eval accuracy at least 1 - pos_ratio - 0.01", ev["eval_rfd_acc"] >= floor,
+          eval_rfd_acc=ev["eval_rfd_acc"], floor=floor)
+    check("rfd: launches, K6b and K3 once a step", launches == expected)
+    ckpt = os.path.join(targs.output_dir, f"{steps}.model")
+    check("rfd: checkpoint at the last step", os.path.exists(ckpt))
+
+    batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH, shuffle=True,
+                           seed=args.seed, noise_source=data.X["train"],
+                           noise_rows_per_example=mask_num).epoch(0))[:PARITY_STEPS]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 9)
+    draws = [draw_rfd(gen, TRAIN_BATCH, num_fields, mask_num, "randint", "Unigram",
+                      vocab, dev) for _ in batches]
+    # 5 steps through the kernels against the plain versions
+    for dname in ("bfloat16", "float32"):
+        (k_loss, k_params, launched), (p_loss, p_params, _) = (
+            rfd_steps(dev, rfd_cfg(dname), targs, batches, draws, read_counts,
+                      seed=args.seed, plain=plain) for plain in (False, True))
+        check(f"rfd {dname}: K6b launched once a step", launched["field_block_scatter"]
+              == PARITY_STEPS, launched=launched)
+        parity_check(f"rfd {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
+                     dname, MFP_LR, k_loss, p_loss, k_params, p_params,
+                     dict(models.from_config(rfd_cfg(dname), torch.Generator().manual_seed(
+                         args.seed)).named_parameters()))
+        del k_params, p_params
+    # 5 f32 steps under bwd_pallas against 5 under fwd, from the same weights
+    # and draws: the drawn ids hold no reserved id, so every table row is
+    # summed in the same order either way
+    runs = {mode: rfd_steps(dev, rfd_cfg("float32", mode), targs, batches, draws,
+                            read_counts, seed=args.seed, plain=False)
+            for mode in ("bwd_pallas", "fwd")}
+    max_d = max(float((runs["bwd_pallas"][1][n] - p).abs().max())
+                for n, p in runs["fwd"][1].items())
+    check(f"rfd f32: {PARITY_STEPS} steps, bwd_pallas (K3 + K6b) vs fwd (flat K3)",
+          max_d == 0.0 and torch.equal(runs["bwd_pallas"][0], runs["fwd"][0])
+          and runs["bwd_pallas"][2]["field_block_scatter"] == PARITY_STEPS
+          and runs["fwd"][2]["field_block_scatter"] == 0,
+          param_max_abs=max_d, losses_bwd_pallas=runs["bwd_pallas"][0].tolist(),
+          losses_fwd=runs["fwd"][0].tolist(), launches_bwd_pallas=runs["bwd_pallas"][2],
+          launches_fwd=runs["fwd"][2])
+    del runs
+
+    # step time and where it goes, in both modes (bf16)
+    for mode in ("bwd_pallas", "fwd"):
+        step = (trainer.train_step if mode == "bwd_pallas"
+                else rfd_step_fn(dev, rfd_cfg("bfloat16", mode), targs, args.seed)[1])
+        for i in range(3):
+            step(batches[i], draws[i])
+        torch.cuda.synchronize()
+        timed = 20
+        t0 = time.perf_counter()
+        for i in range(timed):
+            step(batches[i % PARITY_STEPS], draws[i % PARITY_STEPS])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / timed * 1e3
+        prof_steps = 5
+        prof = profile(lambda: [step(batches[i], draws[i]) for i in range(prof_steps)],
+                       top_n=14)
+        k3_ms = sum(e["device_ms"] for e in prof["top"] if "scatter_rows" in e["name"])
+        k6_ms = sum(e["device_ms"] for e in prof["top"] if "field_block" in e["name"])
+        emit("rfd_training_time", compute_dtype="bfloat16", hybrid_mode=mode,
+             batch=TRAIN_BATCH, step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
+             busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+             k3_ms_per_step=k3_ms / prof_steps, k6b_ms_per_step=k6_ms / prof_steps,
+             **prof)
+    return dict(launches=launches, ckpt=ckpt, work=work)
 
 
 def main(argv=None) -> int:
@@ -772,7 +997,9 @@ def main(argv=None) -> int:
         cross,
         dedup_scatter,
         embedding,
+        field_gather,
         fused_adamw,
+        hybrid_gather,
         scatter,
         scan,
         scatter_unique,
@@ -785,17 +1012,23 @@ def main(argv=None) -> int:
     from map_tpu_torch.train.trainer import Trainer
     from map_tpu_torch.utils.metrics import roc_auc
 
-    kernel_modules = {"embedding_gather": embedding, "cross_net": cross,
-                      "fused_adamw": fused_adamw, "scatter_add": scatter,
-                      "scatter_unique_sorted": scatter_unique, "block_cumsum": scan,
-                      "sparse_adamw": sparse_adamw}
+    # each kernel's launch counter: (module, attribute)
+    counters = {"embedding_gather": (embedding, "launches"),
+                "cross_net": (cross, "launches"),
+                "fused_adamw": (fused_adamw, "launches"),
+                "scatter_add": (scatter, "launches"),
+                "scatter_unique_sorted": (scatter_unique, "launches"),
+                "block_cumsum": (scan, "launches"),
+                "sparse_adamw": (sparse_adamw, "launches"),
+                "field_block_gather": (field_gather, "gather_launches"),
+                "field_block_scatter": (field_gather, "scatter_launches")}
 
     def reset_counts():
-        for mod in kernel_modules.values():
-            mod.launches = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
     def read_counts():
-        return {name: mod.launches for name, mod in kernel_modules.items()}
+        return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -910,7 +1143,7 @@ def main(argv=None) -> int:
              ).to(dev, dtype)
         k3_grads[dname] = g
         got = scatter.scatter_add(train_ids, g, vocab)
-        plain = scatter.scatter_add_plain(train_ids, g, vocab)  # atomics: any order
+        plain = scatter.scatter_add_plain(train_ids, g, vocab)
         # each side's f32 sum of a row's n gradients is within (n - 1) u sum|g|
         # of the exact sum, u = 2**-24
         flat = train_ids.reshape(-1).long()
@@ -926,6 +1159,57 @@ def main(argv=None) -> int:
               max_duplicates=int(count.max()))
         check(f"K3 {dname} deterministic", torch.equal(
             got, scatter.scatter_add(train_ids, g, vocab)))
+
+    # 5b. K6 against its plain versions: K6b (the small fields' gradient
+    # tiles) at the training shape, K6a (their rows) at the serving shape;
+    # and the bwd_pallas dense gradient against the flat K3 one
+    bounds = tuple((int(a), int(b)) for a, b in zip(lo, hi))
+    small, _ = hybrid_gather.field_groups(bounds)
+    plan = tuple((pos, plo, pe) for pos, (_, _, _, plo, pe) in enumerate(small))
+    small_cols = [fi for fi, *_ in small]
+    utiles, _ = field_gather.plan_pairs(plan, vocab)
+    small_ids = sum(b - a for _, a, b, _, _ in small)
+    small_rows = torch.cat([torch.arange(a, b) for _, a, b, _, _ in small]).to(dev)
+    lo_s = torch.tensor([a for _, a, _, _, _ in small], dtype=torch.int32, device=dev)
+    hi_s = torch.tensor([b for _, _, b, _, _ in small], dtype=torch.int32, device=dev)
+
+    def phys_of(id_t):
+        sub = id_t[:, small_cols]
+        return torch.where((sub >= lo_s) & (sub < hi_s), sub, -1).t().contiguous()
+
+    k6_phys = phys_of(train_ids)
+    k6b_inputs = {}
+    k6b_err = 0.0
+    label = (f"{TRAIN_BATCH} rows x {len(small)} small fields ({small_ids} ids, "
+             f"{len(utiles)} tiles, the last ragged)")
+    for dname, g in k3_grads.items():
+        g_small = g[:, small_cols].reshape(TRAIN_BATCH, -1).contiguous()
+        k6b_inputs[dname] = g_small
+        got = field_gather.field_block_scatter(g_small, k6_phys, plan, vocab)
+        again = field_gather.field_block_scatter(g_small, k6_phys, plan, vocab)
+        ref = field_gather.field_block_scatter_plain(g_small, k6_phys, plan, vocab)
+        torch.cuda.synchronize()
+        k6b_err = max(k6b_err, compare(f"K6b {dname} g, {label}", got, ref, 0.0, 0.0))
+        check(f"K6b {dname} deterministic", torch.equal(got, again))
+        flat = hybrid_gather.table_grad(train_ids, g, vocab, bounds, NUM_RESERVED, "fwd")
+        blocked = hybrid_gather.table_grad(train_ids, g, vocab, bounds, NUM_RESERVED,
+                                           "bwd_pallas")
+        torch.cuda.synchronize()
+        check(f"bwd_pallas {dname} dense gradient: the small fields' rows bit-equal to "
+              "the flat K3 route's", torch.equal(blocked[small_rows], flat[small_rows]),
+              small_rows_max_abs=float((blocked[small_rows] - flat[small_rows]).abs().max()),
+              all_rows_max_abs=float((blocked - flat).abs().max()),
+              all_rows_bit_equal=torch.equal(blocked, flat))
+        del flat, blocked
+    serve_phys = phys_of(ids)
+    with torch.inference_mode():
+        got = field_gather.field_block_gather(table, serve_phys, plan, vocab)
+        again = field_gather.field_block_gather(table, serve_phys, plan, vocab)
+        ref = field_gather.field_block_gather_plain(table, serve_phys, plan, vocab)
+        torch.cuda.synchronize()
+        k6a_err = compare(f"K6a, ids {args.batch} x {len(small)} small fields -> "
+                          f"{tuple(got.shape)}", got, ref, 0.0, 0.0)
+        check("K6a deterministic", torch.equal(got, again))
 
     # 6. serving through Predictor
     cfg = Config(model_name="dcnv2", input_size=vocab, num_fields=len(FIELD_SIZES),
@@ -956,7 +1240,8 @@ def main(argv=None) -> int:
     check("serving launches", serving_launches == {
         "embedding_gather": expected, "cross_net": expected,
         "fused_adamw": 0, "scatter_add": 0, "scatter_unique_sorted": 0,
-                "block_cumsum": 0, "sparse_adamw": 0})
+        "block_cumsum": 0, "sparse_adamw": 0, "field_block_gather": 0,
+        "field_block_scatter": 0})
 
     def plain_forward(m, ids_t):
         """The Predictor's DCNv2 with both kernels swapped for their plain versions."""
@@ -1014,8 +1299,8 @@ def main(argv=None) -> int:
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
                     "scatter_add": steps, "fused_adamw": steps * num_params,
-                    "scatter_unique_sorted": 0,
-                "block_cumsum": 0, "sparse_adamw": 0}
+                    "scatter_unique_sorted": 0, "block_cumsum": 0, "sparse_adamw": 0,
+                    "field_block_gather": 0, "field_block_scatter": 0}
         windows = trainer.train_windows
         losses = [w["window_loss"] for w in windows]
         emit("training", compute_dtype=dname, steps=steps, batch=TRAIN_BATCH,
@@ -1085,10 +1370,13 @@ def main(argv=None) -> int:
         del trainer, pred
     train_dirs.cleanup()
 
-    # 8-9. MFP pretraining, and the finetune from its checkpoint
+    # 7b-9. RFD and MFP pretraining, and the finetunes from their checkpoints
+    rfd = rfd_phase(args, dev, cfg, data, reset_counts, read_counts)
+    finetune_phase(args, dev, cfg, data, rfd["ckpt"], "RFD", reset_counts, read_counts)
+    shutil.rmtree(rfd["work"], ignore_errors=True)
     mfp = mfp_phase(args, dev, cfg, data, reset_counts, read_counts)
     pfs = mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts)
-    finetune_phase(args, dev, cfg, data, mfp["ckpt"], reset_counts, read_counts)
+    finetune_phase(args, dev, cfg, data, mfp["ckpt"], "MFP", reset_counts, read_counts)
     shutil.rmtree(mfp["work"], ignore_errors=True)
 
     # 10. times at the serving, training and MFP shapes
@@ -1247,12 +1535,78 @@ def main(argv=None) -> int:
                                    reps=3 if x.shape[0] > 100_000 else 20),
                 bound_ms=2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
                 shape=list(x.shape))
+        # K6b on the training step's small-field rows: g read once, the ids
+        # read once, the tiles written once; the library call adds the same
+        # rows onto a zero stack. K6a at the serving shape: the ids and the
+        # distinct rows read once, the rows written once; the library call
+        # is F.embedding and a mask.
+        stack_rows = field_gather.stack_rows(k6_phys, plan, vocab).reshape(-1)
+        keep = stack_rows >= 0
+        u_rows = len(utiles) * field_gather.TILE
+        for dname, g_small in k6b_inputs.items():
+            vals = g_small.float().reshape(TRAIN_BATCH, len(small), EMBED).transpose(
+                0, 1).reshape(-1, EMBED)[keep]
+            rows_k = stack_rows[keep]
+            nbytes = (g_small.numel() * g_small.element_size() + k6_phys.numel() * 4
+                      + u_rows * EMBED * 4)
+            times[f"K6b {dname}"] = dict(
+                ms=time_ms(lambda: field_gather.field_block_scatter(
+                    g_small, k6_phys, plan, vocab)),
+                plain_ms=time_ms(lambda: field_gather.field_block_scatter_plain(
+                    g_small, k6_phys, plan, vocab), reps=3),
+                library_ms=time_ms(lambda: torch.zeros(u_rows, EMBED, device=dev)
+                                   .index_add_(0, rows_k, vals)),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                rows=int(keep.sum()), tiles=len(utiles),
+                max_hits_a_row=int(torch.bincount(rows_k).max()))
+        dense = torch.zeros(vocab, EMBED, device=dev)
+        times["K6b bfloat16"]["add_ms"] = time_ms(lambda: field_gather.field_block_scatter_add(
+            dense, k6b_inputs["bfloat16"], k6_phys, plan))
+        valid = serve_phys >= 0
+        serve_long = serve_phys.long().clamp(min=0)
+        distinct = int(torch.unique(serve_phys[valid]).numel())
+        nbytes = serve_phys.numel() * 4 + distinct * EMBED * 4 + serve_phys.numel() * EMBED * 4
+        times["K6a"] = dict(
+            ms=time_ms(lambda: field_gather.field_block_gather(table, serve_phys, plan, vocab)),
+            plain_ms=time_ms(lambda: field_gather.field_block_gather_plain(
+                table, serve_phys, plan, vocab)),
+            library_ms=time_ms(lambda: torch.where(valid[..., None],
+                                                   F.embedding(serve_long, table), 0.0)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            ids=serve_phys.numel(), distinct_rows=distinct)
+
+        # the MFP step's table gradient under the matmul backward, on one
+        # step's corrupted ids: the small fields' one-hot products, and K3 on
+        # the big fields' rows, against K3 on every row (above)
+        route = hybrid_gather.routing(bounds, NUM_RESERVED, dev)
+        mfp_ids = mfp["corrupted"]
+        g_mfp = k3_grads["bfloat16"]
+        sub = mfp_ids.index_select(1, route.small_idx)
+        g_sub = g_mfp.index_select(1, route.small_idx).float()
+        in_block = (sub >= route.lo) & (sub < route.hi)
+        big_ids = mfp_ids.index_select(1, route.big_idx)
+        big_g = g_mfp.index_select(1, route.big_idx)
+        times["MFP matmul backward"] = dict(
+            small_fields_matmul_ms=time_ms(lambda: hybrid_gather.add_matmul(
+                dense, sub, g_sub, in_block, route), reps=5),
+            k3_big_fields_ms=time_ms(lambda: scatter.scatter_add(big_ids, big_g, vocab)),
+            whole_ms=time_ms(lambda: hybrid_gather.table_grad(
+                mfp_ids, g_mfp, vocab, bounds, NUM_RESERVED, "matmul"), reps=5),
+            fwd_whole_ms=time_ms(lambda: hybrid_gather.table_grad(
+                mfp_ids, g_mfp, vocab, bounds, NUM_RESERVED, "fwd"), reps=5),
+            k3_rows=big_ids.numel(), k3_mask_rows=int((big_ids == 3).sum()))
+        del dense
     emit("times", card=smi, unique_rows=unique_rows, kernels=times)
 
-    # 11. summary; launches are the per-field shared MFP run's (this slice's
-    # main path, which launches all seven kernels)
+    # 11. summary; each kernel's launches are those of the path that runs
+    # it, counted from 0 over that path's run: the RFD run under the K6b
+    # backward (this slice's main path: K1-K4, K6b) and the per-field shared
+    # MFP run (K5, K7, K8). K6a has no caller in the package (nor in
+    # map_tpu's): 0.
     src = "map_tpu_torch/csrc"
-    main_path = pfs["launches"]
+    main_path = {**pfs["launches"], **{k: v for k, v in rfd["launches"].items()
+                                       if k not in ("scatter_unique_sorted",
+                                                    "block_cumsum", "sparse_adamw")}}
 
     def entry(name, source, replaces, err, timing):
         return dict(name=name, route="cuda", source=f"{src}/{source}",
@@ -1275,6 +1629,10 @@ def main(argv=None) -> int:
               pfs["k7_err"], times["K7"]),
         entry("block_cumsum", "block_cumsum.cu", "map_tpu/ops/pallas_scan.py:35",
               pfs["k8_err"], times["K8 target fold"]),
+        entry("field_block_gather", "field_block.cu",
+              "map_tpu/ops/pallas_field_gather.py:82", k6a_err, times["K6a"]),
+        entry("field_block_scatter", "field_block.cu",
+              "map_tpu/ops/pallas_field_gather.py:150", k6b_err, times["K6b bfloat16"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,14 +3,25 @@
 `TrainingArguments` and `ModelArguments` are the DCNv2 subset of map_tpu's
 flags (`config.py:21-245`) with map_tpu's defaults: supervised training, MFP
 pretraining (per-position, shared, per-field and per-field-shared noise; the
-`nce`, `sampled` and `full` losses; the sparse table update), and finetune
-transfer; plus the port's own `--device` (default: the card). `parse_args`
-registers every field as a `--flag`; a bool whose default is True takes
-`BooleanOptionalAction`, so `--no-<flag>` can turn it off (map_tpu registers
-every bool as store_true, which cannot). `build_config` assembles the model
-`Config` from the flags and the dataset, as `config.py:330` does. RFD
-pretraining, not ported yet, raises `NotImplementedError` in
-`check_supported`.
+`nce`, `sampled` and `full` losses; the sparse table update), RFD
+pretraining (its four generators), the field-blocked hybrid lookup and its
+backward modes, and finetune transfer; plus the port's own `--device`
+(default: the card). `parse_args` registers every field as a `--flag`; a
+bool whose default is True takes `BooleanOptionalAction`, so `--no-<flag>`
+can turn it off (map_tpu registers every bool as store_true, which cannot).
+`build_config` assembles the model `Config` from the flags and the dataset,
+as `config.py:330-373` does.
+
+The field-blocked hybrid lookup (`ops/hybrid_gather.py`) engages where
+map_tpu's does with its default packed tables (`packed_tables=True`, which
+routes (B, F) ids through `hybrid_rows_gather`): `field_blocked_lookup` on,
+the dataset's blocks valid (`field_blocked_ok`), and not under RFD's
+`Whole-*` generators, whose replacements leave their field's block. The
+packing itself is TPU layout (128-lane rows) and is not ported: the port's
+table is plain, so its pack factor is 1 and `packed_tables` stays False in
+the port's config. An empty `hybrid_mode` becomes `matmul` for MFP, as in
+map_tpu, and otherwise resolves at the call (`MAP_TPU_HYBRID_MODE`, else
+`fwd`).
 
 `Config` holds the model fields of map_tpu's `config.json` that the port
 reads (map_tpu's `Config` / `Config.load`). map_tpu's Config is a free-form
@@ -57,10 +68,13 @@ class Config:
     idx_high: Optional[List[int]] = None
     pretrain: bool = False
     pt_type: str = "MFP"
+    RFD_replace: str = "Unigram"
     pt_per_field_noise: bool = False
     pt_neg_num: int = 25
     proj_size: int = 32
     nce_loss_type: str = "nce"
+    field_blocked_lookup: bool = True
+    hybrid_mode: str = ""
     feat_count: Optional[np.ndarray] = field(default=None, repr=False)
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -76,6 +90,11 @@ class Config:
     def mfp(self) -> bool:
         """The model carries the MFP head instead of fc_out."""
         return bool(self.pretrain) and self.pt_type == "MFP"
+
+    @property
+    def rfd(self) -> bool:
+        """The model carries the RFD head instead of fc_out."""
+        return bool(self.pretrain) and self.pt_type == "RFD"
 
     @classmethod
     def load(cls, load_directory: str) -> "Config":
@@ -125,12 +144,19 @@ class TrainingArguments:
     sampling_method: str = "normal"  # normal (no repeats in a row) | randint
     mask_ratio: float = 0.1
     pretrain: bool = False
-    pt_type: str = "MFP"  # MFP | RFD (RFD not ported: check_supported raises)
+    pt_type: str = "MFP"  # MFP | RFD
+    RFD_replace: str = "Unigram"  # Unigram | Uniform | Whole-Uniform | Whole-Unigram
     finetune: bool = False
     pretrained_model_path: Optional[str] = None
     pt_per_field_noise: bool = False  # noise from the masked field's own unigram
     pt_shared_noise: bool = False  # one noise set a step (a field), not a position
     compute_dtype: str = "bfloat16"  # float32 | bfloat16 for activations
+    # the field-blocked hybrid lookup (ops/hybrid_gather.py, map_tpu
+    # config.py:112-123) and its backward mode: fwd | fwd_split | matmul |
+    # both | bwd | bwd_pallas; "" = matmul for MFP, else MAP_TPU_HYBRID_MODE
+    # or fwd
+    field_blocked_lookup: bool = True
+    hybrid_mode: str = ""
     device: Optional[str] = None  # None: the card ("cuda"); "cpu" for the plain path
 
     @property
@@ -195,28 +221,43 @@ def parse_args(argv: Optional[Sequence[str]] = None
     return model_args, training_args
 
 
+RFD_REPLACE = ("Unigram", "Uniform", "Whole-Uniform", "Whole-Unigram")
+
+
 def check_supported(model_args: ModelArguments,
                     training_args: TrainingArguments) -> None:
-    """Raise on the pretraining options map_tpu has and the port not yet."""
-    if training_args.pretrain and training_args.pt_type != "MFP":
-        raise NotImplementedError(
-            f"map_tpu_torch pretrains with MFP; pt_type={training_args.pt_type} is "
-            f"queued in ROADMAP.md")
+    """Raise on a pretraining type or RFD generator map_tpu does not have."""
+    if training_args.pretrain and training_args.pt_type not in ("MFP", "RFD"):
+        raise NotImplementedError(f"pt_type={training_args.pt_type}: MFP | RFD")
+    if (training_args.pretrain and training_args.pt_type == "RFD"
+            and training_args.RFD_replace not in RFD_REPLACE):
+        raise NotImplementedError(f"RFD_replace={training_args.RFD_replace}: "
+                                  f"one of {RFD_REPLACE}")
 
 
 def build_config(model_args: ModelArguments, training_args: TrainingArguments,
                  dataset) -> Config:
     """Flags + the dataset's input_size and num_fields (the reserved <rsv>
     field not counted), its per-field id ranges and, for pretraining, its
-    unigram `feat_count` -> the model Config."""
+    unigram `feat_count` -> the model Config. The hybrid lookup's rules are
+    map_tpu's (`config.py:355-372`): off when the dataset is not
+    field-blocked or under RFD's `Whole-*` generators; `matmul` for MFP when
+    no mode is given."""
     check_supported(model_args, training_args)
+    t = training_args
     d = dataclasses.asdict(model_args)
     idx = lambda a: None if a is None else [int(x) for x in a]  # noqa: E731
+    blocked = (t.field_blocked_lookup and getattr(dataset, "field_blocked_ok", True)
+               and not (t.pretrain and t.pt_type == "RFD"
+                        and t.RFD_replace.startswith("Whole")))
+    mode = t.hybrid_mode
+    if not mode and t.pretrain and t.pt_type == "MFP" and blocked:
+        mode = "matmul"
     d.update(input_size=dataset.input_size, num_fields=dataset.num_fields,
-             compute_dtype=training_args.compute_dtype, packed_tables=False,
-             data_dir=training_args.data_dir, pretrain=training_args.pretrain,
-             pt_type=training_args.pt_type,
-             pt_per_field_noise=training_args.pt_per_field_noise,
+             compute_dtype=t.compute_dtype, packed_tables=False,
+             data_dir=t.data_dir, pretrain=t.pretrain, pt_type=t.pt_type,
+             RFD_replace=t.RFD_replace, pt_per_field_noise=t.pt_per_field_noise,
+             field_blocked_lookup=blocked, hybrid_mode=mode,
              feat_count=getattr(dataset, "feat_count", None),
              idx_low=idx(getattr(dataset, "idx_low", None)),
              idx_high=idx(getattr(dataset, "idx_high", None)))

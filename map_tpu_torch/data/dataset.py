@@ -10,7 +10,10 @@ Pretraining statistics, as map_tpu derives them (`dataset.py:101-124`):
 `feat_count`, the unigram of the train split (a float32 bincount over the
 vocabulary), cached in `{data_dir}/feat-count.npy` (map_tpu's file and
 format, so either package reuses the other's cache) and loaded only for a
-pretraining run; `idx_low` / `idx_high`, each field's id range over all rows.
+pretraining run; `idx_low` / `idx_high`, each field's id range over all rows;
+`field_blocked_ok`, whether those ranges are the blocks the hybrid lookup
+(`ops/hybrid_gather.py`) slices: at or above the 10 reserved ids, ascending
+and disjoint in field order (map_tpu `dataset.py:126-143`).
 """
 
 from __future__ import annotations
@@ -22,9 +25,19 @@ from typing import Dict, Optional
 
 import numpy as np
 
+NUM_RESERVED = 10  # ids 0-9: <pad>, <cls>, <sep>, <mask>, ... (map_tpu dataset.py)
+
 
 def feat_count_path(data_dir: str) -> str:
     return os.path.join(data_dir, "feat-count.npy")
+
+
+def field_blocked_ok(idx_low: np.ndarray, idx_high: np.ndarray) -> bool:
+    """True when every field's block starts at or above the reserved ids and
+    the blocks ascend without overlap in field order."""
+    idx_low, idx_high = np.asarray(idx_low), np.asarray(idx_high)
+    return bool(idx_low.min() >= NUM_RESERVED
+                and np.all(idx_low[1:] >= idx_high[:-1]))
 
 
 def compute_feat_count(train_feat_ids: np.ndarray, vocab_size: int) -> np.ndarray:
@@ -36,7 +49,7 @@ def compute_feat_count(train_feat_ids: np.ndarray, vocab_size: int) -> np.ndarra
 class CTRDataset:
     """`X[split]` int32 (N, F) field-blocked ids and `Y[split]` float32 (N,)
     labels for the train / valid / test splits; `feat_count` (None unless
-    `pretrain`), `idx_low` and `idx_high` (F,) int32."""
+    `pretrain`), `idx_low` and `idx_high` (F,) int32, `field_blocked_ok`."""
 
     split_names = ("train", "valid", "test")
 
@@ -62,6 +75,7 @@ class CTRDataset:
         # over all rows: valid / test ids may be unseen in train
         self.idx_low = feat_ids.min(axis=0).astype(np.int32)
         self.idx_high = (feat_ids.max(axis=0) + 1).astype(np.int32)
+        self.field_blocked_ok = field_blocked_ok(self.idx_low, self.idx_high)
         self.feat_count: Optional[np.ndarray] = None
         if pretrain:
             path = feat_count_path(data_dir)

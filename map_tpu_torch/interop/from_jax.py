@@ -14,6 +14,8 @@ Layout changes on the way:
   or (V,) to the reference's (V, 1);
 - Dense and cross kernels are flax (in, out) and become torch (out, in);
 - LayerNorm `scale` / `bias` become `weight` / `bias`.
+The heads follow the config: the MFP head, the RFD head (`pred_rfd_hidden`
+and `pred_rfd_out` to `pred_rfd.0` and `pred_rfd.2`), or fc_out.
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ def dcnv2_rules(config: Config) -> List[Rule]:
                   ("feat_encoder.bias", ("feat_encoder", "dense", "bias"), "id"),
                   ("mfp_criterion.emb.weight", ("mfp_decoder", "emb"), "proj_table"),
                   ("mfp_criterion.bias.weight", ("mfp_decoder", "bias"), "bias_table")]
+    elif config.rfd:  # pred_rfd.0 / pred_rfd.2 (torch_import.py:287-288)
+        for key, node in (("pred_rfd.0", "pred_rfd_hidden"), ("pred_rfd.2", "pred_rfd_out")):
+            rules += [(f"{key}.weight", (node, "dense", "kernel"), "t"),
+                      (f"{key}.bias", (node, "dense", "bias"), "id")]
     else:
         rules += [("fc_out.weight", ("fc_out", "dense", "kernel"), "t"),
                   ("fc_out.bias", ("fc_out", "dense", "bias"), "id")]

@@ -1,13 +1,19 @@
-"""CTRModel protocol: backbone -> final_vec -> supervised head or MFP head.
+"""CTRModel protocol: backbone -> final_vec -> supervised, MFP or RFD head.
 
 Counterpart: `map_tpu/models/base.py` `CTRModel` (`create_pretraining_predictor`
 :34-47, `_select_masked` :50, `mfp_candidate_logits` :62,
 `mfp_shared_noise_logits` :76, `mfp_per_field_shared_logits` :90,
-`mfp_full_scores` :107, `__call__` :132).
+`mfp_full_scores` :107, `rfd_field_logits` :120-123, `__call__` :132).
 The MFP head, built instead of the supervised one when `config.mfp`, is the
 reference's (`code/models.py:114-126`): `feat_encoder` (Linear final_dim ->
 num_fields * proj_size) and `mfp_criterion` (`objectives/nce.py`
-IndexLinearDecoder). The RFD head comes with its slice (ROADMAP.md).
+IndexLinearDecoder). The RFD head, built when `config.rfd`, is the
+reference's `pred_rfd` (`code/models.py:118-123`): Linear final_dim ->
+num_fields * proj_size, ReLU, Linear -> num_fields, whose state_dict names
+`pred_rfd.0.*` and `pred_rfd.2.*` are those map_tpu exchanges for its
+`pred_rfd_hidden` and `pred_rfd_out` (`interop/torch_import.py:287-288`).
+Both Linears compute in float32 (map_tpu's TorchDense with dtype=None
+promotes a bf16 final_vec).
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from map_tpu_torch.objectives.nce import IndexLinearDecoder
 
 class CTRModel(nn.Module):
     """Subclasses build their modules in __init__ and implement backbone(),
-    supervised_logits() and reset_parameters(generator)."""
+    supervised_logits() and reset_parameters(generator); they call
+    create_pretraining_predictor / reset_pretraining_predictor for a
+    pretraining config."""
 
     def __init__(self, config: Config):
         super().__init__()
@@ -31,6 +39,11 @@ class CTRModel(nn.Module):
 
     def create_pretraining_predictor(self, final_dim: int) -> None:
         c = self.config
+        if c.rfd:
+            self.pred_rfd = nn.Sequential(
+                TorchDense(final_dim, c.num_fields * c.proj_size), nn.ReLU(),
+                TorchDense(c.num_fields * c.proj_size, c.num_fields))
+            return
         self.feat_encoder = TorchDense(final_dim, c.num_fields * c.proj_size)
         self.mfp_criterion = IndexLinearDecoder(c.input_size, c.proj_size)
 
@@ -42,6 +55,10 @@ class CTRModel(nn.Module):
         `config.logprob_noise` and `config.norm_term` so, `trainer.py:89-109`,
         and the decoder's init reads them, `objectives/nce.py:63-65`)."""
         c = self.config
+        if c.rfd:
+            self.pred_rfd[0].reset_parameters(generator)
+            self.pred_rfd[2].reset_parameters(generator)
+            return
         if c.feat_count is None:
             raise ValueError("the MFP head needs config.feat_count, the train "
                              "split's unigram counts")
@@ -103,6 +120,10 @@ class CTRModel(nn.Module):
         return self.mfp_criterion.full_scores(
             self._masked_encoding(input_ids, masked_index))
 
+    def rfd_logits(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """(B, F) corrupted ids -> (B, F) float32 'was replaced' logits."""
+        return self.pred_rfd(self.backbone(input_ids))
+
     def backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
@@ -113,4 +134,6 @@ class CTRModel(nn.Module):
         raise NotImplementedError
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        if self.config.rfd:
+            return self.rfd_logits(input_ids)
         return self.supervised_logits(input_ids)

@@ -16,10 +16,23 @@ from map_tpu_torch.nn.layers import (
 )
 
 
+def field_bounds(config: Config):
+    """Each field's (lo, hi) id range for the field-blocked hybrid lookup,
+    or None: off, or the ranges unknown (map_tpu `zoo.py:42-56`)."""
+    lo, hi = config.idx_low, config.idx_high
+    if not config.field_blocked_lookup or lo is None or hi is None:
+        return None
+    if len(lo) != config.num_fields or len(hi) != config.num_fields:
+        return None
+    return tuple((int(a), int(b)) for a, b in zip(lo, hi))
+
+
 class DCNV2(CTRModel):
     """CrossNetV2 || MLP -> concat -> fc_out. final_dim = F*E + hidden_size.
     With `config.mfp` the MFP head (`models/base.py`) replaces fc_out, as in
-    map_tpu (`zoo.py:215-218`): 17 parameters at 3 cross and 3 MLP layers.
+    map_tpu (`zoo.py:215-218`), with `config.rfd` the RFD head: 17
+    parameters each at 3 cross and 3 MLP layers. The embedding takes the
+    field-blocked hybrid lookup as map_tpu's (`zoo.py:59-71`).
 
     In bf16 the rounding points are map_tpu's: rows gathered in float32 and
     cast to bf16, the cross net and the MLP in bf16 (f32 accumulate), and
@@ -38,14 +51,15 @@ class DCNV2(CTRModel):
         self.embed = Embeddings(c.input_size, c.embed_size, c.num_fields,
                                 embed_norm=c.embed_norm,
                                 layer_norm_eps=c.layer_norm_eps,
-                                dropout_rate=c.embed_dropout_rate, dtype=dt)
+                                dropout_rate=c.embed_dropout_rate, dtype=dt,
+                                field_bounds=field_bounds(c), hybrid_mode=c.hybrid_mode)
         self.cross_net = CrossNetV2(dim, c.num_cross_layers, dtype=dt)
         self.parallel_dnn = (
             MLPBlock(dim, c.hidden_size, c.num_hidden_layers, c.hidden_act,
                      c.hidden_dropout_rate, dtype=dt)
             if c.num_hidden_layers > 0 else None)
         final_dim = dim + (c.hidden_size if self.parallel_dnn is not None else 0)
-        if c.mfp:
+        if c.mfp or c.rfd:
             self.create_pretraining_predictor(final_dim)
         else:
             self.fc_out = TorchDense(final_dim, 1)
@@ -57,7 +71,7 @@ class DCNV2(CTRModel):
             for layer in self.parallel_dnn.dnn:
                 if isinstance(layer, TorchDense):
                     layer.reset_parameters(generator)
-        if self.config.mfp:
+        if self.config.mfp or self.config.rfd:
             self.reset_pretraining_predictor(generator)
         else:
             self.fc_out.reset_parameters(generator)

@@ -22,10 +22,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from map_tpu_torch.data.dataset import NUM_RESERVED
 from map_tpu_torch.nn import init
 from map_tpu_torch.nn.activations import Activation
 from map_tpu_torch.ops.cross import cross_net
 from map_tpu_torch.ops.embedding import embedding_lookup
+from map_tpu_torch.ops.hybrid_gather import hybrid_lookup
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -92,15 +94,21 @@ class TorchDense(nn.Linear):
 class Embeddings(nn.Module):
     """One (V, E) table over the field-blocked id space, optional LayerNorm
     and dropout. map_tpu may store the table lane-packed; the port always
-    stores it plain (`interop/from_jax.py` unpacks)."""
+    stores it plain (`interop/from_jax.py` unpacks). With `field_bounds`,
+    each field's (lo, hi) id range, (B, F) ids take the field-blocked hybrid
+    lookup (`ops/hybrid_gather.py`) in `hybrid_mode` ("" = its default), as
+    map_tpu's Embeddings (`nn/layers.py:89-119`) routes its packed table."""
 
     def __init__(self, input_size: int, embed_size: int, num_fields: int,
                  embed_norm: bool = False, layer_norm_eps: float = 1e-12,
-                 dropout_rate: float = 0.0, dtype: Optional[torch.dtype] = None):
+                 dropout_rate: float = 0.0, dtype: Optional[torch.dtype] = None,
+                 field_bounds=None, hybrid_mode: str = ""):
         super().__init__()
         self.num_fields = num_fields
         self.embed_size = embed_size
         self.dtype = dtype
+        self.field_bounds = None if field_bounds is None else tuple(field_bounds)
+        self.hybrid_mode = hybrid_mode
         self.embedding = nn.Embedding(input_size, embed_size)
         self.layer_norm = (nn.LayerNorm(embed_size, eps=layer_norm_eps)
                            if embed_norm else None)
@@ -113,7 +121,13 @@ class Embeddings(nn.Module):
             self.layer_norm.reset_parameters()
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        emb = embedding_lookup(self.embedding.weight, input_ids, self.dtype)
+        bounds = self.field_bounds
+        if (bounds is not None and input_ids.dim() == 2
+                and input_ids.shape[1] == len(bounds)):
+            emb = hybrid_lookup(self.embedding.weight, input_ids, bounds, NUM_RESERVED,
+                                self.hybrid_mode or None, self.dtype)
+        else:
+            emb = embedding_lookup(self.embedding.weight, input_ids, self.dtype)
         if self.layer_norm is not None:
             # flax LayerNorm reduces in float32 and returns the promotion of
             # its input with its float32 parameters: float32

@@ -14,8 +14,13 @@ Kernel: `map_tpu_torch/csrc/scatter_add.cu` (CUDA C++, sm_90a).
   binary search and sum the segment's gradients in order, in float32, or
   write zeros. Deterministic, no atomics, no memset; bf16 or f32 gradients.
 
-CUDA tensors go to the kernel, CPU tensors to `scatter_add_plain`
-(`index_add_` onto zeros, which on the CPU adds in the same order).
+CUDA tensors go to the kernel, CPU tensors to `scatter_add_plain`. The
+plain version sums each row's duplicates in a fixed order on either device:
+on the CPU `index_add_` onto zeros, which adds in index order as K3 does; on
+the card (chip_smoke.py's comparison runs) `index_put_` with accumulate,
+autograd's own backward of a row gather, which sorts the ids and sums each
+row's duplicates in turn, where `index_add_`'s atomics would add them in any
+order (and the CPU's `index_put_` too, above 32,768 elements).
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ def scatter_add_plain(ids: torch.Tensor, grads: torch.Tensor,
                       vocab_size: int) -> torch.Tensor:
     e = grads.shape[-1]
     out = torch.zeros(vocab_size, e, dtype=torch.float32, device=grads.device)
-    return out.index_add_(0, ids.reshape(-1).long(), grads.reshape(-1, e).float())
+    flat_ids, flat_g = ids.reshape(-1).long(), grads.reshape(-1, e).float()
+    if out.is_cuda:
+        return out.index_put_((flat_ids,), flat_g, accumulate=True)
+    return out.index_add_(0, flat_ids, flat_g)
 
 
 def scatter_add(ids: torch.Tensor, grads: torch.Tensor,

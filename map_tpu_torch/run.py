@@ -10,17 +10,22 @@
 takes the flags of `run_script/run_DCNv2_scratch.sh`; with `--pretrain
 --pt_type=MFP --mask_ratio=0.3 --sampling_method=randint --pt_neg_num=25
 --proj_size=32` those of `run_DCNv2_MFP.sh`, and with `--finetune
---pretrained_model_path=<dir>/<step>.model` those of `run_DCNv2_finetune.sh`.
+--pretrained_model_path=<dir>/<step>.model` those of `run_DCNv2_finetune.sh`;
+with `--pretrain --pt_type=RFD --RFD_replace=Unigram --sampling_method=randint
+--mask_ratio=0.3 --proj_size=32` those of `run_DCNv2_RFD.sh` (RFD_replace:
+Unigram | Uniform | Whole-Uniform | Whole-Unigram).
 MFP takes map_tpu's noise modes and losses: `--pt_shared_noise`,
 `--pt_per_field_noise` (both: one noise set per field a step),
 `--nce_loss_type=nce|sampled|full`, and `--sparse_table_update` (the decoder
 table's AdamW from its gradient streams, in a shared mode without a clip).
+The embedding lookup is field-blocked by default (`--no-field_blocked_lookup`
+turns it off) with `--hybrid_mode=fwd|fwd_split|matmul|both|bwd|bwd_pallas`
+(default: matmul for MFP, fwd otherwise).
 Lifecycle as map_tpu's: parse -> idempotency check (results.log exists ->
 exit) -> logging -> dataset -> config.json -> model from --seed (finetune:
 restored from the checkpoint where names and shapes match) -> train and test
-on the best step, or MFP pretraining (no test phase) -> train.log copied to
-results.log. Runs on the card unless `--device cpu`. RFD pretraining is not
-ported yet and raises.
+on the best step, or MFP or RFD pretraining (no test phase) -> train.log
+copied to results.log. Runs on the card unless `--device cpu`.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ from map_tpu_torch.utils.logging import (
 
 
 def main(argv=None) -> int:
-    model_args, training_args = parse_args(argv)  # raises on what is not ported
+    model_args, training_args = parse_args(argv)  # raises on an unknown pretraining
     if job_already_finished(training_args.output_dir):
         print("job already finished, quit")
         return 0
@@ -58,6 +63,8 @@ def main(argv=None) -> int:
     trainer = Trainer(model, config, training_args, dataset)
     if config.mfp:
         trainer.MFP_pretrain()
+    elif config.rfd:
+        trainer.RFD_pretrain()
     else:
         trainer.train()
         trainer.test()

@@ -1,6 +1,7 @@
-"""Supervised and MFP train and eval steps. Counterpart:
+"""Supervised, MFP and RFD train and eval steps. Counterpart:
 `map_tpu/train/train_step.py:207-263 make_supervised_steps` (the exact,
-non-streaming eval step) and `:270-531 make_mfp_steps`.
+non-streaming eval step), `:270-531 make_mfp_steps` and `:538-585
+make_rfd_steps`.
 
 A step takes one host batch from `data/loader.Batcher`, copies it to the
 device, and returns device tensors: nothing is read back, so the host runs
@@ -32,6 +33,15 @@ modes, as map_tpu's:
 The norm_term is log V, a scalar, without per-field noise, and log(size of
 the masked field) with it (`:325-332`). In the shared modes the decoder's
 emb gradient goes to K7 when the Trainer engages the sparse table update.
+
+RFD train step: masked positions and the generator's draws on the device
+from the step's generator (or handed in as `draws`), `rfd_corrupt` with the
+batch's noise rows, the (B, F) field logits of the RFD head, the per-field
+BCE weighted by the example weights over max(sum w, 1) * F, backward and one
+`AdamW.step`; returns {loss, count = max(sum w, 1) * F, acc (sigmoid > 0.5
+against the labels, on the same weights and denominator), pos_ratio (the
+replaced share)}. The eval step does the same forward under
+`torch.inference_mode` with the generator it is given.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ from map_tpu_torch.objectives.nce import (
     nce_loss,
     sampled_softmax_loss,
 )
-from map_tpu_torch.objectives.supervised import bce_loss
+from map_tpu_torch.objectives.supervised import bce_loss, bce_with_logits
 from map_tpu_torch.train.optimizer import AdamW
 
 Batch = Dict[str, np.ndarray]
@@ -201,6 +211,60 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
             draws = draw(generator, b)
         else:
             draws = MFPDraws(*(None if t is None else t.to(device) for t in draws))
+        model.train()
+        loss, metrics = forward(b, draws)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        return metrics
+
+    @torch.inference_mode()
+    def eval_step(batch: Batch, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        b = to_device(batch, device)
+        model.eval()
+        return forward(b, draw(gen, b))[1]
+
+    return train_step, eval_step
+
+
+def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
+                   mask_ratio: float, sampling_method: str, rfd_replace: str,
+                   generator: torch.Generator, device: torch.device):
+    """-> (train_step(batch, draws=None), eval_step(batch, generator))."""
+    f = int(config.num_fields)
+    mask_num = corruption.mask_num_of(f, mask_ratio)
+
+    def on_dev(a):
+        return None if a is None else torch.tensor(a, dtype=torch.int32, device=device)
+
+    idx_low, idx_high = on_dev(config.idx_low), on_dev(config.idx_high)
+
+    def forward(b, draws: corruption.RFDDraws):
+        corrupted, labels = corruption.rfd_corrupt(
+            b["input_ids"], draws, rfd_replace, idx_low, idx_high, b.get("noise_rows"))
+        logits = model.rfd_logits(corrupted).float()
+        w = b["weight"][:, None]
+        denom = torch.clamp_min(b["weight"].sum(), 1.0) * f
+        loss = (bce_with_logits(logits, labels) * w).sum() / denom
+        pred = (torch.sigmoid(logits.detach()) > 0.5).float()
+        acc = ((pred == labels).float() * w).sum() / denom
+        pos_ratio = (labels * w).sum() / denom
+        return loss, {"loss": loss.detach(), "count": denom, "acc": acc,
+                      "pos_ratio": pos_ratio}
+
+    def draw(gen, b) -> corruption.RFDDraws:
+        return corruption.draw_rfd(gen, b["input_ids"].shape[0], f, mask_num,
+                                   sampling_method, rfd_replace, int(config.input_size),
+                                   device)
+
+    def train_step(batch: Batch, draws: Optional[corruption.RFDDraws] = None
+                   ) -> Dict[str, torch.Tensor]:
+        b = to_device(batch, device)
+        if draws is None:
+            draws = draw(generator, b)
+        else:
+            draws = corruption.RFDDraws(*(None if t is None else t.to(device)
+                                          for t in draws))
         model.train()
         loss, metrics = forward(b, draws)
         optimizer.zero_grad()

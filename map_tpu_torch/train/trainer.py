@@ -1,9 +1,10 @@
 """Trainer: supervised train -> eval per epoch -> best-step checkpoint ->
-test; MFP pretraining; finetune transfer. Counterpart:
-`map_tpu/train/trainer.py` (the noise setup :89-114, `load_for_finetune`
-:671-680, `train` :740-796, `_window_auc` :799-808, the exact-AUC `eval`
-:810-923, `MFP_pretrain` / `MFP_pretrain_eval` :929-987, `save_model` /
-`load_model` / `test` :1057-1117).
+test; MFP and RFD pretraining; finetune transfer. Counterpart:
+`map_tpu/train/trainer.py` (the noise setup :89-114, the noise rows
+:120-124, `load_for_finetune` :671-680, `train` :740-796, `_window_auc`
+:799-808, the exact-AUC `eval` :810-923, `MFP_pretrain` /
+`MFP_pretrain_eval` :929-987, `RFD_pretrain` / `RFD_pretrain_eval`
+:993-1051, `save_model` / `load_model` / `test` :1057-1117).
 
 - train: epochs of `data/loader.Batcher` batches through the train step;
   every `logging_steps` steps the window's losses and probabilities are read
@@ -27,6 +28,14 @@ test; MFP pretraining; finetune transfer. Counterpart:
   per-field noise). With `--sparse_table_update`, a shared mode and no clip
   (`ops/sparse_adamw.engages`, map_tpu `trainer.py:208-218`) the decoder's
   emb is updated from its gradient streams through K7.
+- RFD_pretrain (a model built with `config.rfd`): epochs of RFD steps with
+  `--RFD_replace`'s generator, the window's `window_rfd_loss`,
+  `window_rfd_acc` and `window_pos_ratio` (means over its steps) every
+  `logging_steps`, one eval per epoch (`eval_rfd_loss`, `eval_rfd_acc` and
+  `eval_pos_ratio`, weighted by each batch's count, from a generator seeded
+  anew for every eval), then the model saved at the last step. The Unigram
+  generators read M noise rows an example from the train split, drawn by
+  the Batcher (map_tpu's stream).
 - finetune (`--finetune --pretrained_model_path`): every tensor of the
   checkpoint whose name and shape match the model's is copied in before
   training (`checkpoints.partial_restore`); the checkpoint is the port's
@@ -56,12 +65,14 @@ from map_tpu_torch.config import Config, TrainingArguments
 from map_tpu_torch.data.loader import Batcher
 from map_tpu_torch.nn.layers import set_dropout_generator
 from map_tpu_torch.objectives import alias
+from map_tpu_torch.objectives.corruption import mask_num_of
 from map_tpu_torch.ops import sparse_adamw
 from map_tpu_torch.train import checkpoints
 from map_tpu_torch.train.optimizer import build_optimizer
 from map_tpu_torch.train.train_step import (
     NoiseTables,
     make_mfp_steps,
+    make_rfd_steps,
     make_supervised_steps,
 )
 from map_tpu_torch.utils.metrics import binary_log_loss, roc_auc
@@ -121,11 +132,19 @@ class Trainer:
         return NoiseTables(on_dev(fused), on_dev(logprob), norm_term,
                            prob=on_dev(prob), alias=on_dev(alias_ids))
 
+    def _noise_rows_per_example(self) -> int:
+        if self.config.rfd and self.args.RFD_replace in ("Unigram", "Whole-Unigram"):
+            return mask_num_of(self.config.num_fields, self.args.mask_ratio)
+        return 0
+
     def get_batcher(self, split: str, is_training: bool) -> Batcher:
         bs = (self.args.train_batch_size if is_training
               else self.args.eval_batch_size)
+        m = self._noise_rows_per_example()
         return Batcher(self.dataset.X[split], self.dataset.Y[split],
-                       batch_size=bs, shuffle=is_training, seed=self.args.seed)
+                       batch_size=bs, shuffle=is_training, seed=self.args.seed,
+                       noise_source=self.dataset.X["train"] if m else None,
+                       noise_rows_per_example=m)
 
     def build_steps(self, num_batches_per_epoch: int) -> None:
         self._t_total = int(num_batches_per_epoch * self.args.num_train_epochs)
@@ -146,6 +165,12 @@ class Trainer:
                 self.args.sampling_method, self.noise,
                 torch.Generator(device=self.device).manual_seed(self.args.seed + 1),
                 self.device, shared_noise=self.args.pt_shared_noise)
+        elif self.config.rfd:
+            self.train_step, self.eval_step = make_rfd_steps(
+                self.model, self.optimizer, self.config, self.args.mask_ratio,
+                self.args.sampling_method, self.args.RFD_replace,
+                torch.Generator(device=self.device).manual_seed(self.args.seed + 1),
+                self.device)
         else:
             self.train_step, self.eval_step = make_supervised_steps(
                 self.model, self.optimizer, self.device)
@@ -272,6 +297,60 @@ class Trainer:
                 "eval_mfp_loss": float((host["loss"] * host["count"]).sum() / count),
                 "eval_mfp_acc": float(host["acc_count"].sum() / count)}
         self.eval_metrics.append([_log["eval_mfp_loss"], _log["eval_mfp_acc"]])
+        logger.info(str(_log))
+        return _log
+
+    def RFD_pretrain(self) -> None:
+        batcher = self.get_batcher("train", True)
+        self.build_steps(len(batcher))
+        self._log_run_header("pretraining")
+        logger.info(f"  pt_type = {self.config.pt_type}")
+        logger.info(f"  mask_ratio = {self.args.mask_ratio}")
+        logger.info(f"  RFD_replace = {self.args.RFD_replace}")
+        logger.info(f"  hybrid lookup = {self.model.embed.field_bounds is not None}, "
+                    f"mode = {self.config.hybrid_mode or 'default'}")
+        keys = ("loss", "acc", "pos_ratio")
+        window: Dict[str, List[torch.Tensor]] = {k: [] for k in keys}
+        window_t0 = time.time()
+        for epoch in range(self.args.num_train_epochs):
+            logger.info(f"-------------------- epoch-{epoch} --------------------")
+            for batch in batcher.epoch(epoch):
+                prev = self.global_step
+                metrics = self.train_step(batch)
+                self.global_step += 1
+                for key in keys:
+                    window[key].append(metrics[key])
+                if self._should_log(prev):
+                    host = {k: torch.stack(v).cpu().numpy().astype(np.float64)
+                            for k, v in window.items()}
+                    _log = {"window_rfd_loss": float(host["loss"].mean()),
+                            "window_rfd_acc": float(host["acc"].mean()),
+                            "window_pos_ratio": float(host["pos_ratio"].mean()),
+                            "time_cost": round(time.time() - window_t0, 3)}
+                    logger.info(f"step = {self.global_step}, {_log}")
+                    self.train_windows.append({"step": self.global_step, **_log})
+                    window = {k: [] for k in keys}
+                    window_t0 = time.time()
+            self.RFD_pretrain_eval()
+        self.save_model(self.args.output_dir)
+        logger.info(self._metrics_table("rfd_loss", "rfd_acc"))
+
+    def RFD_pretrain_eval(self) -> Dict[str, float]:
+        if self.eval_step is None:
+            self.build_steps(len(self.get_batcher("train", True)))
+        batcher = self.get_batcher("valid", False)
+        logger.info("***** running eval *****")
+        logger.info(f"  num examples = {batcher.num_examples()}")
+        gen = torch.Generator(device=self.device).manual_seed(self.args.seed + 2)
+        metrics = [self.eval_step(batch, gen) for batch in batcher.epoch(0)]
+        host = {k: torch.stack([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
+                for k in ("loss", "count", "acc", "pos_ratio")}
+        count = host["count"].sum()
+        _log = {"learning_rate": self._current_lr(),
+                **{f"eval_{name}": float((host[k] * host["count"]).sum() / count)
+                   for name, k in (("rfd_loss", "loss"), ("rfd_acc", "acc"),
+                                   ("pos_ratio", "pos_ratio"))}}
+        self.eval_metrics.append([_log["eval_rfd_loss"], _log["eval_rfd_acc"]])
         logger.info(str(_log))
         return _log
 

@@ -4,8 +4,9 @@ Marked `cuda`: each test skips without a CUDA device. On a machine with one
 (and without JAX) run them as
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 Shapes here are the awkward ones (odd batch, ragged D, E not a multiple of
-4, empty and all-duplicate id segments); chip_smoke.py holds the same kernels
-at the serving and training shapes.
+4, empty and all-duplicate id segments, a last tile running past the
+table); chip_smoke.py holds the same kernels at the serving and training
+shapes.
 """
 
 import pytest
@@ -17,7 +18,9 @@ from map_tpu_torch.ops import (
     cross,
     dedup_scatter,
     embedding,
+    field_gather,
     fused_adamw,
+    hybrid_gather,
     scan,
     scatter,
     scatter_unique,
@@ -564,3 +567,95 @@ def test_shared_noise_sparse_steps_equal_dense_steps(dev, per_field):
     dense, sparse = run(False), run(True)
     for name, ref in dense.items():
         assert torch.equal(sparse[name], ref), name
+
+
+# ---- K6: field-block scatter and gather -----------------------------------------
+
+def _field_block_case(r, w, b, dtype, g):
+    """Windows: three tiny fields in tile 0 (each row hit by many of the b
+    rows), one across tiles, one on the last tile, which runs past r."""
+    small = ((0, 10, 14), (1, 14, 21), (2, 21, 45), (3, 600, 1900), (4, r - 40, r))
+    phys = torch.stack([torch.randint(plo, pe, (b,), generator=g, dtype=torch.int32)
+                        for _, plo, pe in small])
+    phys[torch.rand(phys.shape, generator=g) < 0.1] = -1
+    phys[3, :4] = torch.tensor([512, 511, 2047, 5], dtype=torch.int32)  # in tiles, not window
+    gs = (torch.randn(b, len(small) * w, generator=g)
+          * 10.0 ** torch.randint(-3, 3, (b, 1), generator=g)).to(dtype)
+    return small, phys, gs
+
+
+@pytest.mark.parametrize("w", [16, 8, 128, 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_field_block_scatter_is_exact_and_deterministic(dev, w, dtype):
+    r, b = 2100, 1537
+    small, phys, gs = _field_block_case(r, w, b, dtype, torch.Generator().manual_seed(w))
+    phys, gs = phys.to(dev), gs.to(dev)
+    before = field_gather.scatter_launches
+    got = field_gather.field_block_scatter(gs, phys, small, r)
+    again = field_gather.field_block_scatter(gs, phys, small, r)
+    assert field_gather.scatter_launches == before + 2
+    ref = field_gather.field_block_scatter_plain(gs, phys, small, r)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (5, 512, w)
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    base = torch.randn(r, w, generator=torch.Generator().manual_seed(1)).to(dev)
+    added = field_gather.field_block_scatter_add(base.clone(), gs, phys, small)
+    want = field_gather.field_block_scatter_add_plain(base.clone(), gs, phys, small)
+    assert torch.equal(added, want)
+    utiles, _ = field_gather.plan_pairs(small, r)
+    assert torch.equal(added, base + field_gather.assemble_dense(got, utiles, r))
+
+
+@pytest.mark.parametrize("w", [16, 4, 128])
+def test_field_block_gather_is_exact(dev, w):
+    r, b = 2100, 1001
+    g = torch.Generator().manual_seed(w)
+    small, phys, _ = _field_block_case(r, w, b, torch.float32, g)
+    table = torch.randn(r, w, generator=g).to(dev)
+    before = field_gather.gather_launches
+    got = field_gather.field_block_gather(table, phys.to(dev), small, r)
+    assert field_gather.gather_launches == before + 1
+    ref = field_gather.field_block_gather_plain(table, phys.to(dev), small, r)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 5 * w) and torch.equal(got, ref)
+
+
+def test_field_block_kernels_reject_what_they_do_not_take(dev):
+    small = ((0, 10, 20),)
+    phys = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        field_gather.field_block_scatter(torch.zeros(8, 6, device=dev), phys, small, 100)
+    with pytest.raises(ValueError, match="int32"):
+        field_gather.field_block_scatter(torch.zeros(8, 16, device=dev), phys.long(),
+                                         small, 100)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        field_gather.field_block_scatter(torch.zeros(8, 16, device=dev).half(), phys,
+                                         small, 100)
+    with pytest.raises(ValueError, match="does not fit"):
+        field_gather.field_block_scatter(torch.zeros(9, 16, device=dev), phys, small, 100)
+    with pytest.raises(ValueError, match="float32"):
+        field_gather.field_block_gather(torch.zeros(100, 16, device=dev).double(), phys,
+                                        small, 100)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_bwd_pallas_gradient_equals_flat_k3(dev, dtype):
+    # ids in their blocks, no reserved id: every row of the K6b route is the
+    # flat K3 route's, bit for bit (each row summed in order of b from 0.0)
+    sizes = [7, 4, 26, 4100, 5, 300_000, 16_384, 30]
+    lo = [10]
+    for size in sizes[:-1]:
+        lo.append(lo[-1] + size)
+    bounds = tuple((a, a + s) for a, s in zip(lo, sizes))
+    r = bounds[-1][1]
+    g = torch.Generator().manual_seed(2)
+    ids = torch.stack([torch.randint(a, h, (4096,), generator=g, dtype=torch.int32)
+                       for a, h in bounds], 1).to(dev)
+    cot = torch.randn(4096, len(sizes), 16, generator=g).to(dev, dtype)
+    before = (field_gather.scatter_launches, scatter.launches)
+    flat = hybrid_gather.table_grad(ids, cot, r, bounds, 10, "fwd")
+    blocked = hybrid_gather.table_grad(ids, cot, r, bounds, 10, "bwd_pallas")
+    torch.cuda.synchronize()
+    assert (field_gather.scatter_launches, scatter.launches) == (before[0] + 1,
+                                                                 before[1] + 2)
+    assert torch.equal(blocked, flat)

@@ -396,18 +396,22 @@ def test_cli_takes_the_scratch_script_flags():
 
 
 def test_cli_pretrain_is_not_ported(tmp_path):
-    # MFP is ported (tests/test_torch_port_mfp.py); RFD raises
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main([f"--output_dir={tmp_path}", "--pretrain", "--pt_type=RFD",
-                   "--device", "cpu"])
+    # MFP and RFD are ported (tests/test_torch_port_mfp.py,
+    # tests/test_torch_port_rfd.py); a pretraining type or an RFD generator
+    # that map_tpu lacks raises before anything is written
+    for flags in (["--pt_type=ELECTRA"], ["--pt_type=RFD", "--RFD_replace=Bigram"]):
+        with pytest.raises(NotImplementedError, match="ELECTRA|Bigram"):
+            port_main([f"--output_dir={tmp_path}", "--pretrain", "--device", "cpu",
+                       *flags])
+    assert not os.path.exists(tmp_path / "train.log")
 
 
 @pytest.mark.parametrize("flag", ["--pt_shared_noise", "--pt_per_field_noise",
                                   "--nce_loss_type=full"])
 def test_cli_rejects_mfp_options_not_ported(synth_dir, tmp_path, flag):
     # these MFP options are ported now (tests/test_torch_port_shared_noise.py
-    # holds them to map_tpu): the CLI pretrains with each; with RFD, still
-    # not ported, it raises before it writes anything
+    # holds them to map_tpu): the CLI pretrains with each; with an RFD
+    # generator map_tpu lacks, it raises before it writes anything
     common = ["--model_name=dcnv2", "--dataset_name=synth", f"--data_dir={synth_dir}",
               "--embed_size=8", "--hidden_size=32", "--num_hidden_layers=1",
               "--num_cross_layers=1", "--compute_dtype", "float32",
@@ -415,8 +419,9 @@ def test_cli_rejects_mfp_options_not_ported(synth_dir, tmp_path, flag):
               "--num_train_epochs=1", "--logging_steps=5", "--sampling_method=randint",
               "--mask_ratio=0.3", "--pt_neg_num=5", "--proj_size=8", "--pretrain", flag,
               "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_main(common + [f"--output_dir={tmp_path / 'rfd'}", "--pt_type=RFD"])
+    with pytest.raises(NotImplementedError, match="RFD_replace"):
+        port_main(common + [f"--output_dir={tmp_path / 'rfd'}", "--pt_type=RFD",
+                            "--RFD_replace=Bigram"])
     assert not os.path.exists(tmp_path / "rfd" / "train.log")
     assert port_main(common + [f"--output_dir={tmp_path / 'mfp'}", "--pt_type=MFP"]) == 0
     log = open(tmp_path / "mfp" / "train.log").read()
