@@ -84,7 +84,10 @@ each; any failure ends the run with a nonzero exit code.
    epoch, eval AUC > 0.6, launches checked;
 10. times: median ms of each kernel (CUDA events, L2 flushed before each
    launch), its bound on an H100 SXM, its plain version and one-call
-   library yardstick; K3 also on the MFP step's corrupted ids; K7 beside
+   library yardstick; K3 also with uniform ids and on the MFP step's
+   corrupted ids, each K3 row with its stable sort and its kernel timed
+   apart as well, its longest segment, and its result bit-equal to the
+   plain version's; K7 beside
    two yardsticks (index_add_ x 2 + torch._fused_adamw_, and the dense
    route K5 x 2 + K1), K8 beside torch.cumsum over dim 0, K6b beside
    index_add_ onto a zero tile stack, K6a beside F.embedding and a mask; the
@@ -222,7 +225,8 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def profile(fn, top_n: int = 10) -> dict:
-    """Wall, device-busy ms, idle share and the costliest kernels of fn()."""
+    """Wall, device-busy ms, idle share, K3's device ms (its kernels are
+    named scatter_rows*) and the costliest kernels of fn()."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -236,8 +240,9 @@ def profile(fn, top_n: int = 10) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_card)
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top_n]
+    k3_us = sum(e.self_device_time_total for e in on_card if "scatter_rows" in e.key)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                idle_share=1.0 - busy_us / wall_us,
+                idle_share=1.0 - busy_us / wall_us, k3_device_ms=k3_us / 1e3,
                 top=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -521,7 +526,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
          trainer_window_time_cost=[w["time_cost"] for w in trainer.train_windows])
     prof_steps = 5
     prof = profile(lambda: [step(batches[i]) for i in range(prof_steps)], top_n=14)
-    k3_ms = sum(e["device_ms"] for e in prof["top"] if "scatter_rows" in e["name"])
+    k3_ms = prof["k3_device_ms"]
     # under the matmul backward K3 takes the big fields' rows only
     big = list(hybrid_gather.field_groups(tuple(zip(cfg.idx_low, cfg.idx_high)))[1])
     emit("mfp_training_profile", compute_dtype="bfloat16", steps=prof_steps,
@@ -958,7 +963,7 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         prof_steps = 5
         prof = profile(lambda: [step(batches[i], draws[i]) for i in range(prof_steps)],
                        top_n=14)
-        k3_ms = sum(e["device_ms"] for e in prof["top"] if "scatter_rows" in e["name"])
+        k3_ms = prof["k3_device_ms"]
         k6_ms = sum(e["device_ms"] for e in prof["top"] if "field_block" in e["name"])
         emit("rfd_training_time", compute_dtype="bfloat16", hybrid_mode=mode,
              batch=TRAIN_BATCH, step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
@@ -1366,7 +1371,8 @@ def main(argv=None) -> int:
         prof = profile(lambda: [trainer.train_step(batches[i]) for i in range(prof_steps)],
                        top_n=12)
         emit("training_profile", compute_dtype=dname, steps=prof_steps,
-             busy_ms_per_step=prof["device_busy_ms"] / prof_steps, **prof)
+             busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+             k3_ms_per_step=prof["k3_device_ms"] / prof_steps, **prof)
         del trainer, pred
     train_dirs.cleanup()
 
@@ -1441,6 +1447,31 @@ def main(argv=None) -> int:
                 bound_by="bytes" if byte_ms >= op_ms else "operations",
                 shape=list(p.shape))
 
+        def k3_times(k3_ids, g, vocab):
+            """K3 as the step calls it (ms: the stable sort and the kernel),
+            and apart: the sort alone and the kernel alone on sorted ids."""
+            flat = k3_ids.reshape(-1)
+            flat_long, g32 = flat.long(), g.reshape(-1, EMBED).float()
+            sorted_ids, perm = torch.sort(flat, stable=True)
+            # ids (int32) and grads read once, the dense f32 table written once
+            nbytes = flat.numel() * 4 + g.numel() * g.element_size() + vocab * EMBED * 4
+            counts = torch.bincount(flat_long)
+            t = dict(
+                ms=time_ms(lambda: scatter.scatter_add(k3_ids, g, vocab)),
+                sort_ms=time_ms(lambda: torch.sort(flat, stable=True)),
+                kernel_ms=time_ms(lambda: scatter.scatter_add_sorted(sorted_ids, perm, g, vocab)),
+                plain_ms=time_ms(lambda: scatter.scatter_add_plain(k3_ids, g, vocab)),
+                library_ms=time_ms(lambda: torch.zeros(vocab, EMBED, device=dev)
+                                   .index_add_(0, flat_long, g32)),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                # max_duplicates: the longest segment, which one warp sums in order
+                ids=flat.numel(), segments=int((counts > 0).sum()),
+                max_duplicates=int(counts.max()))
+            t.update(kernel_over_bound=t["kernel_ms"] / t["bound_ms"],
+                     plain_over_ms=t["plain_ms"] / t["ms"],
+                     ms_over_library=t["ms"] / t["library_ms"])
+            return t
+
         # K3 at the training shape; and, to show what its time depends on,
         # once with ids uniform over the whole table (few duplicates) in place
         # of the field-blocked ones, whose 4-to-8-id fields give segments of
@@ -1455,18 +1486,10 @@ def main(argv=None) -> int:
                                    ("K3 bfloat16, MFP corrupted ids", "bfloat16",
                                     mfp["corrupted"])):
             g = k3_grads[dname]
-            g32 = g.reshape(-1, EMBED).float()
-            k3_ids_long = k3_ids.reshape(-1).long()
-            # ids (int32) and grads read once, the dense f32 table written once
-            nbytes = k3_ids.numel() * 4 + g.numel() * g.element_size() + vocab * EMBED * 4
-            times[key] = dict(
-                ms=time_ms(lambda: scatter.scatter_add(k3_ids, g, vocab)),
-                plain_ms=time_ms(lambda: scatter.scatter_add_plain(k3_ids, g, vocab)),
-                library_ms=time_ms(lambda: torch.zeros(vocab, EMBED, device=dev)
-                                   .index_add_(0, k3_ids_long, g32)),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                ids=k3_ids.numel(),
-                max_duplicates=int(torch.bincount(k3_ids_long).max()))
+            times[key] = k3_times(k3_ids, g, vocab)
+            check(f"{key}: bit-equal to the plain version", torch.equal(
+                scatter.scatter_add(k3_ids, g, vocab), scatter.scatter_add_plain(k3_ids, g, vocab)),
+                max_duplicates=times[key]["max_duplicates"])
 
         # K5 on the MFP step's folded candidate stream: the dense output
         # written once, the num_unique valid entries (id and 33 values) read
@@ -1589,7 +1612,7 @@ def main(argv=None) -> int:
         times["MFP matmul backward"] = dict(
             small_fields_matmul_ms=time_ms(lambda: hybrid_gather.add_matmul(
                 dense, sub, g_sub, in_block, route), reps=5),
-            k3_big_fields_ms=time_ms(lambda: scatter.scatter_add(big_ids, big_g, vocab)),
+            k3_big_fields=k3_times(big_ids, big_g, vocab),
             whole_ms=time_ms(lambda: hybrid_gather.table_grad(
                 mfp_ids, g_mfp, vocab, bounds, NUM_RESERVED, "matmul"), reps=5),
             fwd_whole_ms=time_ms(lambda: hybrid_gather.table_grad(

@@ -9,10 +9,12 @@ Kernel: `map_tpu_torch/csrc/scatter_add.cu` (CUDA C++, sm_90a).
 - Bound on the H100: device-memory bytes; the dense (V, E) float32 output
   dominates (64.9 MB for the canonical 1,013,519 x 16 table).
 - Design: the flat ids are sorted here (`torch.sort`, stable, as map_tpu
-  sorts in XLA outside its kernel), then one kernel writes every table row
-  exactly once: each row's threads find its segment of the sorted ids by
-  binary search and sum the segment's gradients in order, in float32, or
-  write zeros. Deterministic, no atomics, no memset; bf16 or f32 gradients.
+  sorts in XLA outside its kernel); `scatter_add_sorted` then clears the
+  table at the memory rate and walks the sorted stream, one warp per span of
+  segment heads, staging each chunk's permutation and gradient rows in
+  shared memory (cp.async) ahead of the adds; the walk's loads overlap the
+  clearing. Each touched row is summed from 0.0 in float32 in index order;
+  no atomics, bf16 or f32 gradients.
 
 CUDA tensors go to the kernel, CPU tensors to `scatter_add_plain`. The
 plain version sums each row's duplicates in a fixed order on either device:
@@ -62,9 +64,17 @@ def scatter_add(ids: torch.Tensor, grads: torch.Tensor,
                          f"ids {tuple(ids.shape)}")
     if not (ids.is_contiguous() and grads.is_contiguous()):
         raise ValueError("scatter_add: ids and grads must be contiguous")
+    sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
+    return scatter_add_sorted(sorted_ids, perm, grads, vocab_size)
+
+
+def scatter_add_sorted(sorted_ids: torch.Tensor, perm: torch.Tensor,
+                       grads: torch.Tensor, vocab_size: int) -> torch.Tensor:
+    """The K3 launch after `scatter_add`'s stable sort: sorted_ids (N,) int32
+    ascending, perm (N,) int64 with sorted_ids == flat ids[perm], grads
+    (..., E) on the card as `scatter_add` checked them."""
     global launches
     e = grads.shape[-1]
-    sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
     out = torch.empty(vocab_size, e, dtype=torch.float32, device=grads.device)
     lib = build.library()
     status = lib.map_tpu_scatter_add(

@@ -186,22 +186,37 @@ def _summation_bound(ids, grads, vocab):
     return ref, 2 * (count - 1).clamp(min=0)[:, None] * 2.0 ** -24 * abs_sum
 
 
-def _ragged_ids(kind, n, vocab, g):
+def _ragged_ids(kind, g):
+    """(ids, vocab) of one id kind: n = 1037 rows over 4001 ids (not a
+    multiple of any block), MFP's <mask> shape, or the training step's
+    field-blocked shape."""
+    vocab, n = 4001, 1037
     if kind == "all_duplicate":
-        return torch.full((n,), 3, dtype=torch.int32)
+        return torch.full((n,), 3, dtype=torch.int32), vocab
     if kind == "sparse":  # most rows have an empty segment
-        return torch.randint(0, 40, (n,), generator=g, dtype=torch.int32) * 97
-    return torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32)
+        return torch.randint(0, 40, (n,), generator=g, dtype=torch.int32) * 97, vocab
+    if kind == "mask_25k":  # one id in 25,000 rows, as MFP's <mask> id 3
+        ids = torch.randint(0, vocab, (n + 25_000,), generator=g, dtype=torch.int32)
+        ids[torch.randperm(ids.numel(), generator=g)[:25_000]] = 3
+        return ids, vocab
+    if kind == "field_blocked":  # batch 4096; 4-8-id fields hit ~500-1000 times an id
+        sizes = [4, 5, 7, 8, 560, 8500, 101_000]
+        lo = torch.tensor([10] + sizes[:-1]).cumsum(0)
+        ids = torch.stack([torch.randint(int(a), int(a) + s, (4096,), generator=g)
+                           for a, s in zip(lo, sizes)], dim=1)
+        return ids.int(), 10 + sum(sizes)
+    return torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32), vocab
 
 
 @pytest.mark.parametrize("e", [1, 12, 16, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["uniform", "sparse", "all_duplicate"])
+@pytest.mark.parametrize("kind", ["uniform", "sparse", "all_duplicate", "mask_25k",
+                                  "field_blocked"])
 def test_scatter_matches_plain(dev, e, dtype, kind):
     g = torch.Generator().manual_seed(e)
-    vocab, n = 4001, 1037  # n not a multiple of any block
-    ids = _ragged_ids(kind, n, vocab, g).to(dev)
-    grads = torch.randn(n, e, generator=g).to(dev, dtype)
+    ids, vocab = _ragged_ids(kind, g)
+    ids = ids.to(dev)
+    grads = torch.randn(*ids.shape, e, generator=g).to(dev, dtype)
     before = scatter.launches
     out = scatter.scatter_add(ids, grads, vocab)
     assert scatter.launches == before + 1
@@ -210,8 +225,29 @@ def test_scatter_matches_plain(dev, e, dtype, kind):
     assert bool(((out.double() - ref64).abs() <= bound).all())
     plain = scatter.scatter_add_plain(ids, grads, vocab)
     assert bool(((out.double() - plain.double()).abs() <= 2 * bound).all())
-    untouched = torch.bincount(ids.long(), minlength=vocab) == 0
+    untouched = torch.bincount(ids.reshape(-1).long(), minlength=vocab) == 0
     assert not out[untouched].any()
+    # the same bits as the in-order sum: the plain version on the CPU
+    # (index_add_, index order) and, but at width 1, the plain one on the
+    # card (index_put_ sums a width-1 segment of 32 or more rows by warps)
+    in_order = scatter.scatter_add_plain(ids.cpu(), grads.cpu(), vocab)
+    assert torch.equal(out.cpu(), in_order)
+    if e > 1:
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_misaligned_grads_take_the_scalar_path(dev, dtype):
+    g = torch.Generator().manual_seed(3)
+    ids, vocab = _ragged_ids("mask_25k", g)
+    ids = ids.to(dev)
+    e = 16
+    buf = torch.randn(ids.numel() * e + 1, generator=g).to(dev, dtype)
+    grads = buf[1:].view(ids.numel(), e)  # contiguous, off the 8-byte grid
+    assert grads.is_contiguous() and grads.data_ptr() % 8 != 0
+    out = scatter.scatter_add(ids, grads, vocab)
+    assert torch.equal(out.cpu(), scatter.scatter_add_plain(ids.cpu(), grads.cpu(), vocab))
+    assert torch.equal(out, scatter.scatter_add_plain(ids, grads, vocab))
 
 
 def test_scatter_is_deterministic(dev):
