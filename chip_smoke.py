@@ -63,7 +63,10 @@ each; any failure ends the run with a nonzero exit code.
    and draws through the kernels and through the plain versions, in bf16
    and f32; the step time and a few steps under torch.profiler, with K3's
    rows and share under map_tpu's MFP default, the `matmul` hybrid backward
-   (every MFP phase runs it);
+   (every MFP phase runs it). Then the three backward modes of the table
+   gradient, one function: 5 f32 steps under `bwd_pallas` (K3 + K6b)
+   against 5 under `matmul` from the same weights and draws, and the bf16
+   step (20 timed, 5 profiled) under `matmul`, `fwd` and `bwd_pallas`;
 8b. MFP with per-field shared noise at k = 100 and the sparse table update
    (bench_pretrain.py's fast configuration; otherwise as phase 8), through
    the Trainer in bf16: one epoch, one masked eval. Checks: window loss
@@ -90,7 +93,9 @@ each; any failure ends the run with a nonzero exit code.
    plain version's; K7 beside
    two yardsticks (index_add_ x 2 + torch._fused_adamw_, and the dense
    route K5 x 2 + K1), K8 beside torch.cumsum over dim 0, K6b beside
-   index_add_ onto a zero tile stack, K6a beside F.embedding and a mask; the
+   index_add_ onto a zero tile stack and its order floor (the longest row's
+   chain of adds at 4 cycles each), also with one row hit by a whole field
+   (bit-equal to its plain version), K6a beside F.embedding and a mask; the
    MFP step's matmul backward in its parts;
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
    from the per-field shared run of 8b for K5, K7 and K8), nvidia-smi's
@@ -225,8 +230,9 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def profile(fn, top_n: int = 10) -> dict:
-    """Wall, device-busy ms, idle share, K3's device ms (its kernels are
-    named scatter_rows*) and the costliest kernels of fn()."""
+    """Wall, device-busy ms, idle share, K3's and K6b's device ms over every
+    kernel of theirs (named scatter_rows* and field_block_scatter*) and the
+    costliest kernels of fn()."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -241,8 +247,11 @@ def profile(fn, top_n: int = 10) -> dict:
     busy_us = sum(e.self_device_time_total for e in on_card)
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top_n]
     k3_us = sum(e.self_device_time_total for e in on_card if "scatter_rows" in e.key)
+    k6b_us = sum(e.self_device_time_total for e in on_card
+                 if "field_block_scatter" in e.key)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 idle_share=1.0 - busy_us / wall_us, k3_device_ms=k3_us / 1e3,
+                k6b_device_ms=k6b_us / 1e3,
                 top=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -271,9 +280,9 @@ def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> Non
           param_share_within_1e5=close / total)
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
@@ -348,12 +357,12 @@ def mfp_args(output_dir: str, seed: int, **kw):
         pretrain=True, pt_type="MFP", compute_dtype="bfloat16", seed=seed, **kw)
 
 
-def mfp_steps(dev, cfg, targs, tables, batches, draws, read_counts, *, seed: int,
-              shared: bool, sparse: bool, plain: bool):
-    """MFP steps of `cfg`'s mode from the weights of `seed`, one per (batch,
-    draws), through the kernels or (plain) through their plain versions;
-    sparse: the decoder emb updated from its streams (K7 or its plain
-    version). -> (losses (n,), {name: parameter}, launches during the steps)."""
+def mfp_step_fn(dev, cfg, targs, tables, *, seed: int, steps: int, shared: bool = False,
+                sparse: bool = False, plain: bool = False):
+    """An MFP train step(batch, draws) of `cfg`'s mode from the weights of
+    `seed`, a schedule of `steps`, its updates through K1 (K7) or (plain)
+    their plain versions; sparse: the decoder emb updated from its streams.
+    -> (model, step)."""
     import torch
 
     from map_tpu_torch import models
@@ -365,12 +374,25 @@ def mfp_steps(dev, cfg, targs, tables, batches, draws, read_counts, *, seed: int
     handoff = sparse_adamw.StreamHandoff() if sparse else None
     m.mfp_criterion.handoff = handoff
     opt, _ = build_optimizer(
-        m, targs, len(batches), 0,
+        m, targs, steps, 0,
         update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw,
         sparse={"mfp_criterion.emb.weight": handoff} if sparse else None,
         sparse_update=sparse_adamw.sparse_adamw_plain if plain else sparse_adamw.sparse_adamw)
     step, _ = make_mfp_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", tables,
                              torch.Generator(device=dev), dev, shared_noise=shared)
+    return m, step
+
+
+def mfp_steps(dev, cfg, targs, tables, batches, draws, read_counts, *, seed: int,
+              shared: bool, sparse: bool, plain: bool):
+    """MFP steps of `cfg`'s mode from the weights of `seed`, one per (batch,
+    draws), through the kernels or (plain) through their plain versions;
+    sparse: the decoder emb updated from its streams (K7 or its plain
+    version). -> (losses (n,), {name: parameter}, launches during the steps)."""
+    import torch
+
+    m, step = mfp_step_fn(dev, cfg, targs, tables, seed=seed, steps=len(batches),
+                          shared=shared, sparse=sparse, plain=plain)
     before = read_counts()
     with plain_layers() if plain else contextlib.nullcontext():
         losses = torch.stack([step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu()
@@ -402,11 +424,11 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     n_cand = TRAIN_BATCH * mask_num * (1 + MFP_NEG)  # the port's capacity
     work = tempfile.mkdtemp(prefix="chip_smoke_mfp_")
 
-    def mfp_cfg(dname):  # map_tpu's MFP default: the matmul hybrid backward
+    def mfp_cfg(dname, mode="matmul"):  # map_tpu's MFP default: the matmul backward
         return dataclasses.replace(cfg, compute_dtype=dname, pretrain=True,
                                    pt_type="MFP", proj_size=MFP_PROJ,
                                    pt_neg_num=MFP_NEG, nce_loss_type="nce",
-                                   feat_count=feat_count, hybrid_mode="matmul")
+                                   feat_count=feat_count, hybrid_mode=mode)
 
     def fresh(c):
         return models.from_config(c, torch.Generator().manual_seed(args.seed))
@@ -535,6 +557,40 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
          k3_mask_rows=int((corrupted[:, big] == 3).sum()),
          k3_ms_per_step=k3_ms / prof_steps,
          k3_share_of_busy=k3_ms / prof["device_busy_ms"], **prof)
+
+    # the three backward modes of the table gradient, one function: 5 f32
+    # steps under bwd_pallas (K3 on the big fields, K6b on the small) against
+    # 5 under matmul from the same weights and draws; then the bf16 step
+    # (20 timed, 5 profiled) under each, from the same batches and draws
+    (k_loss, k_params, launched), (m_loss, m_params, _) = (
+        mfp_steps(dev, mfp_cfg("float32", mode), targs, trainer.noise, batches, draws,
+                  read_counts, seed=args.seed, shared=False, sparse=False, plain=False)
+        for mode in ("bwd_pallas", "matmul"))
+    check("mfp f32: K6b launched once a step under bwd_pallas",
+          launched["field_block_scatter"] == PARITY_STEPS, launched=launched)
+    parity_check(f"mfp f32: {PARITY_STEPS} steps, bwd_pallas (K3 + K6b) vs matmul",
+                 "float32", MFP_LR, k_loss, m_loss, k_params, m_params,
+                 dict(fresh(mfp_cfg("float32")).named_parameters()))
+    del k_params, m_params
+    for mode in ("matmul", "fwd", "bwd_pallas"):
+        _, mode_step = mfp_step_fn(dev, mfp_cfg("bfloat16", mode), targs, trainer.noise,
+                                   seed=args.seed, steps=100)
+        for i in range(3):
+            mode_step(batches[i], draws[i])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(timed):
+            mode_step(batches[i % PARITY_STEPS], draws[i % PARITY_STEPS])
+        torch.cuda.synchronize()
+        mode_ms = (time.perf_counter() - t0) / timed * 1e3
+        prof = profile(lambda: [mode_step(batches[i], draws[i]) for i in range(prof_steps)],
+                       top_n=14)
+        emit("mfp_mode_time", compute_dtype="bfloat16", hybrid_mode=mode, batch=TRAIN_BATCH,
+             step_ms=mode_ms, examples_per_s=TRAIN_BATCH / mode_ms * 1e3, steps=prof_steps,
+             busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+             k3_ms_per_step=prof["k3_device_ms"] / prof_steps,
+             k6b_ms_per_step=prof["k6b_device_ms"] / prof_steps, **prof)
+        del mode_step
     # the per-position fold's scan input: the candidates' gradient rows in
     # sorted order, as sort_and_fold hands it to K8
     fold_scan = g.index_select(0, torch.sort(cand.int(), stable=True)[1])
@@ -963,13 +1019,11 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         prof_steps = 5
         prof = profile(lambda: [step(batches[i], draws[i]) for i in range(prof_steps)],
                        top_n=14)
-        k3_ms = prof["k3_device_ms"]
-        k6_ms = sum(e["device_ms"] for e in prof["top"] if "field_block" in e["name"])
         emit("rfd_training_time", compute_dtype="bfloat16", hybrid_mode=mode,
              batch=TRAIN_BATCH, step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
-             k3_ms_per_step=k3_ms / prof_steps, k6b_ms_per_step=k6_ms / prof_steps,
-             **prof)
+             k3_ms_per_step=prof["k3_device_ms"] / prof_steps,
+             k6b_ms_per_step=prof["k6b_device_ms"] / prof_steps, **prof)
     return dict(launches=launches, ckpt=ckpt, work=work)
 
 
@@ -1563,25 +1617,46 @@ def main(argv=None) -> int:
         # rows onto a zero stack. K6a at the serving shape: the ids and the
         # distinct rows read once, the rows written once; the library call
         # is F.embedding and a mask.
-        stack_rows = field_gather.stack_rows(k6_phys, plan, vocab).reshape(-1)
-        keep = stack_rows >= 0
+        # Beside the bound stands K6b's order floor: its longest row's chain of
+        # dependent adds, 4 cycles each at the card's top SM clock. "one hot
+        # row": the 4-id field's ids all on its first row, a chain of 4096.
         u_rows = len(utiles) * field_gather.TILE
-        for dname, g_small in k6b_inputs.items():
+        sm_mhz = float(smi_line("clocks.max.sm").split()[0])
+        pos4 = next(pos for pos, plo, pe in plan if pe - plo == 4)
+        hot_phys = k6_phys.clone()
+        hot_phys[pos4] = plan[pos4][1]
+
+        def k6b_times(g_small, phys):
+            stack_rows = field_gather.stack_rows(phys, plan, vocab).reshape(-1)
+            keep = stack_rows >= 0
             vals = g_small.float().reshape(TRAIN_BATCH, len(small), EMBED).transpose(
                 0, 1).reshape(-1, EMBED)[keep]
             rows_k = stack_rows[keep]
-            nbytes = (g_small.numel() * g_small.element_size() + k6_phys.numel() * 4
+            nbytes = (g_small.numel() * g_small.element_size() + phys.numel() * 4
                       + u_rows * EMBED * 4)
-            times[f"K6b {dname}"] = dict(
-                ms=time_ms(lambda: field_gather.field_block_scatter(
-                    g_small, k6_phys, plan, vocab)),
+            max_hits = int(torch.bincount(rows_k).max())
+            t = dict(
+                ms=time_ms(lambda: field_gather.field_block_scatter(g_small, phys, plan, vocab)),
                 plain_ms=time_ms(lambda: field_gather.field_block_scatter_plain(
-                    g_small, k6_phys, plan, vocab), reps=3),
+                    g_small, phys, plan, vocab), reps=3),
                 library_ms=time_ms(lambda: torch.zeros(u_rows, EMBED, device=dev)
                                    .index_add_(0, rows_k, vals)),
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                rows=int(keep.sum()), tiles=len(utiles),
-                max_hits_a_row=int(torch.bincount(rows_k).max()))
+                order_floor_ms=max_hits * 4 / (sm_mhz * 1e3), sm_clock_mhz=sm_mhz,
+                rows=int(keep.sum()), tiles=len(utiles), max_hits_a_row=max_hits)
+            t.update(ms_over_library=t["ms"] / t["library_ms"],
+                     ms_over_bound=t["ms"] / t["bound_ms"])
+            return t
+
+        for dname, g_small in k6b_inputs.items():
+            times[f"K6b {dname}"] = k6b_times(g_small, k6_phys)
+        g_hot = k6b_inputs["bfloat16"]
+        times["K6b bfloat16, one hot row"] = k6b_times(g_hot, hot_phys)
+        got = field_gather.field_block_scatter(g_hot, hot_phys, plan, vocab)
+        check("K6b bfloat16, one hot row: bit-equal to the plain version, twice",
+              torch.equal(got, field_gather.field_block_scatter_plain(g_hot, hot_phys, plan, vocab))
+              and torch.equal(got, field_gather.field_block_scatter(g_hot, hot_phys, plan, vocab)),
+              max_hits_a_row=times["K6b bfloat16, one hot row"]["max_hits_a_row"])
         dense = torch.zeros(vocab, EMBED, device=dev)
         times["K6b bfloat16"]["add_ms"] = time_ms(lambda: field_gather.field_block_scatter_add(
             dense, k6b_inputs["bfloat16"], k6_phys, plan))

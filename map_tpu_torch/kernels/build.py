@@ -57,9 +57,8 @@ _SIGNATURES = {
                             + [ctypes.c_float] * 7 + [_P],
     # (x, out, scratch, n, w, stream)
     "map_tpu_block_cumsum": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
-    # (g, phys, tile_row0, pair_off, pair_pos, out, b, fs, w, r, u, g_bf16,
-    #  add, stream)
-    "map_tpu_field_block_scatter": [_P] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+    # (g, phys, work, pair_pos, out, b, fs, w, r, blocks, g_bf16, add, stream)
+    "map_tpu_field_block_scatter": [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
                                    + [ctypes.c_int] * 3 + [_P],
     # (table, phys, win_lo, win_hi, out, b, fs, w, stream)
     "map_tpu_field_block_gather": [_P] * 5 + [ctypes.c_int] * 3 + [_P],

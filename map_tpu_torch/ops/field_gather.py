@@ -10,14 +10,23 @@ Kernel: `map_tpu_torch/csrc/field_block.cu` (CUDA C++, sm_90a).
   three bf16 MXU passes a (field, tile) pair, for want of fast scattered
   writes on the TPU.
 - Bound on the H100: device-memory bytes. K6b reads the small fields' g rows
-  and ids once and writes (or adds) the touched tiles once: about 5-8 MB,
-  2-3 us, at the training shape (4096 rows, 21 small fields, 65 tiles).
-- Design: K6b runs a block per unique 512-row tile; each row is summed in
-  order of (pair, b) from 0.0 in float32 by the one thread that owns it, from
-  ids and g rows staged in shared memory. No atomics: the same bits every
-  run, and a small field's row equals the flat K3 route's bit for bit (K3
-  sums a row's segment of the stably sorted ids in the same order). K6a is
-  K4's gather with a per-field window test.
+  and ids once and writes (or adds) the touched tiles once: about 5 MB,
+  1.6 us, at the training shape (4096 rows, 21 small fields, 65 tiles).
+  Beside it stands K6b's order floor, its longest row's chain of in-order
+  adds.
+- K6b's order contract: each tile row is summed in float32 from 0.0 in the
+  order of (pair, b), a tile's pairs in pos order, never split or
+  reordered: the same bits every run, and a small field's row equals the
+  flat K3 route's bit for bit (K3 sums a row's segment of the stably sorted
+  ids in the order of b too).
+- K6b's design: a tile's rows are spread over 4 to 16 blocks (block q of n
+  takes rows q, q + n, ...; `tile_slices`), so a tiny field's hot rows land
+  on different blocks, and the grid takes the heavy tiles first
+  (`work_order`). A block reads its tile's ids in (pair, b) order, keeps the
+  hits on its rows by a stable compaction, copies their g rows into shared
+  memory as it finds them, sorts them by row with a stable counting sort,
+  and walks each row's hits in order, one column a thread. K6a is K4's
+  gather with a per-field window test.
 
 The plan is map_tpu's: `small` is a tuple of (pos, plo, pe), pos the field's
 position among the small fields and [plo, pe) its row window; the 512-row
@@ -45,13 +54,17 @@ gives the kernel's bits.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+import math
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from map_tpu_torch.kernels import build
 
 TILE = 512
+# K6b's blocks a tile (field_block.cu's rows a thread take 4 at least; its
+# row bytes, 16 at most) and the hits a block is sized for
+MIN_SLICES, MAX_SLICES, HITS_PER_BLOCK = 4, 16, 1024
 
 # Launches of K6a and K6b; a wrapper adds one where it launches, nowhere else.
 gather_launches = 0
@@ -60,6 +73,7 @@ scatter_launches = 0
 Plan = Tuple[Tuple[int, int, int], ...]
 
 
+@functools.lru_cache(maxsize=256)
 def plan_pairs(small: Plan, r: int):
     """-> (utiles, pairs): the sorted unique tile indices the windows touch,
     and (pos, slot, row0) for each tile of each field, in field order. A
@@ -81,25 +95,69 @@ def tile_windows(small: Plan, r: int) -> Tuple[Tuple[int, int], ...]:
     return tuple(wins[pos] for pos in range(len(small)))
 
 
+def work_order(small: Plan, r: int) -> Tuple[int, ...]:
+    """Every slot of `plan_pairs(small, r)[0]` once, the heavy tiles first,
+    as K6b's grid takes them. A tile's blocks read pairs x B ids, and walk
+    rows of up to about B / (its smallest field's ids) hits in order; the
+    weight below counts a chained add as 14 id reads, a guess at the
+    kernel's costs. It orders the launch only, never a sum."""
+    utiles, pairs = plan_pairs(small, r)
+    size = {pos: pe - plo for pos, plo, pe in small}
+    sizes = [[] for _ in utiles]
+    for pos, s, _ in pairs:
+        sizes[s].append(size[pos])
+    return tuple(sorted(range(len(utiles)),
+                        key=lambda s: (-(len(sizes[s]) + 14.0 / min(sizes[s])), s)))
+
+
+def tile_slices(small: Plan, r: int, b: int) -> Tuple[int, ...]:
+    """K6b's blocks for each slot: 4 to 16, a power of two, so that a block
+    expects about HITS_PER_BLOCK hits of b rows of ids spread evenly over
+    each field's window. It sizes the launch only, never a sum."""
+    utiles, pairs = plan_pairs(small, r)
+    window = {pos: (plo, pe) for pos, plo, pe in small}
+    hits = [0.0] * len(utiles)
+    for pos, s, row0 in pairs:
+        plo, pe = window[pos]
+        hits[s] += b * (min(pe, row0 + TILE) - max(plo, row0)) / (pe - plo)
+    return tuple(min(MAX_SLICES, max(MIN_SLICES, 1 << max(0, math.ceil(
+        math.log2(max(h, 1.0) / HITS_PER_BLOCK))))) for h in hits)
+
+
+class ScatterPlan(NamedTuple):
+    work: torch.Tensor      # (blocks, 4) int32, a record a block (field_block.cu)
+    pair_pos: torch.Tensor  # (P,) int32: each tile's pairs' field positions, in pos order
+    most_pairs: int         # the most pairs a tile has
+
+
 @functools.lru_cache(maxsize=64)
-def _device_plan(small: Plan, r: int, device: torch.device):
-    """The plan as int32 tensors on `device`, built once: the scatter's
-    tile_row0 (U,), pair_off (U + 1,), pair_pos (P,) with each tile's pairs in
-    pos order, and the gather's window bounds (Fs,) x 2."""
+def _scatter_plan(small: Plan, r: int, b: int, device: torch.device) -> ScatterPlan:
+    """K6b's work list on `device`, built once per plan and batch size: a
+    record a block, the heavy tiles' blocks first (`work_order`), block q of
+    a tile's n (`tile_slices`) summing rows q, q + n, ...: (slot, the tile's
+    first row, its first pair, pairs | q << 12 | log2 n << 20)."""
     utiles, pairs = plan_pairs(small, r)
     by_slot = sorted(pairs, key=lambda p: (p[1], p[0]))
-    off = [0] * (len(utiles) + 1)
+    first = [0] * (len(utiles) + 1)
     for _, s, _ in by_slot:
-        off[s + 1] += 1
+        first[s + 1] += 1
     for s in range(len(utiles)):
-        off[s + 1] += off[s]
+        first[s + 1] += first[s]
+    slices = tile_slices(small, r, b)
+    work = [(s, utiles[s] * TILE, first[s],
+             (first[s + 1] - first[s]) | q << 12 | (slices[s].bit_length() - 1) << 20)
+            for s in work_order(small, r) for q in range(slices[s])]
+    return ScatterPlan(torch.tensor(work, dtype=torch.int32, device=device),
+                       torch.tensor([p[0] for p in by_slot], dtype=torch.int32, device=device),
+                       max(first[s + 1] - first[s] for s in range(len(utiles))))
+
+
+@functools.lru_cache(maxsize=64)
+def _gather_plan(small: Plan, r: int, device: torch.device):
+    """K6a's window bounds, (Fs,) int32 x 2 on `device`, built once."""
     wins = tile_windows(small, r)
-
-    def i32(values):
-        return torch.tensor(list(values), dtype=torch.int32, device=device)
-
-    return (i32(t * TILE for t in utiles), i32(off), i32(p[0] for p in by_slot),
-            i32(lo for lo, _ in wins), i32(hi for _, hi in wins))
+    return (torch.tensor([lo for lo, _ in wins], dtype=torch.int32, device=device),
+            torch.tensor([hi for _, hi in wins], dtype=torch.int32, device=device))
 
 
 def _valid(phys_small: torch.Tensor, small: Plan, r: int) -> torch.Tensor:
@@ -212,11 +270,21 @@ def _scatter(out: torch.Tensor, g_small: torch.Tensor, phys_small: torch.Tensor,
     if tuple(g_small.shape) != (b, fs * w) or len(small) != fs:
         raise ValueError(f"field_block_scatter: g {tuple(g_small.shape)} does not fit "
                          f"ids {tuple(phys_small.shape)}, width {w}, {len(small)} fields")
-    tile_row0, pair_off, pair_pos, _, _ = _device_plan(small, r, g_small.device)
+    if g_small.numel() >= 2 ** 31:
+        raise ValueError(f"field_block_scatter: g of {g_small.numel()} elements exceeds "
+                         "int32 offsets")
+    plan = _scatter_plan(small, r, b, g_small.device)
+    most = plan.most_pairs
+    if most > TILE:
+        raise ValueError(f"field_block_scatter: {most} pairs on one tile; windows that "
+                         f"do not overlap give at most {TILE}")
+    if most * b >= 2 ** 31 - 2 ** 16:
+        raise ValueError(f"field_block_scatter: {most} pairs of a tile x {b} rows "
+                         "exceed int32 positions")
     status = build.library().map_tpu_field_block_scatter(
-        g_small.data_ptr(), phys_small.data_ptr(), tile_row0.data_ptr(),
-        pair_off.data_ptr(), pair_pos.data_ptr(), out.data_ptr(), b, fs, w, r,
-        tile_row0.numel(), int(g_small.dtype == torch.bfloat16), int(add),
+        g_small.data_ptr(), phys_small.data_ptr(), plan.work.data_ptr(),
+        plan.pair_pos.data_ptr(), out.data_ptr(), b, fs, w, r, plan.work.shape[0],
+        int(g_small.dtype == torch.bfloat16), int(add),
         torch.cuda.current_stream().cuda_stream)
     build.check_status(status, "field_block_scatter")
     scatter_launches += 1
@@ -265,7 +333,7 @@ def field_block_gather(table: torch.Tensor, phys_small: torch.Tensor,
                          f"{table.dtype} {tuple(table.shape)}")
     if len(small) != fs:
         raise ValueError(f"field_block_gather: {fs} id rows for {len(small)} fields")
-    _, _, _, win_lo, win_hi = _device_plan(small, r, table.device)
+    win_lo, win_hi = _gather_plan(small, r, table.device)
     out = torch.empty(b, fs * w, dtype=torch.float32, device=table.device)
     status = build.library().map_tpu_field_block_gather(
         table.data_ptr(), phys_small.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),

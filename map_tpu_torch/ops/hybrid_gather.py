@@ -40,6 +40,7 @@ nothing falls back to another route.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -129,26 +130,36 @@ def _forward(table: torch.Tensor, ids: torch.Tensor, bounds: Bounds, nresv: int,
                                                           device=rows.device))
 
 
+@contextlib.contextmanager
+def _full_f32():
+    """float32 matmuls at full float32 precision inside the block."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def _reserved_sums(ids: torch.Tensor, g: torch.Tensor, nresv: int) -> torch.Tensor:
-    """(nresv, W) float32: row j = sum of g over the positions holding id j."""
-    return torch.stack([torch.where((ids == j)[..., None], g, 0.0).sum(
-        dim=tuple(range(ids.dim()))) for j in range(nresv)])
+    """(nresv, W) float32: row j = sum of g over the positions holding id j,
+    as one product of the ids' (nresv, N) one-hot and the (N, W) rows."""
+    flat = ids.reshape(-1)
+    onehot = (torch.arange(nresv, device=ids.device)[:, None] == flat[None, :]).float()
+    with _full_f32():
+        return onehot @ g.reshape(flat.numel(), -1)
 
 
 def add_matmul(dense: torch.Tensor, sub: torch.Tensor, g_sub: torch.Tensor,
                 in_block: torch.Tensor, route: _Route) -> None:
     """dense[lo:hi] += onehot(local)^T @ g for each small field, in float32."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
+    with _full_f32():
         for pos, (_, lo, hi, _, _) in enumerate(route.small):
             gf = torch.where(in_block[:, pos, None], g_sub[:, pos], 0.0)
             local = (sub[:, pos].long() - lo).clamp(0, hi - lo - 1)
             onehot = (torch.arange(hi - lo, device=sub.device)[:, None]
                       == local[None, :]).float()
             dense[lo:hi] += onehot @ gf
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def table_grad(ids: torch.Tensor, g: torch.Tensor, r: int, bounds: Bounds,

@@ -642,6 +642,62 @@ def test_field_block_scatter_is_exact_and_deterministic(dev, w, dtype):
     assert torch.equal(added, base + field_gather.assemble_dense(got, utiles, r))
 
 
+# the canonical layout's 21 small fields (bench.py's 5-core-Avazu sizes)
+CANONICAL_SMALL = [7, 7, 24, 26, 4100, 7600, 26, 8500, 560, 36, 8200, 5, 4, 2600, 8, 450,
+                   70, 170, 60, 30, 26]
+
+
+def _order_case(kind, b, w, dtype, g):
+    """K6b's order-deciding hit patterns -> (small, r, phys (Fs, b), g_small)."""
+    if kind == "canonical":  # ids uniform in their fields
+        lo = [10]
+        for size in CANONICAL_SMALL[:-1]:
+            lo.append(lo[-1] + size)
+        small = tuple((pos, a, a + size) for pos, (a, size) in enumerate(zip(lo, CANONICAL_SMALL)))
+    elif kind in ("hot_chain", "one_row"):  # a 4-id field: rows of about b / 4 hits, or one of b
+        small = ((0, 10, 14), (1, 14, 30), (2, 30, 900))
+    else:  # multi_pair, all_minus_one: fields sharing tile 0, one across tiles 0-1
+        small = ((0, 10, 14), (1, 14, 40), (2, 40, 700))
+    r = small[-1][2] + 3
+    phys = torch.stack([torch.randint(plo, pe, (b,), generator=g, dtype=torch.int32)
+                        for _, plo, pe in small])
+    if kind == "multi_pair":  # ids in a field's tile but outside its window
+        phys[0, ::3] = torch.randint(14, 40, phys[0, ::3].shape, generator=g, dtype=torch.int32)
+        phys[2, ::5] = torch.randint(10, 40, phys[2, ::5].shape, generator=g, dtype=torch.int32)
+        phys[1, ::7] = -1
+    elif kind == "one_row":
+        phys[0] = 12
+    elif kind == "all_minus_one":
+        phys[:] = -1
+    gs = (torch.randn(b, len(small) * w, generator=g)
+          * 10.0 ** torch.randint(-3, 3, (b, 1), generator=g)).to(dtype)
+    return small, r, phys, gs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,b,w", [
+    ("multi_pair", 1537, 16), ("hot_chain", 4096, 16), ("one_row", 4096, 16),
+    ("all_minus_one", 512, 16), ("multi_pair", 1, 16), ("multi_pair", 1537, 4),
+    ("multi_pair", 1537, 20), ("multi_pair", 1537, 128), ("canonical", 4096, 16)])
+def test_field_block_scatter_keeps_the_pair_b_order(dev, kind, b, w, dtype):
+    small, r, phys, gs = _order_case(kind, b, w, dtype, torch.Generator().manual_seed(b + w))
+    phys, gs = phys.to(dev), gs.to(dev)
+    before = field_gather.scatter_launches
+    got = field_gather.field_block_scatter(gs, phys, small, r)
+    again = field_gather.field_block_scatter(gs, phys, small, r)
+    ref = field_gather.field_block_scatter_plain(gs, phys, small, r)
+    base = torch.randn(r, w, generator=torch.Generator().manual_seed(3)).to(dev)
+    added = field_gather.field_block_scatter_add(base.clone(), gs, phys, small)
+    added_again = field_gather.field_block_scatter_add(base.clone(), gs, phys, small)
+    want = field_gather.field_block_scatter_add_plain(base.clone(), gs, phys, small)
+    torch.cuda.synchronize()
+    assert field_gather.scatter_launches == before + 4
+    assert torch.equal(got, ref) and torch.equal(got, again)
+    assert torch.equal(added, want) and torch.equal(added, added_again)
+    if kind == "all_minus_one":
+        assert not got.any() and torch.equal(added, base)
+
+
 @pytest.mark.parametrize("w", [16, 4, 128])
 def test_field_block_gather_is_exact(dev, w):
     r, b = 2100, 1001
@@ -675,10 +731,13 @@ def test_field_block_kernels_reject_what_they_do_not_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_hybrid_bwd_pallas_gradient_equals_flat_k3(dev, dtype):
+@pytest.mark.parametrize("sizes", [
+    [7, 4, 26, 4100, 5, 300_000, 16_384, 30],
+    # the canonical layout: bench.py's 5-core-Avazu sizes, 21 small fields
+    CANONICAL_SMALL[:19] + [101_000, 380_000, 500_000] + CANONICAL_SMALL[19:]])
+def test_hybrid_bwd_pallas_gradient_equals_flat_k3(dev, dtype, sizes):
     # ids in their blocks, no reserved id: every row of the K6b route is the
     # flat K3 route's, bit for bit (each row summed in order of b from 0.0)
-    sizes = [7, 4, 26, 4100, 5, 300_000, 16_384, 30]
     lo = [10]
     for size in sizes[:-1]:
         lo.append(lo[-1] + size)
