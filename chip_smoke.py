@@ -13,9 +13,10 @@ each; any failure ends the run with a nonzero exit code.
    a 1,013,519 x 16 f32 table, 10000 x 24 field-blocked ids; exact, f32 and
    bf16 out;
 4. K2 (cross net) against its plain version: (10000, 384) x 3 layers in f32
-   and bf16, (10000, 624) in f32, and once with the residuals X_l, U_l; then
-   K2's backward under autograd at the training shape (4096, 384) against
-   the plain chain (plain forward's residuals + the same backward);
+   and bf16, (10000, 624) in both, and once with the residuals X_l, U_l; the
+   training call (4096, 384) with the residuals in both, the same bits twice;
+   then K2's backward under autograd at the training shape against the plain
+   chain (plain forward's residuals + the same backward);
 5. K1 (AdamW update) against its plain version on the 1,013,519 x 16 table
    and a (1000, 384) leaf; K3 (gradient scatter-add) against `index_add_`
    onto zeros at the training shape (4096 x 24 ids), bf16 and f32 gradients;
@@ -85,10 +86,15 @@ each; any failure ends the run with a nonzero exit code.
 9. finetune: supervised DCNv2 from the RFD checkpoint (run_DCNv2_finetune.sh's
    default) and from the MFP one (13 tensors loaded, 4 skipped each), one
    epoch, eval AUC > 0.6, launches checked;
-10. times: median ms of each kernel (CUDA events, L2 flushed before each
-   launch), its bound on an H100 SXM, its plain version and one-call
-   library yardstick; K3 also with uniform ids and on the MFP step's
-   corrupted ids, each K3 row with its stable sort and its kernel timed
+10. times: median ms of each kernel (CUDA events, L2 flushed and a spin of
+   about 1 ms queued on the card before each launch, so that the card, not
+   the host's launch pace, sets the time), its bound on an H100 SXM, its
+   plain version and one-call library yardstick; K2 at (10000, 384) and
+   (10000, 624) in both dtypes and at the training call with the residuals,
+   timed in turns with the chain of 9 PyTorch calls (addmm, multiply, add a
+   layer) and its 3 products alone (`products_ms`), the kernel and the chain
+   once more with no spin (`*_no_spin`), with its launch plan; K3 also with uniform ids and on
+   the MFP step's corrupted ids, each K3 row with its stable sort and its kernel timed
    apart as well, its longest segment, and its result bit-equal to the
    plain version's; K7 beside
    two yardsticks (index_add_ x 2 + torch._fused_adamw_, and the dense
@@ -208,31 +214,49 @@ def check(name: str, ok: bool, **fields) -> None:
         raise AssertionError(f"{name} failed: {fields}")
 
 
-def time_ms(fn, reps: int = 20) -> float:
-    """Median ms of one call, CUDA events around each call, the 50 MB L2
-    flushed before each."""
+# Cycles of the spin queued ahead of each timed call: about 1 ms at the
+# H100's 1.98 GHz, longer than the host takes to queue a chain of calls
+SPIN_CYCLES = 2_000_000
+
+
+def time_ms_each(fns: dict, reps: int = 20, spin: bool = True) -> dict:
+    """Median ms of one call of each fn, CUDA events around each call, the
+    50 MB L2 flushed before each. The fns take turns rep by rep, so a drift
+    of the card's clock or of the host touches them alike. With `spin`, a
+    spin on the card is queued ahead of the start event, so the host has
+    queued the whole call before the card reaches it: a chain of calls is
+    timed by the card, not by the pace of the host's launches."""
     import torch
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(3):
-        fn()
-    times = []
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    times = {name: [] for name in fns}
     for _ in range(reps):
-        flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        for name, fn in fns.items():
+            flush.zero_()
+            if spin:
+                torch.cuda._sleep(SPIN_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def time_ms(fn, reps: int = 20) -> float:
+    """time_ms_each of one fn."""
+    return time_ms_each({"fn": fn}, reps)["fn"]
 
 
 def profile(fn, top_n: int = 10) -> dict:
-    """Wall, device-busy ms, idle share, K3's and K6b's device ms over every
-    kernel of theirs (named scatter_rows* and field_block_scatter*) and the
-    costliest kernels of fn()."""
+    """Wall, device-busy ms, idle share, K2's, K3's and K6b's device ms over
+    every kernel of theirs (named cross_net*, scatter_rows* and
+    field_block_scatter*) and the costliest kernels of fn()."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -249,9 +273,10 @@ def profile(fn, top_n: int = 10) -> dict:
     k3_us = sum(e.self_device_time_total for e in on_card if "scatter_rows" in e.key)
     k6b_us = sum(e.self_device_time_total for e in on_card
                  if "field_block_scatter" in e.key)
+    k2_us = sum(e.self_device_time_total for e in on_card if "cross_net" in e.key)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                idle_share=1.0 - busy_us / wall_us, k3_device_ms=k3_us / 1e3,
-                k6b_device_ms=k6b_us / 1e3,
+                idle_share=1.0 - busy_us / wall_us, k2_device_ms=k2_us / 1e3,
+                k3_device_ms=k3_us / 1e3, k6b_device_ms=k6b_us / 1e3,
                 top=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -555,6 +580,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
          hybrid_mode="matmul", busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
          k3_rows=TRAIN_BATCH * len(big),
          k3_mask_rows=int((corrupted[:, big] == 3).sum()),
+         k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
          k3_ms_per_step=k3_ms / prof_steps,
          k3_share_of_busy=k3_ms / prof["device_busy_ms"], **prof)
 
@@ -588,6 +614,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         emit("mfp_mode_time", compute_dtype="bfloat16", hybrid_mode=mode, batch=TRAIN_BATCH,
              step_ms=mode_ms, examples_per_s=TRAIN_BATCH / mode_ms * 1e3, steps=prof_steps,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+             k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
              k3_ms_per_step=prof["k3_device_ms"] / prof_steps,
              k6b_ms_per_step=prof["k6b_device_ms"] / prof_steps, **prof)
         del mode_step
@@ -801,7 +828,8 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     prof_steps = 5
     prof = profile(lambda: [step(batches[i]) for i in range(prof_steps)], top_n=16)
     emit("mfp_pf_shared_profile", compute_dtype="bfloat16", steps=prof_steps,
-         busy_ms_per_step=prof["device_busy_ms"] / prof_steps, **prof)
+         busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+         k2_ms_per_step=prof["k2_device_ms"] / prof_steps, **prof)
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, k7_err=k7_err, k8_err=k8_err["target fold"],
                 k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs)
@@ -1022,6 +1050,7 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         emit("rfd_training_time", compute_dtype="bfloat16", hybrid_mode=mode,
              batch=TRAIN_BATCH, step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
+             k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
              k3_ms_per_step=prof["k3_device_ms"] / prof_steps,
              k6b_ms_per_step=prof["k6b_device_ms"] / prof_steps, **prof)
     return dict(launches=launches, ckpt=ckpt, work=work)
@@ -1149,11 +1178,29 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         compare("K2 float32 (10000, 624) L=3, ragged D", got,
                 cross.cross_net_plain(*k2_inputs["ragged"]), *TOL_CROSS["float32"])
+        k2_inputs["ragged bf16"] = cross_inputs(624, torch.bfloat16)
+        got = cross.cross_net(*k2_inputs["ragged bf16"])
+        torch.cuda.synchronize()
+        compare("K2 bfloat16 (10000, 624) L=3, ragged D", got,
+                cross.cross_net_plain(*k2_inputs["ragged bf16"]), *TOL_CROSS["bfloat16"])
         got = cross.cross_net(*k2_inputs["bfloat16"], save_residuals=True)
         ref = cross.cross_net_plain(*k2_inputs["bfloat16"], save_residuals=True)
         torch.cuda.synchronize()
         for part, g, r in zip(("Y", "X_l", "U_l"), got, ref):
             compare(f"K2 bfloat16 save_residuals {part}", g, r, *TOL_CROSS["bfloat16"])
+        # the training call: (4096, 384) with the residuals, the same bits twice
+        for dname in ("float32", "bfloat16"):
+            x0, w, b = k2_inputs[dname]
+            k2_inputs[f"train {dname}"] = (x0[:TRAIN_BATCH].contiguous(), w, b)
+            got = cross.cross_net(*k2_inputs[f"train {dname}"], save_residuals=True)
+            ref = cross.cross_net_plain(*k2_inputs[f"train {dname}"], save_residuals=True)
+            again = cross.cross_net(*k2_inputs[f"train {dname}"], save_residuals=True)
+            torch.cuda.synchronize()
+            for part, g, r, a in zip(("Y", "X_l", "U_l"), got, ref, again):
+                compare(f"K2 {dname} training call (4096, 384) L=3 {part}", g, r,
+                        *TOL_CROSS[dname])
+                check(f"K2 {dname} training call {part}: the same bits twice",
+                      torch.equal(g, a))
 
     # 4b. K2 backward under autograd at the training shape
     for dname in ("float32", "bfloat16"):
@@ -1325,8 +1372,10 @@ def main(argv=None) -> int:
 
     # 6b. where one bf16 serving pass spends its time on the card
     pred = serving["bfloat16"][0]
-    emit("serving_profile", compute_dtype="bfloat16", rows=args.rows,
-         **profile(lambda: pred.predict_logits(score_ids), top_n=8))
+    prof = profile(lambda: pred.predict_logits(score_ids), top_n=8)
+    batches = -(-args.rows // args.batch)  # a step: one batch of --batch rows
+    emit("serving_profile", compute_dtype="bfloat16", rows=args.rows, steps=batches,
+         k2_ms_per_step=prof["k2_device_ms"] / batches, **prof)
     del serving, pred
 
     # 7. training through the Trainer, bf16 and f32
@@ -1425,6 +1474,7 @@ def main(argv=None) -> int:
         prof = profile(lambda: [trainer.train_step(batches[i]) for i in range(prof_steps)],
                        top_n=12)
         emit("training_profile", compute_dtype=dname, steps=prof_steps,
+             k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
              k3_ms_per_step=prof["k3_device_ms"] / prof_steps, **prof)
         del trainer, pred
@@ -1459,30 +1509,54 @@ def main(argv=None) -> int:
             library_ms=None,
             bound_ms=k4_bf16_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
 
-        def library_cross(x0, w, b):
-            xi = x0
+        def library_cross(x0, w, b, save_residuals=False):
+            """The one-call-a-step chain: addmm, multiply, add a layer (9 calls
+            at L = 3), and the residuals stacked where they are asked for."""
+            xi, xs, us = x0, [], []
             for layer in range(w.shape[0]):
-                xi = xi + x0 * torch.addmm(b[layer], xi, w[layer].t())
-            return xi
+                u = torch.addmm(b[layer], xi, w[layer].t())
+                xs.append(xi)
+                us.append(u)
+                xi = xi + x0 * u
+            return (xi, torch.stack(xs), torch.stack(us)) if save_residuals else xi
 
-        for key, inputs in (("K2 bf16", k2_inputs["bfloat16"]),
-                            ("K2 f32", k2_inputs["float32"]),
-                            ("K2 f32 D=624", k2_inputs["ragged"])):
+        for key, inputs, res in (("K2 bf16", k2_inputs["bfloat16"], False),
+                                 ("K2 f32", k2_inputs["float32"], False),
+                                 ("K2 f32 D=624", k2_inputs["ragged"], False),
+                                 ("K2 bf16 D=624", k2_inputs["ragged bf16"], False),
+                                 ("K2 bf16 training call", k2_inputs["train bfloat16"], True),
+                                 ("K2 f32 training call", k2_inputs["train float32"], True)):
             x0, w, b = inputs
             bsz, d = x0.shape
             num_layers = w.shape[0]
             dname = "bfloat16" if x0.dtype == torch.bfloat16 else "float32"
             flops = 2 * num_layers * bsz * d * d
-            nbytes = (2 * bsz * d + num_layers * d * d + num_layers * d) * x0.element_size()
+            # x0 in and y out, W and b in, and each residual slab out
+            nbytes = ((2 + (2 * num_layers if res else 0)) * bsz * d
+                      + num_layers * d * d + num_layers * d) * x0.element_size()
             op_ms = flops / PEAK_FLOPS[dname] * 1e3
             byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            times[key] = dict(
-                ms=time_ms(lambda: cross.cross_net(x0, w, b)),
-                plain_ms=time_ms(lambda: cross.cross_net_plain(x0, w, b)),
-                library_ms=time_ms(lambda: library_cross(x0, w, b)),
+            # the kernel and its yardsticks in turns; the L products alone
+            # (cuBLAS, no epilogue) are the floor a fused kernel should approach
+            times[key] = time_ms_each(dict(
+                ms=lambda: cross.cross_net(x0, w, b, save_residuals=res),
+                plain_ms=lambda: cross.cross_net_plain(x0, w, b, save_residuals=res),
+                library_ms=lambda: library_cross(x0, w, b, save_residuals=res),
+                products_ms=lambda: [torch.matmul(x0, w[layer].t())
+                                     for layer in range(num_layers)]))
+            # the chain again with no spin ahead of it: paced by the host's
+            # launches where they take longer than the card's work
+            host_paced = time_ms_each(dict(
+                ms=lambda: cross.cross_net(x0, w, b, save_residuals=res),
+                library_ms=lambda: library_cross(x0, w, b, save_residuals=res)), spin=False)
+            times[key].update(
+                ms_no_spin=host_paced["ms"], library_ms_no_spin=host_paced["library_ms"],
                 bound_ms=max(op_ms, byte_ms),
                 bound_by="operations" if op_ms >= byte_ms else "bytes",
-                gflops=flops / 1e9)
+                gflops=flops / 1e9, shape=[bsz, d, num_layers], save_residuals=res,
+                plan=cross.plan(bsz, d, x0.dtype)._asdict())
+            times[key].update(ms_over_library=times[key]["ms"] / times[key]["library_ms"],
+                              ms_over_bound=times[key]["ms"] / times[key]["bound_ms"])
 
         for key, (p, mu, nu, g) in k1_inputs.items():
             n = p.numel()

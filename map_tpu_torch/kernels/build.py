@@ -23,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import List
+from typing import List, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -31,15 +31,18 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "map_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas=-v"]
+# Macros defined for every source, set before the first build; part of the
+# library's name. `kernels/cross_trace.py` sets MAP_TPU_CROSS_TRACE.
+DEFINES: Tuple[str, ...] = ()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # (table, ids, out, n, e, out_bf16, stream)
     "map_tpu_embedding_gather": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                                  ctypes.c_int, _P],
-    # (x0, w, b, y, xs, us, batch, d, layers, is_bf16, stream)
-    "map_tpu_cross_net": [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, _P],
+    # (x0, w, b, y, xs, us, scratch, batch, d, layers, is_bf16, tile_rows,
+    #  cluster, grid, smem, stages, x_buffers, vector, stream)
+    "map_tpu_cross_net": [_P] * 7 + [ctypes.c_int] * 11 + [_P],
     # (p, mu, nu, g, n, lr, wd, b1, b2, eps, bc1, bc2, stream)
     "map_tpu_fused_adamw": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_float] * 7
                            + [_P],
@@ -69,8 +72,12 @@ def sources() -> List[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _flags() -> List[str]:
+    return COMPILE_FLAGS + [f"-D{name}" for name in DEFINES]
+
+
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags()).encode())
     for path in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -106,7 +113,7 @@ def build() -> Path:
         jobs = []
         for src in sources():
             obj = work / (src.stem + ".o")
-            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+            cmd = [nvcc, *_flags(), "-c", str(src), "-o", str(obj)]
             jobs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

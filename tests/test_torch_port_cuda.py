@@ -71,7 +71,15 @@ def test_gather_rejects_what_it_does_not_take(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("batch,d,layers", [(37, 40, 2), (130, 384, 3),
                                             (1, 624, 1), (200, 1000, 2),
-                                            (19, 37, 3), (70, 100, 2)])
+                                            (19, 37, 3), (70, 100, 2),
+                                            # the training call; batches off the 64-row tile
+                                            (4096, 384, 3), (1, 384, 3), (63, 384, 3),
+                                            (65, 384, 3), (4097, 384, 3),
+                                            # Criteo's ragged width, the widest cluster
+                                            (1000, 624, 3), (300, 1024, 3),
+                                            # one layer (the config's default) over
+                                            # many clusters of 3 and 6 blocks
+                                            (4096, 384, 1), (10000, 768, 1)])
 def test_cross_matches_plain(dev, dtype, batch, d, layers):
     g = torch.Generator().manual_seed(batch + d)
     x0 = (torch.randn(batch, d, generator=g) * 0.3).to(dev, dtype)
@@ -85,24 +93,36 @@ def test_cross_matches_plain(dev, dtype, batch, d, layers):
     for got, ref in ((y, y_ref), (xs, xs_ref), (us, us_ref)):
         assert got.dtype == dtype and got.shape == ref.shape
         torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    # the same bits again, with and without the residuals
     torch.testing.assert_close(cross.cross_net(x0, w, b), y, atol=0, rtol=0)
+    for got, again in zip((y, xs, us), cross.cross_net(x0, w, b, save_residuals=True)):
+        assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cross_reads_unaligned_weights(dev, dtype):
-    # w starts one element into its buffer: not 16-byte aligned, so the kernel
-    # reads W element by element
+@pytest.mark.parametrize("d", [128, 384])
+@pytest.mark.parametrize("unaligned", ["w", "x0"])
+def test_cross_reads_unaligned_weights(dev, dtype, d, unaligned):
+    # w (or x0) starts one element into its buffer: not 16-byte aligned, so
+    # the kernel takes its element-by-element path (no TMA, no 16-byte copies)
     g = torch.Generator().manual_seed(3)
-    d, layers = 128, 2
+    layers = 2
+    shift = lambda t: torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(t.shape)  # noqa: E731
     x0 = (torch.randn(50, d, generator=g) * 0.3).to(dev, dtype)
-    buf = (torch.randn(layers * d * d + 1, generator=g) / d ** 0.5).to(dev, dtype)
-    w = buf[1:].view(layers, d, d)
-    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    w = (torch.randn(layers, d, d, generator=g) / d ** 0.5).to(dev, dtype)
+    if unaligned == "w":
+        w = shift(w)
+    else:
+        x0 = shift(x0)
+    moved = w if unaligned == "w" else x0
+    assert moved.is_contiguous() and moved.data_ptr() % 16 != 0
+    assert not cross.plan(50, d, dtype, aligned=False).vector
     b = (torch.randn(layers, d, generator=g) * 0.1).to(dev, dtype)
     atol, rtol = TOL[dtype]
-    torch.testing.assert_close(cross.cross_net(x0, w, b).float(),
-                               cross.cross_net_plain(x0, w, b).float(),
-                               atol=atol, rtol=rtol)
+    y, xs, us = cross.cross_net(x0, w, b, save_residuals=True)
+    for got, ref in zip((y, xs, us), cross.cross_net_plain(x0, w, b, save_residuals=True)):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert torch.equal(cross.cross_net(x0, w, b), y)
 
 
 def test_cross_rejects_what_it_does_not_take(dev):
@@ -115,6 +135,60 @@ def test_cross_rejects_what_it_does_not_take(dev):
         cross.cross_net(x0.t(), w, b)
     with pytest.raises(ValueError):
         cross.cross_net(x0, w[:, :16], b)
+    # a D past the widest cluster: the plan refuses it, nothing runs
+    before = cross.launches
+    wide = torch.randn(4, 1025, device=dev)
+    with pytest.raises(ValueError):
+        cross.cross_net(wide, torch.randn(1, 1025, 1025, device=dev),
+                        torch.randn(1, 1025, device=dev))
+    assert cross.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_entry_refuses_a_plan_that_does_not_fit(dev, dtype):
+    # the C entry checks the plan against the shapes and returns the CUDA
+    # error, which the wrapper raises; no output is written
+    from map_tpu_torch.kernels import build
+
+    x0 = torch.randn(100, 384, device=dev, dtype=dtype)
+    w = torch.randn(3, 384, 384, device=dev, dtype=dtype)
+    b = torch.randn(3, 384, device=dev, dtype=dtype)
+    y = torch.full_like(x0, 7.0)
+    p = cross.plan(100, 384, dtype)
+    bad = (p._replace(cluster=2), p._replace(grid=p.grid + 1), p._replace(smem=1024),
+           p._replace(stages=1))
+    for q in bad:
+        status = build.library().map_tpu_cross_net(
+            x0.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), None, None,
+            torch.empty(2, 100, 384, device=dev, dtype=dtype).data_ptr(), 100, 384, 3,
+            int(dtype == torch.bfloat16), q.tile_rows, q.cluster, q.grid, q.smem,
+            q.stages, q.x_buffers, int(q.vector),
+            torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError):
+            build.check_status(status, "cross_net")
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_backward_at_the_training_call(dev, dtype):
+    # one K2 launch a forward under autograd; the gradients are the chain of
+    # cross_net_backward on the plain forward's residuals
+    g = torch.Generator().manual_seed(11)
+    x0 = (torch.randn(4096, 384, generator=g) * 0.3).to(dev, dtype)
+    w = (torch.randn(3, 384, 384, generator=g) / 384 ** 0.5).to(dev, dtype)
+    b = (torch.randn(3, 384, generator=g) * 0.1).to(dev, dtype)
+    cot = (torch.randn(4096, 384, generator=g) * 0.1).to(dev, dtype)
+    leaves = [t.clone().requires_grad_() for t in (x0, w, b)]
+    before = cross.launches
+    cross.cross_net(*leaves).backward(cot)
+    assert cross.launches == before + 1
+    with torch.no_grad():
+        _, xs, us = cross.cross_net_plain(x0, w, b, save_residuals=True)
+        ref = cross.cross_net_backward(x0, w, xs, us, cot)
+    atol, rtol = TOL[dtype]
+    for leaf, r in zip(leaves, ref):
+        torch.testing.assert_close(leaf.grad.float(), r.float(), atol=atol, rtol=rtol)
 
 
 # ---- K1: fused AdamW ---------------------------------------------------------
