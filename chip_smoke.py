@@ -20,6 +20,9 @@ each; any failure ends the run with a nonzero exit code.
 5. K1 (AdamW update) against its plain version on the 1,013,519 x 16 table
    and a (1000, 384) leaf; K3 (gradient scatter-add) against `index_add_`
    onto zeros at the training shape (4096 x 24 ids), bf16 and f32 gradients;
+   (after phase 7's bf16 run) K1's list launch over one real training
+   step's leaves (the model's parameters, moments and gradients, both wd
+   values) against the plain version, bit for bit, leaf by leaf;
 5b. K6 (field-block kernels of the hybrid lookup) against their plain
    versions: K6b (the 21 small fields' gradient tiles, 32,509 ids in 65
    512-row tiles, the last one running past the table) at the training
@@ -37,7 +40,8 @@ each; any failure ends the run with a nonzero exit code.
    batch 4096, lr 1e-3 const, wd 0.1 (run_script/run_DCNv2_scratch.sh), one
    epoch of --train_steps steps, eval, best-step checkpoint and test. Checks:
    loss finite and falling, eval AUC > 0.6, the launches of K1-K4 equal to
-   what the step and batch counts give, the best checkpoint scored by
+   what the step and batch counts give (K1: one a step, all dense
+   parameters in one launch), the best checkpoint scored by
    Predictor to the Trainer's test AUC. Then 5 steps from the same weights
    through the kernels and through the plain versions on the card, losses
    and parameters compared; step time and examples/s; a few steps under
@@ -76,7 +80,9 @@ each; any failure ends the run with a nonzero exit code.
    K7 against its plain version on one step's real streams (exact, the same
    bits twice); K8 against its plain version and a float64 scan on the
    per-position fold's (745,472, 33) stream and this path's target fold
-   (28,672, 33) and noise fold; 5 f32 steps with K7 against 5 on the dense
+   (28,672, 33) and noise fold, and a random (2,236,417, 33) input of many
+   rounds, each also bit-equal to the kernel's association computed in
+   PyTorch ops (`scan.block_cumsum_order`); 5 f32 steps with K7 against 5 on the dense
    route (K5 + K1 on the decoder emb), bit-equal; 5 steps through the
    kernels against the plain versions in bf16 and f32; step time and a few
    steps under torch.profiler;
@@ -98,7 +104,9 @@ each; any failure ends the run with a nonzero exit code.
    apart as well, its longest segment, and its result bit-equal to the
    plain version's; K7 beside
    two yardsticks (index_add_ x 2 + torch._fused_adamw_, and the dense
-   route K5 x 2 + K1), K8 beside torch.cumsum over dim 0, K6b beside
+   route K5 x 2 + K1), K1 over a training step's leaves beside the two
+   torch._fused_adamw_ calls of the decay and the no-decay group, K8 beside
+   torch.cumsum over dim 0, K6b beside
    index_add_ onto a zero tile stack and its order floor (the longest row's
    chain of adds at 4 cycles each), also with one row hit by a whole field
    (bit-equal to its plain version), K6a beside F.embedding and a mask; the
@@ -254,9 +262,10 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def profile(fn, top_n: int = 10) -> dict:
-    """Wall, device-busy ms, idle share, K2's, K3's and K6b's device ms over
-    every kernel of theirs (named cross_net*, scatter_rows* and
-    field_block_scatter*) and the costliest kernels of fn()."""
+    """Wall, device-busy ms, idle share, K1's, K2's, K3's, K6b's and K8's
+    device ms over every kernel of theirs (named adamw_leaves, cross_net*,
+    scatter_rows*, field_block_scatter* and block_cumsum_rounds) and the
+    costliest kernels of fn()."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -274,11 +283,29 @@ def profile(fn, top_n: int = 10) -> dict:
     k6b_us = sum(e.self_device_time_total for e in on_card
                  if "field_block_scatter" in e.key)
     k2_us = sum(e.self_device_time_total for e in on_card if "cross_net" in e.key)
+    k1_us = sum(e.self_device_time_total for e in on_card if "adamw_leaves" in e.key)
+    k8_us = sum(e.self_device_time_total for e in on_card if "block_cumsum_rounds" in e.key)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
-                idle_share=1.0 - busy_us / wall_us, k2_device_ms=k2_us / 1e3,
-                k3_device_ms=k3_us / 1e3, k6b_device_ms=k6b_us / 1e3,
+                idle_share=1.0 - busy_us / wall_us, k1_device_ms=k1_us / 1e3,
+                k2_device_ms=k2_us / 1e3, k3_device_ms=k3_us / 1e3,
+                k6b_device_ms=k6b_us / 1e3, k8_device_ms=k8_us / 1e3,
                 top=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
+
+
+def k1_launches_a_step(optimizer) -> int:
+    """K1 launches of one optimizer step: its dense parameters in launches
+    of at most fused_adamw.MAX_LEAVES (`fused_adamw.plan`)."""
+    from map_tpu_torch.ops import fused_adamw
+
+    return len(fused_adamw.plan([p.numel() for i, p in enumerate(optimizer.params)
+                                 if i not in optimizer.sparse]))
+
+
+def kernel_ms_per_step(prof: dict, steps: int) -> dict:
+    """K1's, K2's, K3's, K6b's and K8's device ms a step of a profile."""
+    return {f"{k}_ms_per_step": prof[f"{k}_device_ms"] / steps
+            for k in ("k1", "k2", "k3", "k6b", "k8")}
 
 
 def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> None:
@@ -400,7 +427,7 @@ def mfp_step_fn(dev, cfg, targs, tables, *, seed: int, steps: int, shared: bool 
     m.mfp_criterion.handoff = handoff
     opt, _ = build_optimizer(
         m, targs, steps, 0,
-        update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw,
+        update=fused_adamw.fused_adamw_multi_plain if plain else fused_adamw.fused_adamw_multi,
         sparse={"mfp_criterion.emb.weight": handoff} if sparse else None,
         sparse_update=sparse_adamw.sparse_adamw_plain if plain else sparse_adamw.sparse_adamw)
     step, _ = make_mfp_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", tables,
@@ -491,7 +518,8 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": 2 * (steps + eval_batches),
                 "cross_net": steps + eval_batches, "scatter_add": steps,
-                "fused_adamw": steps * num_params, "scatter_unique_sorted": steps,
+                "fused_adamw": steps * k1_launches_a_step(trainer.optimizer),
+                "scatter_unique_sorted": steps,
                 "block_cumsum": steps, "sparse_adamw": 0, "field_block_gather": 0,
                 "field_block_scatter": 0}
     distinct = torch.stack(unique).cpu().tolist()
@@ -580,8 +608,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
          hybrid_mode="matmul", busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
          k3_rows=TRAIN_BATCH * len(big),
          k3_mask_rows=int((corrupted[:, big] == 3).sum()),
-         k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
-         k3_ms_per_step=k3_ms / prof_steps,
+         **kernel_ms_per_step(prof, prof_steps),
          k3_share_of_busy=k3_ms / prof["device_busy_ms"], **prof)
 
     # the three backward modes of the table gradient, one function: 5 f32
@@ -614,9 +641,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         emit("mfp_mode_time", compute_dtype="bfloat16", hybrid_mode=mode, batch=TRAIN_BATCH,
              step_ms=mode_ms, examples_per_s=TRAIN_BATCH / mode_ms * 1e3, steps=prof_steps,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
-             k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
-             k3_ms_per_step=prof["k3_device_ms"] / prof_steps,
-             k6b_ms_per_step=prof["k6b_device_ms"] / prof_steps, **prof)
+             **kernel_ms_per_step(prof, prof_steps), **prof)
         del mode_step
     # the per-position fold's scan input: the candidates' gradient rows in
     # sorted order, as sort_and_fold hands it to K8
@@ -659,7 +684,6 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     trainer = Trainer(models.from_config(cfg_s, torch.Generator().manual_seed(args.seed)),
                       cfg_s, targs, data)  # builds the per-field alias tables
     setup_s = time.perf_counter() - t0
-    num_params = len(list(trainer.model.parameters()))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -673,10 +697,11 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     # a train step gathers the input rows, the targets and the (F, k) noise
     # rows (K4 x 3, as the eval step); folds the targets' and the noise's
     # gradients (K8 x 2), writes their bias gradients (K5 x 2) and hands
-    # their emb streams to K7; K1 updates the 16 other parameters
+    # their emb streams to K7; one K1 launch updates the 16 other parameters
     expected = {"embedding_gather": 3 * (steps + eval_batches),
                 "cross_net": steps + eval_batches, "scatter_add": steps,
-                "fused_adamw": steps * (num_params - 1), "scatter_unique_sorted": 2 * steps,
+                "fused_adamw": steps * k1_launches_a_step(trainer.optimizer),
+                "scatter_unique_sorted": 2 * steps,
                 "block_cumsum": 2 * steps, "sparse_adamw": steps, "field_block_gather": 0,
                 "field_block_scatter": 0}
     losses = [w["window_loss"] for w in trainer.train_windows]
@@ -747,9 +772,18 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
           "fold's (F * k, E + 1)", len(captured["scan"]) == 2
           and all(x is not None and x.shape[1] == MFP_PROJ + 1 for x in k8_inputs.values()),
           shapes=[list(x.shape) for x in captured["scan"]])
+    # and an input of many rounds: three per-position folds' rows and one
+    k8_inputs["several rounds"] = (torch.randn(
+        3 * mfp["fold_scan"].shape[0] + 1, MFP_PROJ + 1,
+        generator=torch.Generator().manual_seed(args.seed)) * 1e-3).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     k8_err = {}
     for key, x in k8_inputs.items():
         out, out2 = scan.block_cumsum(x), scan.block_cumsum(x)
+        k8_plan = scan.plan(*x.shape, sms)
+        check(f"K8 {key}: bit-equal to its association in PyTorch ops "
+              f"(block_cumsum_order), {k8_plan.rounds} rounds of {k8_plan.grid} tiles",
+              torch.equal(out, scan.block_cumsum_order(x, k8_plan)), plan=k8_plan._asdict())
         plain = scan.block_cumsum_plain(x)
         exact = x.double().cumsum(0)
         tol = TOL_SCAN * float(x.double().abs().cumsum(0).max())
@@ -829,7 +863,7 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     prof = profile(lambda: [step(batches[i]) for i in range(prof_steps)], top_n=16)
     emit("mfp_pf_shared_profile", compute_dtype="bfloat16", steps=prof_steps,
          busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
-         k2_ms_per_step=prof["k2_device_ms"] / prof_steps, **prof)
+         **kernel_ms_per_step(prof, prof_steps), **prof)
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, k7_err=k7_err, k8_err=k8_err["target fold"],
                 k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs)
@@ -868,7 +902,7 @@ def finetune_phase(args, dev, cfg, data, ckpt, source, reset_counts, read_counts
     eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": steps + eval_batches,
                 "cross_net": steps + eval_batches, "scatter_add": steps,
-                "fused_adamw": steps * len(list(trainer.model.parameters())),
+                "fused_adamw": steps * k1_launches_a_step(trainer.optimizer),
                 "scatter_unique_sorted": 0, "block_cumsum": 0, "sparse_adamw": 0,
                 "field_block_gather": 0, "field_block_scatter": 0}
     emit("finetune", source=source, compute_dtype="bfloat16", steps=steps, wall_s=wall,
@@ -907,7 +941,7 @@ def rfd_step_fn(dev, cfg, targs, seed: int, plain: bool = False):
     m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
     opt, _ = build_optimizer(
         m, targs, 100, 0,
-        update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw)
+        update=fused_adamw.fused_adamw_multi_plain if plain else fused_adamw.fused_adamw_multi)
     step, _ = make_rfd_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", "Unigram",
                              torch.Generator(device=dev), dev)
     return m, step
@@ -969,12 +1003,12 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     # a train step: K4 and K2 forward, K3 on the 3 big fields' rows and K6b
-    # on the 21 small fields' rows backward, K1 for each parameter
+    # on the 21 small fields' rows backward, one K1 launch for every parameter
     expected = {"embedding_gather": steps + eval_batches,
                 "cross_net": steps + eval_batches, "scatter_add": steps,
-                "fused_adamw": steps * num_params, "scatter_unique_sorted": 0,
-                "block_cumsum": 0, "sparse_adamw": 0, "field_block_gather": 0,
-                "field_block_scatter": steps}
+                "fused_adamw": steps * k1_launches_a_step(trainer.optimizer),
+                "scatter_unique_sorted": 0, "block_cumsum": 0, "sparse_adamw": 0,
+                "field_block_gather": 0, "field_block_scatter": steps}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     ev = trainer.RFD_pretrain_eval()  # the last eval again: its pos_ratio
     losses = [w["window_rfd_loss"] for w in trainer.train_windows]
@@ -992,7 +1026,8 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     floor = 1.0 - ev["eval_pos_ratio"] - 0.01
     check("rfd: eval accuracy at least 1 - pos_ratio - 0.01", ev["eval_rfd_acc"] >= floor,
           eval_rfd_acc=ev["eval_rfd_acc"], floor=floor)
-    check("rfd: launches, K6b and K3 once a step", launches == expected)
+    check("rfd: launches, K6b, K3 and K1 once a step", launches == expected
+          and k1_launches_a_step(trainer.optimizer) == 1)
     ckpt = os.path.join(targs.output_dir, f"{steps}.model")
     check("rfd: checkpoint at the last step", os.path.exists(ckpt))
 
@@ -1050,9 +1085,7 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
         emit("rfd_training_time", compute_dtype="bfloat16", hybrid_mode=mode,
              batch=TRAIN_BATCH, step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
-             k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
-             k3_ms_per_step=prof["k3_device_ms"] / prof_steps,
-             k6b_ms_per_step=prof["k6b_device_ms"] / prof_steps, **prof)
+             **kernel_ms_per_step(prof, prof_steps), **prof)
     return dict(launches=launches, ckpt=ckpt, work=work)
 
 
@@ -1375,12 +1408,11 @@ def main(argv=None) -> int:
     prof = profile(lambda: pred.predict_logits(score_ids), top_n=8)
     batches = -(-args.rows // args.batch)  # a step: one batch of --batch rows
     emit("serving_profile", compute_dtype="bfloat16", rows=args.rows, steps=batches,
-         k2_ms_per_step=prof["k2_device_ms"] / batches, **prof)
+         **kernel_ms_per_step(prof, batches), **prof)
     del serving, pred
 
     # 7. training through the Trainer, bf16 and f32
     data = teacher_dataset(rng, args.train_steps * TRAIN_BATCH)
-    num_params = len(list(model.parameters()))
     eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)  # valid once, test once
     train_dirs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
     for dname in ("bfloat16", "float32"):
@@ -1406,7 +1438,8 @@ def main(argv=None) -> int:
         steps = trainer.global_step
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
-                    "scatter_add": steps, "fused_adamw": steps * num_params,
+                    "scatter_add": steps,
+                    "fused_adamw": steps * k1_launches_a_step(trainer.optimizer),
                     "scatter_unique_sorted": 0, "block_cumsum": 0, "sparse_adamw": 0,
                     "field_block_gather": 0, "field_block_scatter": 0}
         windows = trainer.train_windows
@@ -1422,7 +1455,8 @@ def main(argv=None) -> int:
               first_window_loss=losses[0], last_window_loss=losses[-1])
         check(f"training {dname}: eval AUC > 0.6", trainer.eval_metrics[0][0] > 0.6,
               eval_auc=trainer.eval_metrics[0][0])
-        check(f"training {dname}: launches", counts == expected)
+        check(f"training {dname}: launches, K1 once a step", counts == expected
+              and k1_launches_a_step(trainer.optimizer) == 1)
 
         # the best checkpoint, scored by Predictor
         cfg_d.save(out_dir)
@@ -1440,7 +1474,8 @@ def main(argv=None) -> int:
             m = models.from_config(cfg_d, torch.Generator().manual_seed(args.seed)).to(dev)
             opt, _ = build_optimizer(
                 m, targs, args.train_steps, 0,
-                update=fused_adamw.fused_adamw_plain if plain else fused_adamw.fused_adamw)
+                update=(fused_adamw.fused_adamw_multi_plain if plain
+                        else fused_adamw.fused_adamw_multi))
             step, _ = make_supervised_steps(m, opt, dev)
             before = read_counts()
             with plain_layers() if plain else contextlib.nullcontext():
@@ -1456,6 +1491,42 @@ def main(argv=None) -> int:
         parity_check(f"training {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
                      dname, LR, k_loss, p_loss, k_params, p_params, p0)
         del k_params, p_params, p0
+
+        # K1's list launch on one real step (bf16 run): the trained model's
+        # parameters and moments, the step's gradients and both wd values,
+        # against the plain version, leaf by leaf
+        if dname == "bfloat16":
+            opt, update, captured = trainer.optimizer, trainer.optimizer.update, {}
+
+            def capture_step(ps, mus, nus, gs, ss):
+                captured.update(state=[[t.clone() for t in leaf] for leaf in zip(ps, mus, nus)],
+                                gs=[g.clone() for g in gs], ss=list(ss))
+                update(ps, mus, nus, gs, ss)
+
+            opt.update = capture_step
+            try:
+                trainer.train_step(batches[0])
+            finally:
+                opt.update = update
+            k1_step = (captured["state"], captured["gs"], captured["ss"])
+            st, gs, ss = k1_step
+            ref = [[t.clone() for t in leaf] for leaf in st]
+            fused_adamw.fused_adamw_multi_plain(*([leaf[j] for leaf in ref] for j in range(3)),
+                                                gs, ss)
+            got = [[t.clone() for t in leaf] for leaf in st]
+            before = fused_adamw.launches
+            fused_adamw.fused_adamw_multi(*([leaf[j] for leaf in got] for j in range(3)), gs, ss)
+            torch.cuda.synchronize()
+            pairs = [(a, b) for x, y in zip(got, ref) for a, b in zip(x, y)]
+            k1_err["step"] = max(float((a - b).abs().max()) for a, b in pairs)
+            wds = sorted({s_.wd for s_ in ss})
+            check("K1 list launch on one training step's leaves: bit-equal to the plain "
+                  "version, leaf by leaf, in one launch",
+                  all(torch.equal(a, b) for a, b in pairs) and fused_adamw.launches == before + 1
+                  and len(wds) == 2 and wds[0] == 0.0,
+                  leaves=len(gs), elements=sum(g.numel() for g in gs), wd=wds,
+                  max_abs_err=k1_err["step"])
+            del ref, got, pairs
 
         # step time and where it goes
         for _ in range(3):
@@ -1474,9 +1545,8 @@ def main(argv=None) -> int:
         prof = profile(lambda: [trainer.train_step(batches[i]) for i in range(prof_steps)],
                        top_n=12)
         emit("training_profile", compute_dtype=dname, steps=prof_steps,
-             k2_ms_per_step=prof["k2_device_ms"] / prof_steps,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
-             k3_ms_per_step=prof["k3_device_ms"] / prof_steps, **prof)
+             **kernel_ms_per_step(prof, prof_steps), **prof)
         del trainer, pred
     train_dirs.cleanup()
 
@@ -1558,22 +1628,45 @@ def main(argv=None) -> int:
             times[key].update(ms_over_library=times[key]["ms"] / times[key]["library_ms"],
                               ms_over_bound=times[key]["ms"] / times[key]["bound_ms"])
 
-        for key, (p, mu, nu, g) in k1_inputs.items():
-            n = p.numel()
+        # K1: the table and a leaf alone, and one training step's leaves in
+        # one launch, each in turns with its plain version and its library
+        # yardstick, torch._fused_adamw_ (one call for each wd group; its
+        # algebra differs), on the same inputs
+        step_t = torch.ones((), device=dev)
+        st, gs, ss = k1_step
+        k1_cases = {key: ([[p, mu, nu]], [g], [adam_s])
+                    for key, (p, mu, nu, g) in k1_inputs.items()}
+        k1_cases["step's leaves"] = (st, gs, ss)
+        for key, (state, grads, sc) in k1_cases.items():
+            n = sum(g.numel() for g in grads)
             byte_ms = 7 * 4 * n / HBM_BYTES_PER_S * 1e3  # p, mu, nu, g in; p, mu, nu out
             op_ms = 14 * n / PEAK_FLOPS["float32"] * 1e3
-            step_t = torch.ones((), device=dev)
-            lib = [t.clone() for t in (p, mu, nu)]
-            times[f"K1 {key}"] = dict(
-                ms=time_ms(lambda: fused_adamw.fused_adamw(p, mu, nu, g, adam_s)),
-                plain_ms=time_ms(lambda: fused_adamw.fused_adamw_plain(p, mu, nu, g, adam_s)),
-                library_ms=time_ms(lambda: torch._fused_adamw_(
-                    [lib[0]], [g], [lib[1]], [lib[2]], [], [step_t], lr=LR,
-                    beta1=0.9, beta2=0.999, weight_decay=WEIGHT_DECAY, eps=1e-8,
-                    amsgrad=False, maximize=False)),
-                bound_ms=max(byte_ms, op_ms),
-                bound_by="bytes" if byte_ms >= op_ms else "operations",
-                shape=list(p.shape))
+            lib = [[t.clone() for t in leaf] for leaf in state]
+            groups = [[i for i, s_ in enumerate(sc) if (s_.wd != 0.0) == d] for d in (True, False)]
+
+            def k1_library(lib=lib, grads=grads, groups=groups, sc=sc):
+                for group in groups:
+                    if group:
+                        torch._fused_adamw_(
+                            [lib[i][0] for i in group], [grads[i] for i in group],
+                            [lib[i][1] for i in group], [lib[i][2] for i in group], [],
+                            [step_t] * len(group), lr=sc[group[0]].lr, beta1=sc[0].b1,
+                            beta2=sc[0].b2, weight_decay=sc[group[0]].wd, eps=sc[0].eps,
+                            amsgrad=False, maximize=False)
+
+            ps_, mus_, nus_ = ([leaf[j] for leaf in state] for j in range(3))
+            t = time_ms_each(dict(
+                ms=lambda: fused_adamw.fused_adamw_multi(ps_, mus_, nus_, grads, sc),
+                plain_ms=lambda: fused_adamw.fused_adamw_multi_plain(ps_, mus_, nus_, grads, sc),
+                library_ms=k1_library))
+            t.update(bound_ms=max(byte_ms, op_ms),
+                     bound_by="bytes" if byte_ms >= op_ms else "operations",
+                     leaves=len(grads), elements=n,
+                     launches=len(fused_adamw.plan([g.numel() for g in grads])))
+            t.update(ms_over_bound=t["ms"] / t["bound_ms"],
+                     ms_over_library=t["ms"] / t["library_ms"])
+            times[f"K1 {key}"] = t
+            del lib
 
         def k3_times(k3_ids, g, vocab):
             """K3 as the step calls it (ms: the stable sort and the kernel),
@@ -1792,7 +1885,7 @@ def main(argv=None) -> int:
         entry("cross_net", "cross_net.cu", "map_tpu/ops/pallas_cross.py:98",
               k2_err["bfloat16"], times["K2 bf16"]),
         entry("fused_adamw", "fused_adamw.cu", "map_tpu/ops/fused_adamw.py:51",
-              k1_err["table"], times["K1 table"]),
+              k1_err["step"], times["K1 step's leaves"]),
         entry("scatter_add", "scatter_add.cu", "map_tpu/ops/pallas_scatter.py:171",
               k3_err["bfloat16"], times["K3 bfloat16"]),
         entry("scatter_unique_sorted", "scatter_unique_sorted.cu",

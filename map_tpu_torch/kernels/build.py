@@ -43,9 +43,9 @@ _SIGNATURES = {
     # (x0, w, b, y, xs, us, scratch, batch, d, layers, is_bf16, tile_rows,
     #  cluster, grid, smem, stages, x_buffers, vector, stream)
     "map_tpu_cross_net": [_P] * 7 + [ctypes.c_int] * 11 + [_P],
-    # (p, mu, nu, g, n, lr, wd, b1, b2, eps, bc1, bc2, stream)
-    "map_tpu_fused_adamw": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_float] * 7
-                           + [_P],
+    # (leaves, count, units, blocks, lr, b1, b2, eps, bc1, bc2, stream)
+    "map_tpu_fused_adamw_leaves": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+                                  + [ctypes.c_float] * 6 + [_P],
     # (sorted_ids, perm, grads, out, n, vocab, e, grads_bf16, stream)
     "map_tpu_scatter_add": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, _P],
@@ -58,8 +58,10 @@ _SIGNATURES = {
     "map_tpu_sparse_adamw": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
                              ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
                             + [ctypes.c_float] * 7 + [_P],
-    # (x, out, scratch, n, w, stream)
-    "map_tpu_block_cumsum": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P],
+    # (x, out, agg, n, w, tile_rows, tiles, grid, rounds, segs, seg_rows,
+    #  part_tiles, smem, vector, stream)
+    "map_tpu_block_cumsum": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_longlong] + [ctypes.c_int] * 7 + [_P],
     # (g, phys, work, pair_pos, out, b, fs, w, r, blocks, g_bf16, add, stream)
     "map_tpu_field_block_scatter": [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
                                    + [ctypes.c_int] * 3 + [_P],

@@ -3,11 +3,12 @@ global-norm clip. Counterpart: `map_tpu/train/optimizer.py`
 (`no_decay_mask`, `is_table_leaf`, `PartitionedTx`, `build_optimizer`).
 
 The algebra is optax.adamw's (eps_root 0) as map_tpu's fused kernel computes
-it (`map_tpu/ops/fused_adamw.py:_adamw_math`), not torch.optim.AdamW's. Every
-parameter is updated by one `ops.fused_adamw` call: K1 on the card, its plain
-version on the CPU, with wd = 0 where the mask says so. map_tpu splits the
-parameters (tables through its Pallas kernel, the rest through optax) only
-because optax is the TPU's path for the rest; the update is the same.
+it (`map_tpu/ops/fused_adamw.py:_adamw_math`), not torch.optim.AdamW's. A
+step updates every dense parameter in one `ops.fused_adamw_multi` call: one
+K1 launch on the card (for up to 64 parameters), its plain version on the
+CPU, with wd = 0 where the mask says so. map_tpu splits the parameters
+(tables through its Pallas kernel, the rest through optax) only because
+optax is the TPU's path for the rest; the update is the same.
 
 State: (mu, nu) per parameter, float32, plus the host int `count`. The
 learning rate of a step is the schedule at `count` (before the increment);
@@ -34,8 +35,9 @@ from map_tpu_torch.ops import fused_adamw as k1
 from map_tpu_torch.ops import sparse_adamw as k7
 from map_tpu_torch.train.schedules import Schedule, make_schedule
 
-UpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                     k1.AdamScalars], None]
+# (params, mus, nus, grads, scalars): one entry a dense parameter
+UpdateFn = Callable[[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor],
+                     List[torch.Tensor], List[k1.AdamScalars]], None]
 SparseUpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, k7.Stream,
                            k7.Stream, k1.AdamScalars], None]
 
@@ -56,8 +58,9 @@ def is_table_leaf(name: str, shape: Sequence[int]) -> bool:
     """The port's copy of map_tpu's vocabulary-table rule
     (`map_tpu/parallel/sharding.py:is_vocab_table`) on torch names: the named
     tables, or any 2-D parameter with >= 4096 rows and >= 8x more rows than
-    columns. No update branches on it (every parameter goes through K1); it
-    is the rule the row-sharded tables of the parallel slice will read."""
+    columns. No update branches on it (every dense parameter goes through
+    K1); it is the rule the row-sharded tables of the parallel slice will
+    read."""
     if len(shape) != 2:
         return False
     keys = name.split(".")
@@ -82,7 +85,7 @@ class AdamW:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Schedule, b1: float, b2: float, eps: float,
                  weight_decay: float, max_grad_norm: float = 0.0,
-                 update: UpdateFn = k1.fused_adamw,
+                 update: UpdateFn = k1.fused_adamw_multi,
                  sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
                  sparse_update: SparseUpdateFn = k7.sparse_adamw):
         named = list(named_params)
@@ -131,13 +134,12 @@ class AdamW:
         if self.max_grad_norm and self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm)
         with_decay, without = self.scalars(True), self.scalars(False)
-        for i, (p, mu, nu, g, d) in enumerate(zip(self.params, self.mu, self.nu,
-                                                  grads, self.decay)):
-            s = with_decay if d else without
-            if i in streams:
-                self.sparse_update(p, mu, nu, *streams[i], s)
-            else:
-                self.update(p, mu, nu, g, s)
+        ss = [with_decay if d else without for d in self.decay]
+        dense = [i for i in range(len(self.params)) if i not in streams]
+        self.update(*([seq[i] for i in dense]
+                      for seq in (self.params, self.mu, self.nu, grads, ss)))
+        for i, (target, noise) in streams.items():
+            self.sparse_update(self.params[i], self.mu[i], self.nu[i], target, noise, ss[i])
         self.count += 1
         for handoff in self.sparse.values():
             handoff.step = self.count
@@ -151,7 +153,7 @@ class AdamW:
 
 
 def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
-                    num_warmup_steps: int, update: UpdateFn = k1.fused_adamw,
+                    num_warmup_steps: int, update: UpdateFn = k1.fused_adamw_multi,
                     sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
                     sparse_update: SparseUpdateFn = k7.sparse_adamw
                     ) -> Tuple[AdamW, Schedule]:

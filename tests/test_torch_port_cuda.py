@@ -245,6 +245,71 @@ def test_adamw_rejects_what_it_does_not_take(dev):
         fused_adamw.fused_adamw(p, mu, nu, grad[:32], s)
 
 
+def _dcnv2_adam_lists(dev, seed):
+    """A canonical-width DCNv2's parameter list (24 fields, embed 16, MLP
+    3 x 1000, 3 cross layers, a vocabulary cut to 100,003 ids), with
+    moments and gradients, and per-leaf scalars by optimizer.decays."""
+    from map_tpu_torch.train.optimizer import decays
+
+    cfg = Config(model_name="dcnv2", input_size=100_003, num_fields=24, embed_size=16,
+                 hidden_size=1000, num_hidden_layers=3, hidden_act="relu",
+                 num_cross_layers=3)
+    model = models.from_config(cfg, torch.Generator().manual_seed(seed))
+    names, ps = zip(*[(n, p.detach()) for n, p in model.named_parameters()])
+    state = [_adam_state(p.shape, seed + i, dev) for i, p in enumerate(ps)]
+    ps = [p.to(dev) for p in ps]
+    ss = [fused_adamw.scalars(1e-3, 0.1 if decays(n) else 0.0, 0.9, 0.999, 1e-8, 5)
+          for n in names]
+    return ps, [s[1] for s in state], [s[2] for s in state], [s[3] for s in state], ss
+
+
+def _adam_list_case(kind, dev):
+    """(ps, mus, nus, gs, scalars, launches the list takes)"""
+    if kind == "dcnv2":
+        *lists, ss = _dcnv2_adam_lists(dev, 3)
+        return (*lists, ss, 1)
+    sizes = {"many leaves": [(i * 97) % 1031 + 1 for i in range(150)],
+             "unaligned among aligned": [4096, 1001, 16, 4 * 1000 + 1, 7, 384],
+             "an empty leaf": [64, 0, 13, 0, 4096]}[kind]
+    leaves = [_adam_state((n,), 11 + i, dev) for i, n in enumerate(sizes)]
+    if kind == "unaligned among aligned":
+        # leaf 3 starts one element into its buffers: not 16-byte aligned
+        leaves[3] = [t[1:] for t in leaves[3]]
+        assert leaves[3][0].data_ptr() % 16 != 0
+    ss = [fused_adamw.scalars(1e-3, 0.1 if i % 3 else 0.0, 0.9, 0.999, 1e-8, 2)
+          for i in range(len(leaves))]
+    expect = -(-sum(n > 0 for n in sizes) // fused_adamw.MAX_LEAVES)
+    return (*([leaf[j] for leaf in leaves] for j in range(4)), ss, expect)
+
+
+@pytest.mark.parametrize("kind", ["dcnv2", "many leaves", "unaligned among aligned",
+                                  "an empty leaf"])
+def test_adamw_list_is_bit_equal_to_plain(dev, kind):
+    ps, mus, nus, gs, ss, expect = _adam_list_case(kind, dev)
+    ref = [[t.clone() for t in leaf] for leaf in zip(ps, mus, nus)]
+    for (p, mu, nu), g, s in zip(ref, gs, ss):
+        fused_adamw.fused_adamw_plain(p, mu, nu, g, s)
+    before = fused_adamw.launches
+    fused_adamw.fused_adamw_multi(ps, mus, nus, gs, ss)
+    assert fused_adamw.launches == before + expect
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(zip(ps, mus, nus), ref)):
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), i
+
+
+def test_adamw_list_rejects_what_it_does_not_take(dev):
+    (p, mu, nu, g), (q, qmu, qnu, qg) = _adam_state((64,), 1, dev), _adam_state((8,), 2, dev)
+    s = fused_adamw.scalars(1e-3, 0.1, 0.9, 0.999, 1e-8, 1)
+    with pytest.raises(ValueError):  # one leaf on the CPU
+        fused_adamw.fused_adamw_multi([p, q.cpu()], [mu, qmu.cpu()], [nu, qnu.cpu()],
+                                      [g, qg.cpu()], [s, s])
+    with pytest.raises(ValueError):  # bc1 differs: not one launch
+        fused_adamw.fused_adamw_multi([p, q], [mu, qmu], [nu, qnu], [g, qg],
+                                      [s, s._replace(bc1=0.5)])
+    with pytest.raises(ValueError):
+        fused_adamw.fused_adamw_multi([p, q], [mu, qmu], [nu, qnu], [g, qg.double()], [s, s])
+
+
 # ---- K3: gradient scatter-add ------------------------------------------------
 
 def _summation_bound(ids, grads, vocab):
@@ -546,6 +611,48 @@ def test_block_cumsum_matches_float64(dev, n, w):
     assert float((got.double() - ref).abs().max()) <= tol
     assert float((got - scan.block_cumsum_plain(x)).abs().max()) <= 2 * tol
     assert torch.equal(got, scan.block_cumsum(x))  # the same bits again
+
+
+@pytest.mark.parametrize("n,w,sms", [(1, 1, 132), (1, 128, 132), (1000, 33, 132),
+                                     (2400, 33, 132), (28_672, 33, 132),
+                                     (745_472, 33, 132), (50_000, 33, 4), (9_999, 128, 3),
+                                     (70_001, 1, 2), (3_000_000, 33, 132),
+                                     (400_001, 128, 132)])
+def test_block_cumsum_is_its_association_bit_for_bit(dev, n, w, sms):
+    # the plan test's cases (tests/test_torch_port_scan_plan.py): the kernel
+    # under plan(n, w, sms) gives block_cumsum_order's bits, twice, in one
+    # launch, within 1e-6 of the largest prefix of |x| of float64
+    p = scan.plan(n, w, min(sms, torch.cuda.get_device_properties(dev).multi_processor_count))
+    g = torch.Generator().manual_seed(n * w)
+    x = (torch.randn(n, w, generator=g) * 1e-3).to(dev)
+    before = scan.launches
+    got = scan.block_cumsum(x, p)
+    again = scan.block_cumsum(x, p)
+    assert scan.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, scan.block_cumsum_order(x, p))
+    tol = 1e-6 * float(x.double().abs().cumsum(0).max())
+    assert float((got.double() - x.double().cumsum(0)).abs().max()) <= tol
+
+
+def test_block_cumsum_unaligned_takes_the_4_byte_path(dev):
+    n, w = 20_001, 33
+    buf = (torch.randn(n * w + 1, generator=torch.Generator().manual_seed(9)) * 1e-3).to(dev)
+    x = buf[1:].view(n, w)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    got = scan.block_cumsum(x)
+    p = scan.plan(n, w, torch.cuda.get_device_properties(dev).multi_processor_count, False)
+    assert not p.vector
+    assert torch.equal(got, scan.block_cumsum_order(x, p))
+
+
+def test_block_cumsum_refuses_a_plan_that_does_not_fit(dev):
+    x = torch.zeros(1000, 33, device=dev)
+    p = scan.plan(1000, 33)
+    for bad in (p._replace(tiles=p.tiles + 1), p._replace(smem=p.smem - 4),
+                p._replace(tile_rows=p.tile_rows - 1), p._replace(seg_rows=1)):
+        with pytest.raises(RuntimeError):
+            scan.block_cumsum(x, bad)
 
 
 def test_block_cumsum_rejects_what_it_does_not_take(dev):
