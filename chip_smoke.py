@@ -95,7 +95,13 @@ each; any failure ends the run with a nonzero exit code.
 10. times: median ms of each kernel (CUDA events, L2 flushed and a spin of
    about 1 ms queued on the card before each launch, so that the card, not
    the host's launch pace, sets the time), its bound on an H100 SXM, its
-   plain version and one-call library yardstick; K2 at (10000, 384) and
+   plain version and one-call library yardstick; K4 at every shape the main
+   path launches it (serving in f32 and bf16, the training input, the MFP
+   per-position candidates, per-field shared targets and noise; the
+   phases' own ids), each bit-equal to its plain version twice, beside
+   F.embedding and `copy_` of its output, with its launches by shape in each
+   training run (checked against the run's count) and its wrapper's host
+   time a call; K2 at (10000, 384) and
    (10000, 624) in both dtypes and at the training call with the residuals,
    timed in turns with the chain of 9 PyTorch calls (addmm, multiply, add a
    layer) and its 3 products alone (`products_ms`), the kernel and the chain
@@ -109,7 +115,8 @@ each; any failure ends the run with a nonzero exit code.
    torch.cumsum over dim 0, K6b beside
    index_add_ onto a zero tile stack and its order floor (the longest row's
    chain of adds at 4 cycles each), also with one row hit by a whole field
-   (bit-equal to its plain version), K6a beside F.embedding and a mask; the
+   (bit-equal to its plain version), K6a beside F.embedding and a mask (and
+   its plan's rows of b a block); the
    MFP step's matmul backward in its parts;
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
    from the per-field shared run of 8b for K5, K7 and K8), nvidia-smi's
@@ -262,10 +269,10 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def profile(fn, top_n: int = 10) -> dict:
-    """Wall, device-busy ms, idle share, K1's, K2's, K3's, K6b's and K8's
-    device ms over every kernel of theirs (named adamw_leaves, cross_net*,
-    scatter_rows*, field_block_scatter* and block_cumsum_rounds) and the
-    costliest kernels of fn()."""
+    """Wall, device-busy ms, idle share, K1's, K2's, K3's, K4's, K6b's and
+    K8's device ms over every kernel of theirs (named adamw_leaves,
+    cross_net*, scatter_rows*, gather_rows*, field_block_scatter* and
+    block_cumsum_rounds) and the costliest kernels of fn()."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -283,12 +290,13 @@ def profile(fn, top_n: int = 10) -> dict:
     k6b_us = sum(e.self_device_time_total for e in on_card
                  if "field_block_scatter" in e.key)
     k2_us = sum(e.self_device_time_total for e in on_card if "cross_net" in e.key)
+    k4_us = sum(e.self_device_time_total for e in on_card if "gather_rows" in e.key)
     k1_us = sum(e.self_device_time_total for e in on_card if "adamw_leaves" in e.key)
     k8_us = sum(e.self_device_time_total for e in on_card if "block_cumsum_rounds" in e.key)
     return dict(wall_ms=wall_us / 1e3, device_busy_ms=busy_us / 1e3,
                 idle_share=1.0 - busy_us / wall_us, k1_device_ms=k1_us / 1e3,
                 k2_device_ms=k2_us / 1e3, k3_device_ms=k3_us / 1e3,
-                k6b_device_ms=k6b_us / 1e3, k8_device_ms=k8_us / 1e3,
+                k4_device_ms=k4_us / 1e3, k6b_device_ms=k6b_us / 1e3, k8_device_ms=k8_us / 1e3,
                 top=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -303,9 +311,86 @@ def k1_launches_a_step(optimizer) -> int:
 
 
 def kernel_ms_per_step(prof: dict, steps: int) -> dict:
-    """K1's, K2's, K3's, K6b's and K8's device ms a step of a profile."""
+    """K1's, K2's, K3's, K4's, K6b's and K8's device ms a step of a profile."""
     return {f"{k}_ms_per_step": prof[f"{k}_device_ms"] / steps
-            for k in ("k1", "k2", "k3", "k6b", "k8")}
+            for k in ("k1", "k2", "k3", "k4", "k6b", "k8")}
+
+
+def host_us_per_call(fn, calls: int = 1000, repeats: int = 5) -> float:
+    """Host microseconds a call of fn, over `calls` calls with no
+    synchronize in between (the launch queue absorbs them): the median of
+    `repeats` runs."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
+
+
+def k4_times(table, ids, out_dtype, reps: int = 20) -> dict:
+    """K4 at one shape, timed in turns (`time_ms_each`) with its plain
+    version, `F.embedding` on int64 ids (f32 out; bf16 out has no one-call
+    equivalent: None), `Tensor.copy_` of a tensor of the output's size and
+    dtype (`copy_ms`, the floor of a pass over the output's bytes in this
+    harness) and a one-element `zero_()` (`launch_ms`, the floor of any
+    launch in it). Bound: the ids, the distinct rows and the output, each
+    once, over the card's memory rate. The kernel is held to its plain
+    version bit for bit, twice."""
+    import torch
+    import torch.nn.functional as F
+
+    from map_tpu_torch.ops import embedding
+
+    n, e = ids.numel(), table.shape[1]
+    out_dtype = torch.float32 if out_dtype is None else out_dtype
+    ref = embedding.embedding_lookup_plain(table, ids, out_dtype)
+    bit_equal = all(torch.equal(embedding.embedding_lookup(table, ids, out_dtype), ref)
+                    for _ in range(2))
+    src = torch.empty_like(ref)
+    dst = torch.empty_like(ref)
+    tiny = torch.empty(1, device=ids.device)
+    fns = dict(ms=lambda: embedding.embedding_lookup(table, ids, out_dtype),
+               plain_ms=lambda: embedding.embedding_lookup_plain(table, ids, out_dtype),
+               copy_ms=lambda: dst.copy_(src), launch_ms=tiny.zero_)
+    if out_dtype == torch.float32:
+        ids_long = ids.long()
+        fns["library_ms"] = lambda: F.embedding(ids_long, table)
+    t = time_ms_each(fns, reps)
+    t.setdefault("library_ms", None)
+    distinct = int(torch.unique(ids).numel())
+    nbytes = n * 4 + distinct * e * 4 + ref.numel() * ref.element_size()
+    t.update(bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+             ids=list(ids.shape), table=list(table.shape),
+             out_dtype=str(out_dtype).replace("torch.", ""), distinct_rows=distinct,
+             bit_equal_twice=bit_equal, ms_over_bound=t["ms"] / (nbytes / HBM_BYTES_PER_S * 1e3),
+             ms_over_copy=t["ms"] / t["copy_ms"])
+    return t
+
+
+def k4_launches_by_shape(steps: int) -> dict:
+    """K4's launches by shape in each training run of the smoke, as its
+    expected counts give them: a training step gathers the (4096, 24) input
+    rows in bf16 and, in MFP, the decoder rows of its candidates
+    (per-position) or of its targets and its (F, k) noise (per-field
+    shared); an eval batch of 10000 rows the same, the input rows at the
+    serving shape. Keys name `times` rows, or the eval shape no row times."""
+    ev = -(-EVAL_ROWS // EVAL_BATCH)  # batches of one eval
+    return {
+        "rfd": {"K4 training input": steps, "K4 bf16 out": ev},
+        "pf-shared": {"K4 training input": steps, "K4 pf-shared targets": steps,
+                      "K4 pf-shared noise": steps + ev, "K4 bf16 out": ev,
+                      "eval targets (10000, 7)": ev},
+        "per-position": {"K4 training input": steps, "K4 MFP decoder": steps,
+                         "K4 bf16 out": ev, "eval candidates (10000, 7, 26)": ev},
+        "supervised bf16": {"K4 training input": steps, "K4 bf16 out": 2 * ev},
+    }
 
 
 def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> None:
@@ -662,7 +747,7 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
 
     from map_tpu_torch import models
     from map_tpu_torch.data.loader import Batcher
-    from map_tpu_torch.objectives.corruption import mask_num_of
+    from map_tpu_torch.objectives.corruption import mask_num_of, mfp_corrupt
     from map_tpu_torch.ops import dedup_scatter, scan, sparse_adamw
     from map_tpu_torch.train.train_step import draw_mfp
     from map_tpu_torch.train.trainer import Trainer
@@ -743,6 +828,9 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
         return k8(x)
 
     opt.sparse_update, dedup_scatter.block_cumsum = capture_update, capture_scan
+    # the decoder rows K4 gathers in that step: the targets and the noise
+    targets = mfp_corrupt(torch.from_numpy(batches[0]["input_ids"]).to(dev),
+                          draws[0].masked_index)[1]
     try:
         trainer.train_step(batches[0], draws[0])
     finally:
@@ -866,7 +954,8 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
          **kernel_ms_per_step(prof, prof_steps), **prof)
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, k7_err=k7_err, k8_err=k8_err["target fold"],
-                k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs)
+                k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs,
+                k4_ids=dict(targets=targets, noise=draws[0].noise))
 
 
 def finetune_phase(args, dev, cfg, data, ckpt, source, reset_counts, read_counts) -> None:
@@ -1415,6 +1504,7 @@ def main(argv=None) -> int:
     data = teacher_dataset(rng, args.train_steps * TRAIN_BATCH)
     eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)  # valid once, test once
     train_dirs = tempfile.TemporaryDirectory(prefix="chip_smoke_train_")
+    train_launches = {}
     for dname in ("bfloat16", "float32"):
         cfg_d = dataclasses.replace(cfg, compute_dtype=dname)
         out_dir = os.path.join(train_dirs.name, dname)
@@ -1434,7 +1524,7 @@ def main(argv=None) -> int:
         test = trainer.test()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_counts()
+        counts = train_launches[dname] = read_counts()
         steps = trainer.global_step
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
@@ -1559,25 +1649,43 @@ def main(argv=None) -> int:
     finetune_phase(args, dev, cfg, data, mfp["ckpt"], "MFP", reset_counts, read_counts)
     shutil.rmtree(mfp["work"], ignore_errors=True)
 
-    # 10. times at the serving, training and MFP shapes
-    n_ids = ids.numel()
-    unique_rows = int(torch.unique(ids).numel())
-    k4_bytes = n_ids * 4 + unique_rows * EMBED * 4 + n_ids * EMBED * 4
+    # 10. times at the serving, training and MFP shapes. K4 at every shape
+    # the main path launches it (the phases' own ids; the decoder table is
+    # the MFP decoder's shape, random), with its launches by shape in each
+    # training run, which must sum to the run's K4 count; its wrapper's host
+    # time a call at the training input
     times = {}
+    by_shape = k4_launches_by_shape(args.train_steps)
+    for run, k4_count in (("rfd", rfd["launches"]), ("pf-shared", pfs["launches"]),
+                          ("per-position", mfp["launches"]),
+                          ("supervised bf16", train_launches["bfloat16"])):
+        check(f"K4 launches by shape, {run} run: they sum to the run's count",
+              sum(by_shape[run].values()) == k4_count["embedding_gather"],
+              by_shape=by_shape[run], launches=k4_count["embedding_gather"])
+    mask_num = pfs["k4_ids"]["targets"].shape[1]
+    decoder = (torch.randn(vocab, MFP_PROJ, generator=torch.Generator().manual_seed(
+        args.seed + 11)) * 0.05).to(dev)
+    k4_cases = {
+        "K4 f32": (table, ids, None),
+        "K4 bf16 out": (table, ids, torch.bfloat16),
+        "K4 training input": (table, train_ids, torch.bfloat16),
+        "K4 MFP decoder": (decoder, mfp["fold_inputs"][0].reshape(
+            TRAIN_BATCH, mask_num, 1 + MFP_NEG), None),
+        "K4 pf-shared targets": (decoder, pfs["k4_ids"]["targets"], None),
+        "K4 pf-shared noise": (decoder, pfs["k4_ids"]["noise"], None),
+    }
     with torch.inference_mode():
-        ids_long = ids.long()
-        times["K4 f32"] = dict(
-            ms=time_ms(lambda: embedding.embedding_lookup(table, ids)),
-            plain_ms=time_ms(lambda: embedding.embedding_lookup_plain(table, ids)),
-            library_ms=time_ms(lambda: F.embedding(ids_long, table)),
-            bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
-        k4_bf16_bytes = k4_bytes - n_ids * EMBED * 2
-        times["K4 bf16 out"] = dict(
-            ms=time_ms(lambda: embedding.embedding_lookup(table, ids, torch.bfloat16)),
-            plain_ms=time_ms(lambda: embedding.embedding_lookup_plain(
-                table, ids, torch.bfloat16)),
-            library_ms=None,
-            bound_ms=k4_bf16_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        for key, (tab, id_t, out_dtype) in k4_cases.items():
+            t = times[key] = k4_times(tab, id_t, out_dtype)
+            t.update(plan=embedding.plan(id_t.numel(), tab.shape[1],
+                                         out_dtype == torch.bfloat16, True)._asdict(),
+                     launches_by_run={run: shapes.get(key, 0)
+                                      for run, shapes in by_shape.items()})
+            check(f"{key} {tuple(id_t.shape)} x {tab.shape[1]}: bit-equal to the plain "
+                  "version, twice", t["bit_equal_twice"])
+        times["K4 training input"]["host_us_per_call"] = host_us_per_call(
+            lambda: embedding.embedding_lookup(table, train_ids, torch.bfloat16))
+        del decoder
 
         def library_cross(x0, w, b, save_residuals=False):
             """The one-call-a-step chain: addmm, multiply, add a layer (9 calls
@@ -1838,7 +1946,9 @@ def main(argv=None) -> int:
             library_ms=time_ms(lambda: torch.where(valid[..., None],
                                                    F.embedding(serve_long, table), 0.0)),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            ids=serve_phys.numel(), distinct_rows=distinct)
+            ids=serve_phys.numel(), distinct_rows=distinct,
+            b_per_block=field_gather.gather_plan(*serve_phys.shape[::-1], EMBED,
+                                                 build.sm_count(table.device.index)))
 
         # the MFP step's table gradient under the matmul backward, on one
         # step's corrupted ids: the small fields' one-hot products, and K3 on
@@ -1861,7 +1971,7 @@ def main(argv=None) -> int:
                 mfp_ids, g_mfp, vocab, bounds, NUM_RESERVED, "fwd"), reps=5),
             k3_rows=big_ids.numel(), k3_mask_rows=int((big_ids == 3).sum()))
         del dense
-    emit("times", card=smi, unique_rows=unique_rows, kernels=times)
+    emit("times", card=smi, kernels=times)
 
     # 11. summary; each kernel's launches are those of the path that runs
     # it, counted from 0 over that path's run: the RFD run under the K6b

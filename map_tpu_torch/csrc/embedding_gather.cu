@@ -2,19 +2,28 @@
 // bf16 on the way out.
 //
 // Replaces map_tpu/ops/pallas_embedding.py:_gather, which walks a tile of ids
-// and keeps a ring of per-row DMAs (HBM -> VMEM) in flight behind DMA
-// semaphores. Hopper needs no ring: a warp's loads are already many
-// independent 16-byte requests in flight, and the SM hides their latency by
-// running other warps.
+// and keeps a ring of NUM_INFLIGHT per-row DMAs (HBM -> VMEM) in flight
+// behind DMA semaphores.
 //
 // Bound: device-memory bytes. Per row it reads the 4-byte id and one E-float
 // row, and writes one row (E*4 bytes in f32, E*2 in bf16); there is no
-// arithmetic. Design: E/4 threads per row, each moving one float4 (16 B), so
-// a warp covers 8 rows of the canonical E = 16 in two 128-byte lines each;
-// a grid-stride loop over rows * (E/4). The optional f32 -> bf16 cast is fused
-// into the store, which halves the write bytes of the serving path. Widths
-// that are not a multiple of 4 take a scalar path (one element per thread),
-// because their rows are not 16-byte aligned.
+// arithmetic. Two dependent loads stand before each store (the id, then the
+// row it names), so what a thread keeps in flight decides how close it
+// comes.
+//
+// Design (the launch plan is map_tpu_torch/ops/embedding.py:plan). The
+// output is cut into units of kVec floats: 4 (a 16-byte load and store), or
+// 8 in bf16 out with E % 8 == 0 (two 16-byte loads, one 16-byte store of 8
+// bf16 values). Block x takes a tile of kThreads * kUnits consecutive units,
+// thread t its units t, t + kThreads, ..., so each of its warp's loads and
+// stores covers 32 consecutive units. A thread loads all of its units' ids,
+// then all of their rows, then stores them: its kUnits row loads (the
+// counterpart of the TPU kernel's DMA ring) wait on one id latency, not one
+// each, and the lanes of a row read its id in the same load. One wave of
+// tiles covers the output; the grid walks on past it only beyond
+// kMaxBlocks. Widths that are not a multiple of 4, or a table not 16-byte
+// aligned, take a scalar path (one element per thread), because their rows
+// are not 16-byte aligned.
 //
 // ids must lie in [0, V): the kernel does not check them (the caller does,
 // map_tpu_torch/serve.py checks every chunk on the host).
@@ -27,29 +36,67 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 65535;
 
-template <bool kBf16Out>
-__global__ void __launch_bounds__(kThreads)
-gather_rows_vec4(const float* __restrict__ table, const int* __restrict__ ids,
-                 void* __restrict__ out, long long n, int e) {
-  const int tpr = e >> 2;  // threads per row
-  const long long items = n * tpr;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < items; i += stride) {
-    const long long row = i / tpr;
-    const int j = static_cast<int>(i - row * tpr);
-    const long long src = static_cast<long long>(__ldg(ids + row)) * e + 4 * j;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(table + src));
-    const long long dst = row * e + 4 * j;
-    if (kBf16Out) {
-      __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-      __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-      uint2 packed;
-      packed.x = *reinterpret_cast<uint32_t*>(&lo);
-      packed.y = *reinterpret_cast<uint32_t*>(&hi);
-      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + dst) = packed;
+template <int kVec>
+struct Unit {
+  float4 v[kVec / 4];
+};
+
+template <int kVec, bool kBf16Out>
+__device__ __forceinline__ void store_unit(void* out, long long at, const Unit<kVec>& x) {
+  if constexpr (!kBf16Out) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + at) = x.v[0];
+  } else {
+    uint32_t w[kVec / 2];
+#pragma unroll
+    for (int i = 0; i < kVec / 4; ++i) {
+      __nv_bfloat162 lo = __floats2bfloat162_rn(x.v[i].x, x.v[i].y);
+      __nv_bfloat162 hi = __floats2bfloat162_rn(x.v[i].z, x.v[i].w);
+      w[2 * i] = *reinterpret_cast<uint32_t*>(&lo);
+      w[2 * i + 1] = *reinterpret_cast<uint32_t*>(&hi);
+    }
+    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + at;
+    if constexpr (kVec == 8) {
+      *reinterpret_cast<uint4*>(o) = make_uint4(w[0], w[1], w[2], w[3]);
     } else {
-      *reinterpret_cast<float4*>(static_cast<float*>(out) + dst) = v;
+      *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+    }
+  }
+}
+
+// kUnits units of kVec floats a thread; table and out 16-byte aligned,
+// e % kVec == 0
+template <int kUnits, int kVec, bool kBf16Out>
+__global__ void __launch_bounds__(kThreads)
+gather_rows_batched(const float* __restrict__ table, const int* __restrict__ ids,
+                    void* __restrict__ out, long long n, int e) {
+  const int per_row = e / kVec;  // units a row
+  const long long units = n * per_row;
+  constexpr long long kTile = static_cast<long long>(kThreads) * kUnits;
+  for (long long t0 = blockIdx.x * kTile + threadIdx.x; t0 < units;
+       t0 += static_cast<long long>(gridDim.x) * kTile) {
+    long long row[kUnits];
+    int piece[kUnits], id[kUnits];
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const long long i = t0 + k * kThreads;
+      row[k] = i / per_row;
+      piece[k] = static_cast<int>(i - row[k] * per_row);
+      id[k] = i < units ? __ldg(ids + row[k]) : 0;
+    }
+    Unit<kVec> x[kUnits];
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      if (t0 + k * kThreads < units) {
+        const float4* src = reinterpret_cast<const float4*>(
+            table + static_cast<long long>(id[k]) * e + piece[k] * kVec);
+#pragma unroll
+        for (int j = 0; j < kVec / 4; ++j) x[k].v[j] = __ldg(src + j);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnits; ++k) {
+      const long long i = t0 + k * kThreads;
+      if (i < units) store_unit<kVec, kBf16Out>(out, i * kVec, x[k]);
     }
   }
 }
@@ -73,29 +120,55 @@ gather_rows_scalar(const float* __restrict__ table, const int* __restrict__ ids,
   }
 }
 
+template <int kVec, bool kBf16Out>
+void launch_batched(int units_a_thread, unsigned blocks, const float* t, const int* id,
+                    void* out, long long n, int e, cudaStream_t s) {
+  if (units_a_thread == 1) {
+    gather_rows_batched<1, kVec, kBf16Out><<<blocks, kThreads, 0, s>>>(t, id, out, n, e);
+  } else if (units_a_thread == 2) {
+    gather_rows_batched<2, kVec, kBf16Out><<<blocks, kThreads, 0, s>>>(t, id, out, n, e);
+  } else {
+    gather_rows_batched<4, kVec, kBf16Out><<<blocks, kThreads, 0, s>>>(t, id, out, n, e);
+  }
+}
+
 }  // namespace
 
 // table (V, e) f32, ids (n,) int32, out (n, e) f32 or bf16; all contiguous.
-extern "C" int map_tpu_embedding_gather(const void* table, const void* ids,
-                                        void* out, long long n, int e,
-                                        int out_bf16, void* stream) {
+// The plan (ops/embedding.py:plan), on `blocks` blocks (at most 65535):
+// vec = 0 takes the scalar path; vec = 4 or 8 the batched one, with
+// units_a_thread 1, 2 or 4 units of vec floats a thread, e % vec == 0, table
+// and out 16-byte aligned, vec = 8 with bf16 out only. A plan that does not
+// fit is refused with cudaErrorInvalidValue.
+extern "C" int map_tpu_embedding_gather(const void* table, const void* ids, void* out,
+                                        long long n, int e, int out_bf16, int vec,
+                                        int units_a_thread, int blocks, void* stream) {
   if (n <= 0 || e <= 0) return static_cast<int>(cudaGetLastError());
-  const bool vec = (e % 4) == 0;
-  const long long items = vec ? n * (e / 4) : n * e;
-  long long blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  if (blocks < 1 || blocks > kMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* t = static_cast<const float*>(table);
   const int* id = static_cast<const int*>(ids);
   const unsigned g = static_cast<unsigned>(blocks);
-  if (vec && out_bf16) {
-    gather_rows_vec4<true><<<g, kThreads, 0, s>>>(t, id, out, n, e);
-  } else if (vec) {
-    gather_rows_vec4<false><<<g, kThreads, 0, s>>>(t, id, out, n, e);
+  if (vec == 0) {
+    if (out_bf16) {
+      gather_rows_scalar<true><<<g, kThreads, 0, s>>>(t, id, out, n, e);
+    } else {
+      gather_rows_scalar<false><<<g, kThreads, 0, s>>>(t, id, out, n, e);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const bool aligned = reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if ((vec != 4 && vec != 8) || (vec == 8 && !out_bf16) || e % vec != 0 || !aligned ||
+      (units_a_thread != 1 && units_a_thread != 2 && units_a_thread != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (vec == 8) {
+    launch_batched<8, true>(units_a_thread, g, t, id, out, n, e, s);
   } else if (out_bf16) {
-    gather_rows_scalar<true><<<g, kThreads, 0, s>>>(t, id, out, n, e);
+    launch_batched<4, true>(units_a_thread, g, t, id, out, n, e, s);
   } else {
-    gather_rows_scalar<false><<<g, kThreads, 0, s>>>(t, id, out, n, e);
+    launch_batched<4, false>(units_a_thread, g, t, id, out, n, e, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,8 +58,13 @@
 // hits are not touched); the last tile may run past R, and rows past R are
 // not written.
 //
-// K6a design: E/4 threads per (b, field) row, one float4 each, grid-stride,
-// as K4 (embedding_gather.cu); ids outside the field's tiles give zeros.
+// K6a design: a block takes a range of b (ops/field_gather.py:gather_plan),
+// reads phys[:, b0:b0 + T] along b, coalesced, into shared memory, with an
+// id outside its field's tiles made -1 there (the windows load beside the
+// ids, in the same round trip); then it writes the range's output rows, one
+// contiguous span, in order, each thread loading a batch of 8 row pieces (16
+// bytes each; -1 gives zeros) before it stores them: a transpose through
+// shared memory, the row loads batched as in K4 (embedding_gather.cu).
 //
 // Both take W a multiple of 4 and 16-byte aligned tensors (the wrapper
 // checks). Ids must be -1 or in [0, R); the kernels do not check it.
@@ -71,7 +76,7 @@ namespace {
 
 constexpr int kTile = 512;
 constexpr int kThreads = 256;                        // K6a
-constexpr long long kMaxBlocks = 65535;
+constexpr int kGatherBatch = 8;                      // K6a's loads a thread in flight
 
 // K6b
 constexpr int kMinSlices = 4;                        // blocks a tile at least (16 at most)
@@ -510,25 +515,63 @@ int launch_scatter(const G* g, const int* phys, const int4* work, const int* pai
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6a: block x takes the b_per_block rows of b from b0 = x * b_per_block;
+// their outputs, rows b0 .. of (b, fs * w), are one contiguous span.
 __global__ void __launch_bounds__(kThreads)
 field_block_gather_kernel(const float* __restrict__ table, const int* __restrict__ phys,
                           const int* __restrict__ win_lo, const int* __restrict__ win_hi,
-                          float* __restrict__ out, int b, int fs, int w) {
-  const int groups = w >> 2;
-  const long long items = static_cast<long long>(b) * fs * groups;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < items; i += stride) {
-    const long long row = i / groups;  // b * fs + pos: out's (b, pos) row
-    const int c = static_cast<int>(i - row * groups);
-    const int bb = static_cast<int>(row / fs);
-    const int pos = static_cast<int>(row - static_cast<long long>(bb) * fs);
-    const int id = __ldg(phys + static_cast<long long>(pos) * b + bb);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (id >= 0 && id >= __ldg(win_lo + pos) && id < __ldg(win_hi + pos)) {
-      v = load4(table + static_cast<long long>(id) * w + 4 * c);
+                          float* __restrict__ out, int b, int fs, int w, int b_per_block) {
+  extern __shared__ int sid[];  // (b_per_block, fs): the id of (b0 + j, pos), -1 = zeros
+  const int b0 = blockIdx.x * b_per_block;
+  const int nb = min(b_per_block, b - b0);
+  // phys[:, b0:b0 + nb], read along b, each id beside its field's window
+  // (loads of one round trip; the windows stay in L1)
+  for (int i = threadIdx.x; i < fs * b_per_block; i += kThreads) {
+    const int pos = i / b_per_block, j = i - pos * b_per_block;
+    if (j < nb) {
+      const int id = __ldg(phys + static_cast<long long>(pos) * b + b0 + j);
+      const int lo = __ldg(win_lo + pos), hi = __ldg(win_hi + pos);
+      sid[j * fs + pos] = id >= 0 && id >= lo && id < hi ? id : -1;
     }
-    reinterpret_cast<float4*>(out)[i] = v;
+  }
+  __syncthreads();
+
+  // the span's float4 pieces in order: piece k is (j, pos, q), k = (j * fs +
+  // pos) * per_pos + q. A thread takes pieces t, t + kThreads, ...: its
+  // (j, pos, q) steps by (dj, dpos, dq) with a carry, and it loads a batch of
+  // kGatherBatch pieces before it stores them.
+  const int per_pos = w >> 2;
+  const int per_b = fs * per_pos;
+  const int pieces = nb * per_b;
+  const int dj = kThreads / per_b, dpos = kThreads % per_b / per_pos,
+            dq = kThreads % per_pos;
+  int j = threadIdx.x / per_b;
+  int pos = threadIdx.x % per_b / per_pos;
+  int q = threadIdx.x % per_pos;
+  float4* o = reinterpret_cast<float4*>(out) + static_cast<long long>(b0) * per_b;
+  for (int k0 = threadIdx.x; k0 < pieces; k0 += kThreads * kGatherBatch) {
+    float4 v[kGatherBatch];
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      const int id = k0 + u * kThreads < pieces ? sid[j * fs + pos] : -1;
+      v[u] = id >= 0 ? load4(table + static_cast<long long>(id) * w + 4 * q)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+      q += dq;
+      if (q >= per_pos) {
+        q -= per_pos;
+        ++pos;
+      }
+      pos += dpos;
+      if (pos >= fs) {
+        pos -= fs;
+        ++j;
+      }
+      j += dj;
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      if (k0 + u * kThreads < pieces) o[k0 + u * kThreads] = v[u];
+    }
   }
 }
 
@@ -563,18 +606,26 @@ extern "C" int map_tpu_field_block_scatter(const void* g, const void* phys, cons
 
 // table (r, w) f32; phys (fs, b) int32, -1 = skip; win_lo / win_hi (fs,)
 // int32, the rows [lo, hi) of field pos's tiles; out (b, fs * w) f32, every
-// element written. All contiguous, w % 4 == 0.
+// element written. All contiguous and 16-byte aligned, w % 4 == 0; the plan
+// (ops/field_gather.py:gather_plan): blocks of b_per_block rows of b, whose
+// ids, b_per_block * fs ints, fit 48 KB of shared memory, and b_per_block *
+// fs * w below 2**31. A plan that does not fit is refused with
+// cudaErrorInvalidValue.
 extern "C" int map_tpu_field_block_gather(const void* table, const void* phys,
                                           const void* win_lo, const void* win_hi, void* out,
-                                          int b, int fs, int w, void* stream) {
-  const long long items = static_cast<long long>(b) * fs * (w / 4);
-  if (items <= 0) return static_cast<int>(cudaGetLastError());
-  long long blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  field_block_gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                                          int b, int fs, int w, int b_per_block,
+                                          void* stream) {
+  if (b <= 0 || fs <= 0 || w <= 0) return static_cast<int>(cudaGetLastError());
+  const long long smem = static_cast<long long>(b_per_block) * fs * 4;
+  if (w % 4 != 0 || b_per_block < 1 || smem > 48 * 1024 ||
+      static_cast<long long>(b_per_block) * fs * w >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>((b + b_per_block - 1) / b_per_block);
+  field_block_gather_kernel<<<blocks, kThreads, static_cast<size_t>(smem),
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), static_cast<const int*>(phys),
       static_cast<const int*>(win_lo), static_cast<const int*>(win_hi),
-      static_cast<float*>(out), b, fs, w);
+      static_cast<float*>(out), b, fs, w, b_per_block);
   return static_cast<int>(cudaGetLastError());
 }

@@ -37,9 +37,9 @@ DEFINES: Tuple[str, ...] = ()
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (table, ids, out, n, e, out_bf16, stream)
-    "map_tpu_embedding_gather": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-                                 ctypes.c_int, _P],
+    # (table, ids, out, n, e, out_bf16, vec, units_a_thread, blocks, stream)
+    "map_tpu_embedding_gather": [_P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 5
+                                + [_P],
     # (x0, w, b, y, xs, us, scratch, batch, d, layers, is_bf16, tile_rows,
     #  cluster, grid, smem, stages, x_buffers, vector, stream)
     "map_tpu_cross_net": [_P] * 7 + [ctypes.c_int] * 11 + [_P],
@@ -65,8 +65,8 @@ _SIGNATURES = {
     # (g, phys, work, pair_pos, out, b, fs, w, r, blocks, g_bf16, add, stream)
     "map_tpu_field_block_scatter": [_P] * 5 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
                                    + [ctypes.c_int] * 3 + [_P],
-    # (table, phys, win_lo, win_hi, out, b, fs, w, stream)
-    "map_tpu_field_block_gather": [_P] * 5 + [ctypes.c_int] * 3 + [_P],
+    # (table, phys, win_lo, win_hi, out, b, fs, w, b_per_block, stream)
+    "map_tpu_field_block_gather": [_P] * 5 + [ctypes.c_int] * 4 + [_P],
 }
 
 
@@ -168,6 +168,26 @@ def library() -> ctypes.CDLL:
     lib.map_tpu_error_string.argtypes = [ctypes.c_int]
     lib.map_tpu_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def current_stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on CUDA device
+    `device_index`, which a C entry launches on. On an H100 host it takes
+    about 0.2 us a call, against about 7 for
+    `torch.cuda.current_stream().cuda_stream`, which builds a Stream object
+    (`kernels/gather_times.py --sweep`)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SMs of CUDA device `device_index`, which the launch plans size
+    their grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check_status(status: int, kernel: str) -> None:

@@ -6,11 +6,17 @@ custom VJP is the scatter-add) and the Pallas kernel
 Kernel: `map_tpu_torch/csrc/embedding_gather.cu` (CUDA C++, sm_90a).
 - Replaces `pallas_embedding.py:_gather` (per-row DMAs from an HBM table,
   pipelined behind a semaphore ring).
-- Bound on the H100: device-memory bytes. At the serving shape (ids
-  10000 x 24, E = 16) it reads up to 240k rows of 64 B plus the ids and
-  writes 240k rows; there is no arithmetic.
-- Design: E/4 threads per row, one float4 each, grid-stride over the rows;
-  the f32 -> bf16 cast of the bf16 compute path is fused into the store.
+- Bound on the H100: device-memory bytes: the ids, the distinct rows and the
+  output once; there is no arithmetic. The main path launches it at (4096,
+  24) ids, E = 16, bf16 out (the training input), (4096, 7, 26) ids into the
+  1,013,519 x 32 decoder table (the MFP per-position candidates: 95 MB out),
+  (4096, 7) and (24, 100) ids at E = 32 (per-field shared noise), and (10000,
+  24) at eval and in serving.
+- Design: units of 4 floats (8 in bf16 out with E % 8 == 0: a 16-byte
+  store of the fused f32 -> bf16 cast); a thread loads the ids of its 1 to
+  4 units, then their rows, then stores them, so its row loads wait on one
+  id latency; one wave of blocks covers the output. `plan` sizes the
+  launch, once per shape.
 
 Under autograd the lookup is `_Lookup`: K4 forward, K3 (`ops/scatter.py`)
 backward. The upstream gradient arrives in the output's dtype (bf16 when the
@@ -23,7 +29,8 @@ CUDA tensors go to the kernels, CPU tensors to `embedding_lookup_plain` and
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,6 +39,35 @@ from map_tpu_torch.ops.scatter import scatter_add
 
 # Launches of the K4 kernel; the wrapper adds one where it launches, nowhere else.
 launches = 0
+
+THREADS = 256       # embedding_gather.cu's kThreads
+MAX_BLOCKS = 65535  # the grid at most; past it the blocks walk on over the tiles
+UNITS = (1, 2, 4)   # units a thread the kernel is built for
+# output floats from which a thread takes 2 units, and 4 (below: 1)
+TWO_UNITS_FROM, FOUR_UNITS_FROM = 1 << 17, 1 << 21
+
+
+class Plan(NamedTuple):
+    vec: int             # floats a unit: 4, or 8 (bf16 out, E % 8 == 0); 0: the scalar path
+    units_a_thread: int  # units a thread takes (0 on the scalar path)
+    blocks: int
+
+
+@functools.lru_cache(maxsize=512)
+def plan(n: int, e: int, bf16: bool, aligned: bool) -> Plan:
+    """K4's launch for n rows of width e (bf16 out or f32), the table
+    16-byte `aligned` or not. The batched path cuts the output into units
+    of `vec` floats; a block takes THREADS * units_a_thread of them (1, 2
+    from TWO_UNITS_FROM output floats on, 4 from FOUR_UNITS_FROM: a small
+    launch spreads over more SMs), and one wave of blocks covers the output
+    (up to MAX_BLOCKS). Rows whose width is not a multiple of 4,
+    or an unaligned table, take the scalar path: an element a thread."""
+    if e % 4 or not aligned:
+        return Plan(0, 0, max(1, min(-(-n * e // THREADS), MAX_BLOCKS)))
+    vec = 8 if bf16 and e % 8 == 0 else 4
+    units_a_thread = 4 if n * e >= FOUR_UNITS_FROM else 2 if n * e >= TWO_UNITS_FROM else 1
+    tiles = -(-(n * e // vec) // (THREADS * units_a_thread))
+    return Plan(vec, units_a_thread, max(1, min(tiles, MAX_BLOCKS)))
 
 
 def embedding_lookup_plain(table: torch.Tensor, ids: torch.Tensor,
@@ -58,11 +94,14 @@ def _gather(table: torch.Tensor, ids: torch.Tensor,
     global launches
     ids_c = ids.contiguous()
     e = table.shape[1]
+    n = ids_c.numel()
+    bf16 = out_dtype == torch.bfloat16
     out = torch.empty((*ids.shape, e), dtype=out_dtype, device=table.device)
-    lib = build.library()
-    status = lib.map_tpu_embedding_gather(
-        table.data_ptr(), ids_c.data_ptr(), out.data_ptr(), ids_c.numel(), e,
-        int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    t = table.data_ptr()
+    p = plan(n, e, bf16, t % 16 == 0)
+    status = build.library().map_tpu_embedding_gather(
+        t, ids_c.data_ptr(), out.data_ptr(), n, e, int(bf16), p.vec, p.units_a_thread,
+        p.blocks, build.current_stream(table.device.index))
     build.check_status(status, "embedding_gather")
     launches += 1
     return out

@@ -25,8 +25,11 @@ Kernel: `map_tpu_torch/csrc/field_block.cu` (CUDA C++, sm_90a).
   (`work_order`). A block reads its tile's ids in (pair, b) order, keeps the
   hits on its rows by a stable compaction, copies their g rows into shared
   memory as it finds them, sorts them by row with a stable counting sort,
-  and walks each row's hits in order, one column a thread. K6a is K4's
-  gather with a per-field window test.
+  and walks each row's hits in order, one column a thread.
+- K6a's design: a block takes a range of b (`gather_plan`), reads the
+  range's ids along b (each beside its field's window) into shared memory,
+  and writes the range's output rows, one contiguous span, with 8 row loads
+  a thread in flight: a transpose through shared memory.
 
 The plan is map_tpu's: `small` is a tuple of (pos, plo, pe), pos the field's
 position among the small fields and [plo, pe) its row window; the 512-row
@@ -65,6 +68,12 @@ TILE = 512
 # K6b's blocks a tile (field_block.cu's rows a thread take 4 at least; its
 # row bytes, 16 at most) and the hits a block is sized for
 MIN_SLICES, MAX_SLICES, HITS_PER_BLOCK = 4, 16, 1024
+
+# K6a: threads a block (field_block.cu's kThreads), the most rows of b a
+# block takes, the blocks an SM its plan aims at, and the shared memory for
+# a block's ids
+GATHER_THREADS, GATHER_MAX_B, GATHER_BLOCKS_PER_SM = 256, 32, 4
+GATHER_SMEM = 48 * 1024
 
 # Launches of K6a and K6b; a wrapper adds one where it launches, nowhere else.
 gather_launches = 0
@@ -152,8 +161,23 @@ def _scatter_plan(small: Plan, r: int, b: int, device: torch.device) -> ScatterP
                        max(first[s + 1] - first[s] for s in range(len(utiles))))
 
 
+@functools.lru_cache(maxsize=256)
+def gather_plan(b: int, fs: int, w: int, sms: int) -> int:
+    """K6a's rows of b a block: the largest power of two up to GATHER_MAX_B
+    that still gives GATHER_BLOCKS_PER_SM blocks an SM (1 at least), whose
+    ids, T * fs ints, fit GATHER_SMEM. Block x takes rows [x * T, (x + 1) *
+    T) of b."""
+    if fs * 4 > GATHER_SMEM or fs * w >= 2 ** 31:
+        raise ValueError(f"field_block_gather: {fs} fields of width {w} exceed a block")
+    t = GATHER_MAX_B
+    while t > 1 and (-(-b // t) < sms * GATHER_BLOCKS_PER_SM or t * fs * 4 > GATHER_SMEM
+                     or t * fs * w >= 2 ** 31):
+        t //= 2
+    return t
+
+
 @functools.lru_cache(maxsize=64)
-def _gather_plan(small: Plan, r: int, device: torch.device):
+def _gather_windows(small: Plan, r: int, device: torch.device):
     """K6a's window bounds, (Fs,) int32 x 2 on `device`, built once."""
     wins = tile_windows(small, r)
     return (torch.tensor([lo for lo, _ in wins], dtype=torch.int32, device=device),
@@ -333,11 +357,12 @@ def field_block_gather(table: torch.Tensor, phys_small: torch.Tensor,
                          f"{table.dtype} {tuple(table.shape)}")
     if len(small) != fs:
         raise ValueError(f"field_block_gather: {fs} id rows for {len(small)} fields")
-    win_lo, win_hi = _gather_plan(small, r, table.device)
+    win_lo, win_hi = _gather_windows(small, r, table.device)
     out = torch.empty(b, fs * w, dtype=torch.float32, device=table.device)
     status = build.library().map_tpu_field_block_gather(
         table.data_ptr(), phys_small.data_ptr(), win_lo.data_ptr(), win_hi.data_ptr(),
-        out.data_ptr(), b, fs, w, torch.cuda.current_stream().cuda_stream)
+        out.data_ptr(), b, fs, w, gather_plan(b, fs, w, build.sm_count(table.device.index)),
+        build.current_stream(table.device.index))
     build.check_status(status, "field_block_gather")
     gather_launches += 1
     return out

@@ -100,11 +100,6 @@ def plan(n: int, w: int, sm_count: int = H100_SMS, aligned: bool = True) -> Plan
                 smem=smem_bytes(tile_rows, w, segs), vector=aligned)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def block_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([col.contiguous().cumsum(0) for col in x.t()], dim=1)
 
@@ -190,7 +185,7 @@ def block_cumsum(x: torch.Tensor, p: Optional[Plan] = None) -> torch.Tensor:
         return out
     if p is None:
         index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        p = plan(n, w, _sm_count(index), x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+        p = plan(n, w, build.sm_count(index), x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     agg = torch.empty(p.tiles * w, dtype=torch.float32, device=x.device)
     lib = build.library()
     status = lib.map_tpu_block_cumsum(

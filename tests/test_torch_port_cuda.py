@@ -41,18 +41,91 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("e", [16, 12, 1, 64])
-@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
-def test_gather_is_exact(dev, e, out_dtype):
-    g = torch.Generator().manual_seed(e)
-    table = torch.randn(1001, e, generator=g).to(dev)
-    ids = torch.randint(0, 1001, (37, 5), generator=g, dtype=torch.int32).to(dev)
+def _gather_twice(table, ids, out_dtype):
+    """K4 twice, one launch each, and its plain version: (out, again, ref)."""
     before = embedding.launches
     out = embedding.embedding_lookup(table, ids, out_dtype)
-    assert embedding.launches == before + 1
-    assert out.shape == (37, 5, e)
+    again = embedding.embedding_lookup(table, ids, out_dtype)
+    assert embedding.launches == before + 2
     ref = embedding.embedding_lookup_plain(table, ids, out_dtype)
-    assert out.dtype == ref.dtype and torch.equal(out, ref)
+    torch.cuda.synchronize()
+    return out, again, ref
+
+
+@pytest.mark.parametrize("e", [16, 12, 1, 64, 32])
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 5), (1,), (31,), (33,), (4097,)])
+def test_gather_is_exact(dev, e, out_dtype, shape):
+    """Every width, both dtypes, n off a chunk: bit-equal to the plain
+    version, the same bits twice; ids 0 and V - 1 at the ends."""
+    g = torch.Generator().manual_seed(e)
+    table = torch.randn(1001, e, generator=g).to(dev)
+    ids = torch.randint(0, 1001, shape, generator=g, dtype=torch.int32)
+    ids.view(-1)[0], ids.view(-1)[-1] = 1000, 0
+    out, again, ref = _gather_twice(table, ids.to(dev), out_dtype)
+    assert out.shape == (*shape, e)
+    assert out.dtype == ref.dtype and torch.equal(out, ref) and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("e", [16, 32])
+def test_gather_at_the_decoder_shape(dev, out_dtype, e):
+    """The MFP per-position candidates, (4096, 7, 26) = 745,472 ids, into a
+    1,013,519-row table (the decoder's at E = 32): bit-equal, twice."""
+    g = torch.Generator().manual_seed(7)
+    table = torch.randn(1_013_519, e, generator=g).to(dev)
+    ids = torch.randint(0, 1_013_519, (4096, 7, 26), generator=g, dtype=torch.int32).to(dev)
+    out, again, ref = _gather_twice(table, ids, out_dtype)
+    assert torch.equal(out, ref) and torch.equal(out, again)
+
+
+@pytest.mark.parametrize("e", [16, 32, 12])
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+def test_gather_one_hot_row(dev, e, out_dtype):
+    """All ids equal (every lane on one row), and all at V - 1."""
+    table = torch.randn(500, e, generator=torch.Generator().manual_seed(e)).to(dev)
+    for v in (17, 499):
+        ids = torch.full((4097,), v, dtype=torch.int32, device=dev)
+        out, again, ref = _gather_twice(table, ids, out_dtype)
+        assert torch.equal(out, ref) and torch.equal(out, again)
+        assert torch.equal(out[-1], ref[0])
+
+
+@pytest.mark.parametrize("e", [16, 32])
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+def test_gather_unaligned_table_takes_the_scalar_path(dev, e, out_dtype):
+    """A table view one element off 16 bytes: the scalar path, bit-equal."""
+    buf = torch.randn(300 * e + 1, generator=torch.Generator().manual_seed(e)).to(dev)
+    table = buf[1:].view(300, e)
+    assert table.is_contiguous() and table.data_ptr() % 16 == 4
+    ids = torch.randint(0, 300, (33, 3), generator=torch.Generator().manual_seed(1),
+                        dtype=torch.int32).to(dev)
+    assert embedding.plan(ids.numel(), e, out_dtype == torch.bfloat16, False).vec == 0
+    out, again, ref = _gather_twice(table, ids, out_dtype)
+    assert torch.equal(out, ref) and torch.equal(out, again)
+
+
+def test_gather_entry_refuses_a_plan_that_does_not_fit(dev):
+    from map_tpu_torch.kernels import build
+
+    table = torch.randn(64, 16, device=dev)
+    ids = torch.zeros(40, dtype=torch.int32, device=dev)
+    out = torch.empty(40, 16, device=dev)
+    lib = build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (table.data_ptr(), ids.data_ptr(), out.data_ptr(), 40, 16)
+    # (out_bf16, vec, units_a_thread, blocks): vec 8 with f32 out, 0 and 3
+    # units a thread, no blocks and too many; then an unaligned table, and
+    # vec not dividing E
+    for bad in ((0, 8, 1, 1), (0, 4, 0, 1), (0, 4, 3, 1), (1, 8, 1, 0), (0, 4, 2, 65536)):
+        assert lib.map_tpu_embedding_gather(*args, *bad, stream) != 0
+    assert lib.map_tpu_embedding_gather(table.data_ptr() + 4, *args[1:], 0, 4, 1, 1,
+                                        stream) != 0
+    assert lib.map_tpu_embedding_gather(table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                                        40, 12, 1, 8, 1, 1, stream) != 0
+    assert lib.map_tpu_embedding_gather(*args, 0, 4, 2, 1, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, table[ids.long()])
 
 
 def test_gather_rejects_what_it_does_not_take(dev):
@@ -879,18 +952,27 @@ def test_field_block_scatter_keeps_the_pair_b_order(dev, kind, b, w, dtype):
         assert not got.any() and torch.equal(added, base)
 
 
-@pytest.mark.parametrize("w", [16, 4, 128])
-def test_field_block_gather_is_exact(dev, w):
-    r, b = 2100, 1001
+@pytest.mark.parametrize("w", [16, 4, 128, 32])
+@pytest.mark.parametrize("b", [1001, 4097, 10_007])
+def test_field_block_gather_is_exact(dev, w, b):
+    """B off the block's range of b (4097 and 10,007 on 132 SMs), ids of
+    -1, ids in a field's tiles outside its window, and ids outside its
+    tiles (zeros): bit-equal to the plain version, twice, one launch each."""
+    r = 2100
     g = torch.Generator().manual_seed(w)
     small, phys, _ = _field_block_case(r, w, b, torch.float32, g)
+    phys[0, 4:8] = torch.tensor([600, 1500, 2099, 513], dtype=torch.int32)  # past tile 0
+    phys[4, 8:10] = torch.tensor([0, 1000], dtype=torch.int32)  # before the last tile
+    phys = phys.to(dev)
     table = torch.randn(r, w, generator=g).to(dev)
     before = field_gather.gather_launches
-    got = field_gather.field_block_gather(table, phys.to(dev), small, r)
-    assert field_gather.gather_launches == before + 1
-    ref = field_gather.field_block_gather_plain(table, phys.to(dev), small, r)
+    got = field_gather.field_block_gather(table, phys, small, r)
+    again = field_gather.field_block_gather(table, phys, small, r)
+    assert field_gather.gather_launches == before + 2
+    ref = field_gather.field_block_gather_plain(table, phys, small, r)
     torch.cuda.synchronize()
-    assert got.shape == (b, 5 * w) and torch.equal(got, ref)
+    assert got.shape == (b, 5 * w) and torch.equal(got, ref) and torch.equal(got, again)
+    assert not got[4:8, :w].any() and not got[8:10, 4 * w:].any()
 
 
 def test_field_block_kernels_reject_what_they_do_not_take(dev):
