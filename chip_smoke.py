@@ -89,6 +89,24 @@ each; any failure ends the run with a nonzero exit code.
 8c. the other noise modes, 5 steps each through the kernels against the
    plain versions in bf16: global shared noise (k = 25, sparse update),
    per-field per-position noise (k = 25) and the `full` loss (batch 64);
+8d. the two paths of each training cell (supervised bf16 and f32, RFD
+   under bwd_pallas and fwd, MFP per-position under matmul, fwd and
+   bwd_pallas, per-field shared k = 100 with the sparse update; phase
+   `path_time`): today's path (steps_per_call=1, device_resident_data=off:
+   a host batch copied a step, a step a host call) and the new default (the
+   train data on the card, the prefetch thread, steps_per_call=8 as
+   captured CUDA graphs), a Trainer each from the same weights on the same
+   batches: the parameters after 16 steps (two calls of the graph path)
+   bit-equal across the paths (MFP on a pair drawing masked positions
+   without repeats, 'normal', since the masked-position gather's backward
+   adds through atomics), then an epoch timed (wall ms a step, the graph
+   path's host us a step), an epoch profiled (busy ms a step, idle share,
+   host ms a step by family of CPU event), the launches each path ran
+   (equal), the bytes copied to the card a step; K1's launch plan and
+   descriptor block, host us a step (`k1_plan_host`). The `*_profile`
+   phases also give the host ms a step by family. The Trainer runs of 7-9
+   take the new default: their launch checks count a graph's replay as
+   its captured launches (`MultiStep.launches_run`);
 9. finetune: supervised DCNv2 from the RFD checkpoint (run_DCNv2_finetune.sh's
    default) and from the MFP one (13 tensors loaded, 4 skipped each), one
    epoch, eval AUC > 0.6, launches checked;
@@ -268,11 +286,38 @@ def time_ms(fn, reps: int = 20) -> float:
     return time_ms_each({"fn": fn}, reps)["fn"]
 
 
+# The host's time by family of profiled CPU event (self time, every thread):
+# the CUDA runtime's launches (a graph's replay is one), its copies and the
+# pinned staging of the H2D path, waits, the dtype casts' dispatch, autograd's
+# nodes, and every other ATen op's dispatch; what no event covers (Python,
+# mostly) is the wall time less all of them (none when threads overlap)
+HOST_FAMILIES = (
+    ("launch", ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel", "cudaGraphLaunch")),
+    ("h2d", ("cudaMemcpyAsync", "cudaMemcpy", "aten::pin_memory", "aten::_pin_memory",
+             "cudaHostAlloc")),
+    ("sync", ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaStreamWaitEvent")),
+    ("casts", ("aten::to", "aten::_to_copy")),
+)
+
+
+def host_family(name: str) -> str:
+    for family, names in HOST_FAMILIES:
+        if name in names:
+            return family
+    if name.startswith("autograd::") or "Backward" in name:
+        return "autograd"
+    return "other_ops" if name.startswith("aten::") else "other_events"
+
+
 def profile(fn, top_n: int = 10) -> dict:
     """Wall, device-busy ms, idle share, K1's, K2's, K3's, K4's, K6b's and
     K8's device ms over every kernel of theirs (named adamw_leaves,
     cross_net*, scatter_rows*, gather_rows*, field_block_scatter* and
-    block_cumsum_rounds) and the costliest kernels of fn()."""
+    block_cumsum_rounds), the costliest kernels of fn(), and the host's
+    ms by family of CPU event (`host_family`; `python_and_rest` the wall
+    time no event covers)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -282,9 +327,15 @@ def profile(fn, top_n: int = 10) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    on_card = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    on_card = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_card)
+    host_us = {}
+    for e in averages:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0:
+            family = host_family(e.key)
+            host_us[family] = host_us.get(family, 0.0) + e.self_cpu_time_total
+    host_us["python_and_rest"] = max(0.0, wall_us - sum(host_us.values()))
     top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top_n]
     k3_us = sum(e.self_device_time_total for e in on_card if "scatter_rows" in e.key)
     k6b_us = sum(e.self_device_time_total for e in on_card
@@ -297,6 +348,7 @@ def profile(fn, top_n: int = 10) -> dict:
                 idle_share=1.0 - busy_us / wall_us, k1_device_ms=k1_us / 1e3,
                 k2_device_ms=k2_us / 1e3, k3_device_ms=k3_us / 1e3,
                 k4_device_ms=k4_us / 1e3, k6b_device_ms=k6b_us / 1e3, k8_device_ms=k8_us / 1e3,
+                host_ms={k: v / 1e3 for k, v in sorted(host_us.items())},
                 top=[dict(name=e.key[:80], calls=e.count,
                           device_ms=e.self_device_time_total / 1e3) for e in top])
 
@@ -310,10 +362,47 @@ def k1_launches_a_step(optimizer) -> int:
                                  if i not in optimizer.sparse]))
 
 
+def graph_replays(trainer) -> dict:
+    """{steps a graph: its replays} of a Trainer's multi-step dispatch."""
+    return {n: g.replays for n, g in trainer.multi.graphs.items()}
+
+
+def k1_plan_host_us(optimizer) -> float:
+    """Host us of K1's launch plan and descriptor block for one step of
+    `optimizer` (`fused_adamw.plan` + `descriptor`, rebuilt every step)."""
+    from map_tpu_torch.ops import fused_adamw
+
+    leaves = [i for i in range(len(optimizer.params)) if i not in optimizer.sparse]
+    tensors = [(optimizer.params[i], optimizer.mu[i], optimizer.nu[i], optimizer.mu[i])
+               for i in leaves]
+    numels = [t[0].numel() for t in tensors]
+    ptrs = [tuple(x.data_ptr() for x in t) for t in tensors]
+    wds = [optimizer.wds[i] for i in leaves]
+    aligned = [all(p % 16 == 0 for p in ptr) for ptr in ptrs]
+
+    def plan_and_descriptor():
+        for launch in fused_adamw.plan(numels):
+            fused_adamw.descriptor(launch, ptrs, numels, wds, aligned)
+
+    return host_us_per_call(plan_and_descriptor, calls=200)
+
+
+def step_scalars(scal, slot: int, wd: float):
+    """Row `slot` of an optimizer's scalar buffer, with wd, as the by-value
+    AdamScalars the kernels' by-value forms take."""
+    from map_tpu_torch.ops import fused_adamw
+
+    row = scal[slot].tolist()
+    return fused_adamw.AdamScalars(row[0], wd, *row[2:7])
+
+
 def kernel_ms_per_step(prof: dict, steps: int) -> dict:
-    """K1's, K2's, K3's, K4's, K6b's and K8's device ms a step of a profile."""
-    return {f"{k}_ms_per_step": prof[f"{k}_device_ms"] / steps
-            for k in ("k1", "k2", "k3", "k4", "k6b", "k8")}
+    """K1's, K2's, K3's, K4's, K6b's and K8's device ms a step of a profile,
+    and the host's ms a step by family."""
+    out = {f"{k}_ms_per_step": prof[f"{k}_device_ms"] / steps
+           for k in ("k1", "k2", "k3", "k4", "k6b", "k8")}
+    out["host_ms_per_step"] = {k: v / steps for k, v in prof["host_ms"].items()}
+    return out
 
 
 def host_us_per_call(fn, calls: int = 1000, repeats: int = 5) -> float:
@@ -417,6 +506,164 @@ def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> Non
           param_share_within_1e5=close / total)
 
 
+# map_tpu's steps_per_call; the first two calls of the graph path
+GRAPH_SPC = 8
+BITS_STEPS = 2 * GRAPH_SPC
+
+
+def sent_bytes(batcher, spc: int, epoch: int, resident) -> int:
+    """The bytes the input pipeline copies to the card in one epoch: each
+    call's device keys (an index batch's INDEX_KEYS, else every array), the
+    optimizer's scalar row a step, and with stream v2 the epoch's order."""
+    from map_tpu_torch.ops import fused_adamw
+    from map_tpu_torch.train.train_step import INDEX_KEYS, is_index_batch
+
+    stream = (batcher.epoch_stacked(spc, epoch) if spc > 1
+              else ((1, b, [b]) for b in batcher.epoch(epoch)))
+    total = steps = 0
+    for n, payload, _ in stream:
+        steps += n
+        total += sum(np.asarray(v).nbytes for k, v in payload.items()
+                     if not is_index_batch(payload) or k in INDEX_KEYS)
+    total += steps * fused_adamw.SCALAR_WIDTH * 4
+    if resident is not None and resident.perm is not None:
+        total += resident.perm.numel() * resident.perm.element_size()
+    return total
+
+
+def path_phase(name: str, make, bits_make=None, count_fold: bool = False) -> dict:
+    """One training cell on today's path (steps_per_call=1,
+    device_resident_data=off: a host batch copied a step, a step a host
+    call) and on the new default (the train data on the card, prefetch,
+    steps_per_call=8 as captured CUDA graphs): a Trainer each from
+    make(resident, spc), from the same weights, on the same batches (epochs
+    0, 1 and 2 of the Batcher's stream):
+    - the first 16 steps, the graph path's first two calls (its eager
+      warm-up, then a capture and a replay): every parameter bit-equal
+      across the paths then (on a pair from bits_make, when given);
+    - epoch 1 timed (host clock, a synchronize at its end): wall ms a step;
+    - epoch 2 profiled: device-busy ms a step, idle share, host ms a step by
+      family;
+    - 32 steps of epoch 3, a host call at a time after a synchronize (the
+      card idle, so nothing waits): the host us a step, the median;
+    - the launches each path ran (a replay counted as its graph's launches),
+      equal across the paths; the bytes copied to the card a step;
+    - count_fold: every step's distinct candidate ids in today's path's
+      epoch 0.
+    Returns the emitted fields."""
+    import torch
+
+    from map_tpu_torch.ops import dedup_scatter
+    from map_tpu_torch.train.graph import launch_counts
+
+    def params(trainer):
+        return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    def epoch0(trainer, batcher, stop: bool):
+        """Epoch 0 (its first BITS_STEPS steps when `stop`) -> (steps, the
+        parameters after BITS_STEPS steps)."""
+        it = trainer.train_epoch(batcher, 0)
+        done, snap = 0, None
+        for n, _, _ in it:
+            done += n
+            if done == BITS_STEPS:
+                snap = params(trainer)
+                if stop:
+                    break
+        it.close()
+        torch.cuda.synchronize()
+        return done, snap
+
+    paths = (("today", "off", 1), ("graph", "auto", GRAPH_SPC))
+    snaps = {}
+    if bits_make is not None:
+        for path, resident, spc in paths:
+            trainer = bits_make(resident, spc)
+            snaps[path] = epoch0(trainer, trainer._prepare_training(), stop=True)
+            del trainer
+    out = {"cell": name, "card": smi_line()}
+    distinct = []
+    for path, resident, spc in paths:
+        trainer = make(resident, spc)
+        batcher = trainer._prepare_training()
+        before = launch_counts()
+        fold = dedup_scatter.sort_and_fold
+
+        def counting_fold(*fold_args):
+            folded = fold(*fold_args)
+            distinct.append(folded[2])
+            return folded
+
+        if count_fold and path == "today":
+            dedup_scatter.sort_and_fold = counting_fold
+        try:
+            steps0, snap = epoch0(trainer, batcher, stop=False)
+        finally:
+            dedup_scatter.sort_and_fold = fold
+        if bits_make is None:
+            snaps[path] = (BITS_STEPS if snap is not None else 0, snap)
+        multi = trainer.multi
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps1 = sum(n for n, _, _ in trainer.train_epoch(batcher, 1))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps1 * 1e3
+        prof = profile(lambda: sum(n for n, _, _ in trainer.train_epoch(batcher, 2)),
+                       top_n=8)
+        steps2 = len(batcher)
+        # the host's time a step with the card idle: 32 steps of epoch 3,
+        # their groups copied first, a synchronize before each call
+        stream = (batcher.epoch_stacked(spc, 3) if spc > 1
+                  else ((1, b, [b]) for b in batcher.epoch(3)))
+        groups, steps3 = [], 0
+        for n, payload, _ in stream:
+            groups.append((n, trainer._put(payload)[0]))
+            steps3 += n
+            if steps3 >= 4 * GRAPH_SPC:
+                break
+        host_us = []
+        for n, dev_batch in groups:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._run_train_step(n, dev_batch)
+            host_us.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ran = multi.launches_run({k: v - before[k] for k, v in counts.items()})
+        out[path] = dict(
+            steps_per_call=spc, device_resident_data=resident,
+            resident=trainer._data is not None, stream_v2=trainer._stream_v2,
+            steps=[steps0, steps1, steps2, steps3], wall_ms_per_step=wall_ms,
+            busy_ms_per_step=prof["device_busy_ms"] / steps2,
+            idle_share=prof["idle_share"], profiled_wall_ms_per_step=prof["wall_ms"] / steps2,
+            host_us_per_step=float(np.median(host_us)),
+            graphs={n: g.replays for n, g in multi.graphs.items()},
+            h2d_bytes_per_step=sent_bytes(batcher, spc, 1, trainer._data) / steps1,
+            launches=ran, **kernel_ms_per_step(prof, steps2),
+            top=prof["top"])
+        del trainer, prof
+        torch.cuda.empty_cache()
+    emit("path_time", **out)
+    today, graph = out["today"], out["graph"]
+    check(f"{name}: the graph path ran captured graphs of 8 and 1 steps, on the train "
+          "data on the card", graph["resident"] and sorted(graph["graphs"]) == [1, 8]
+          and all(graph["graphs"].values()) and not today["resident"]
+          and not today["graphs"], graphs=graph["graphs"])
+    check(f"{name}: the same launches on both paths (replays counted), K1 once a step",
+          today["launches"] == graph["launches"]
+          and graph["launches"]["fused_adamw"] == sum(graph["steps"]),
+          today=today["launches"], graph=graph["launches"])
+    (done_t, p_t), (done_g, p_g) = snaps["today"], snaps["graph"]
+    differ = ([n for n, p in p_t.items() if not torch.equal(p, p_g[n])]
+              if p_t is not None and p_g is not None else ["(no snapshot)"])
+    check(f"{name}: parameters after {BITS_STEPS} steps (two calls), graph path bit-equal "
+          "to today's", done_t == done_g == BITS_STEPS and not differ, differ=differ,
+          on_own_pair=bits_make is not None)
+    if count_fold:
+        out["distinct"] = torch.stack(distinct).cpu().tolist()
+    return out
+
+
 def smi_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -512,9 +759,10 @@ def mfp_step_fn(dev, cfg, targs, tables, *, seed: int, steps: int, shared: bool 
     m.mfp_criterion.handoff = handoff
     opt, _ = build_optimizer(
         m, targs, steps, 0,
-        update=fused_adamw.fused_adamw_multi_plain if plain else fused_adamw.fused_adamw_multi,
+        update=fused_adamw.fused_adamw_leaves_plain if plain else fused_adamw.fused_adamw_leaves,
         sparse={"mfp_criterion.emb.weight": handoff} if sparse else None,
-        sparse_update=sparse_adamw.sparse_adamw_plain if plain else sparse_adamw.sparse_adamw)
+        sparse_update=(sparse_adamw.sparse_adamw_step_plain if plain
+                       else sparse_adamw.sparse_adamw_step))
     step, _ = make_mfp_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", tables,
                              torch.Generator(device=dev), dev, shared_noise=shared)
     return m, step
@@ -577,28 +825,14 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     setup_s = time.perf_counter() - t0
     num_params = len(list(trainer.model.parameters()))
 
-    # each training step's count of distinct candidate ids, kept on the card
-    # (the decoder's backward folds once a step; the eval folds nothing)
-    unique = []
-    fold = dedup_scatter.sort_and_fold
-
-    def counting_fold(*fold_args):
-        folded = fold(*fold_args)
-        unique.append(folded[2])
-        return folded
-
-    dedup_scatter.sort_and_fold = counting_fold
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    try:
-        trainer.MFP_pretrain()
-    finally:
-        dedup_scatter.sort_and_fold = fold
+    trainer.MFP_pretrain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = trainer.multi.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": 2 * (steps + eval_batches),
@@ -607,18 +841,12 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
                 "scatter_unique_sorted": steps,
                 "block_cumsum": steps, "sparse_adamw": 0, "field_block_gather": 0,
                 "field_block_scatter": 0}
-    distinct = torch.stack(unique).cpu().tolist()
     losses = [w["window_loss"] for w in trainer.train_windows]
     eval_loss, eval_acc = trainer.eval_metrics[-1]
     emit("mfp_training", compute_dtype="bfloat16", steps=steps, batch=TRAIN_BATCH,
          setup_s=setup_s, wall_s=wall, windows=trainer.train_windows,
          eval_mfp_loss=eval_loss, eval_mfp_acc=eval_acc, launches=launches,
-         expected_launches=expected, num_params=num_params,
-         distinct_candidates=dict(min=min(distinct), max=max(distinct),
-                                  mean=sum(distinct) / len(distinct),
-                                  capacity=n_cand, map_tpu_capacity=MAP_TPU_CAPACITY,
-                                  steps_over_map_tpu_capacity=sum(
-                                      d > MAP_TPU_CAPACITY for d in distinct)),
+         expected_launches=expected, graphs=graph_replays(trainer), num_params=num_params,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(f"mfp: {args.train_steps} steps", steps == args.train_steps)
     check("mfp: 17 parameters", num_params == 17)
@@ -628,8 +856,6 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     check("mfp: eval accuracy above chance", eval_acc > 1.0 / (1 + MFP_NEG),
           eval_mfp_acc=eval_acc, chance=1.0 / (1 + MFP_NEG))
     check("mfp: launches", launches == expected)
-    check("mfp: every step's distinct candidates within the capacity",
-          len(distinct) == steps and max(distinct) <= n_cand)
     ckpt = os.path.join(targs.output_dir, f"{steps}.model")
     check("mfp: checkpoint at the last step", os.path.exists(ckpt))
 
@@ -728,13 +954,42 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
              **kernel_ms_per_step(prof, prof_steps), **prof)
         del mode_step
+    noise = trainer.noise
+    del trainer
+
+    # today's path against the new default, on the same batches, under the
+    # three backward modes; parameters compared on a pair drawing masked
+    # positions without repeats ('normal'): the encoder's masked-position
+    # gather adds into one element through atomics in its backward where a
+    # row repeats a position, in any order. Today's path counts each step's
+    # distinct candidate ids (the decoder's backward folds once a step)
+    for mode in ("matmul", "fwd", "bwd_pallas"):
+        def make(resident, spc, sampling="randint", mode=mode):
+            c = mfp_cfg("bfloat16", mode)
+            return Trainer(fresh(c), c, dataclasses.replace(
+                targs, num_train_epochs=3, device_resident_data=resident,
+                steps_per_call=spc, sampling_method=sampling), data)
+
+        path = path_phase(f"mfp per-position bfloat16 {mode}", make,
+                          bits_make=lambda resident, spc, make=make: make(resident, spc,
+                                                                          "normal"),
+                          count_fold=mode == "matmul")
+        if mode == "matmul":
+            distinct = path["distinct"]
+            emit("mfp_distinct_candidates", steps=len(distinct), min=min(distinct),
+                 max=max(distinct), mean=sum(distinct) / len(distinct), capacity=n_cand,
+                 map_tpu_capacity=MAP_TPU_CAPACITY,
+                 steps_over_map_tpu_capacity=sum(d > MAP_TPU_CAPACITY for d in distinct))
+            check("mfp: every step's distinct candidates within the capacity",
+                  len(distinct) == path["today"]["steps"][0] and max(distinct) <= n_cand)
+
     # the per-position fold's scan input: the candidates' gradient rows in
     # sorted order, as sort_and_fold hands it to K8
     fold_scan = g.index_select(0, torch.sort(cand.int(), stable=True)[1])
     return dict(launches=launches, ckpt=ckpt, work=work, k5_err=k5_err,
                 k5_stream=(uids, vals, num_unique), fold_inputs=(cand, g),
                 fold_scan=fold_scan, corrupted=corrupted, feat_count=feat_count,
-                noise=trainer.noise)
+                noise=noise)
 
 
 def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
@@ -776,7 +1031,7 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     trainer.MFP_pretrain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = trainer.multi.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     # a train step gathers the input rows, the targets and the (F, k) noise
@@ -794,7 +1049,7 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     emit("mfp_pf_shared_training", compute_dtype="bfloat16", steps=steps,
          batch=TRAIN_BATCH, k=PFS_NEG, setup_s=setup_s, wall_s=wall,
          windows=trainer.train_windows, eval_mfp_loss=eval_loss, eval_mfp_acc=eval_acc,
-         launches=launches, expected_launches=expected,
+         launches=launches, expected_launches=expected, graphs=graph_replays(trainer),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     check("pf-shared: sparse table update engaged",
           trainer.model.mfp_criterion.handoff is not None and bool(trainer.optimizer.sparse))
@@ -819,9 +1074,10 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     captured = {"scan": []}
     opt, k7, k8 = trainer.optimizer, trainer.optimizer.sparse_update, dedup_scatter.block_cumsum
 
-    def capture_update(p, mu, nu, target, noise, s):
-        captured["k7"] = (target, noise, s, p.clone(), mu.clone(), nu.clone())
-        k7(p, mu, nu, target, noise, s)
+    def capture_update(p, mu, nu, target, noise, wd, scal, slot):
+        captured["k7"] = (target, noise, step_scalars(scal, slot, wd), p.clone(), mu.clone(),
+                          nu.clone())
+        k7(p, mu, nu, target, noise, wd, scal, slot)
 
     def capture_scan(x):
         captured["scan"].append(x.clone())
@@ -952,6 +1208,20 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     emit("mfp_pf_shared_profile", compute_dtype="bfloat16", steps=prof_steps,
          busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
          **kernel_ms_per_step(prof, prof_steps), **prof)
+    del trainer
+
+    # today's path against the new default, on the same batches; parameters
+    # compared on a pair drawing masked positions without repeats ('normal'):
+    # the encoder's masked-position gather adds into one element through
+    # atomics in its backward where a row repeats a position, in any order
+    def make(resident, spc, sampling="randint"):
+        return Trainer(models.from_config(cfg_s, torch.Generator().manual_seed(args.seed)),
+                       cfg_s, dataclasses.replace(
+                           targs, num_train_epochs=3, device_resident_data=resident,
+                           steps_per_call=spc, sampling_method=sampling), data)
+
+    path_phase(f"mfp pf-shared k={PFS_NEG} bfloat16", make,
+               bits_make=lambda resident, spc: make(resident, spc, "normal"))
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, k7_err=k7_err, k8_err=k8_err["target fold"],
                 k7_inputs=captured["k7"], k7_valid=valid, k8_inputs=k8_inputs,
@@ -986,7 +1256,7 @@ def finetune_phase(args, dev, cfg, data, ckpt, source, reset_counts, read_counts
     test = trainer.test()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = trainer.multi.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": steps + eval_batches,
@@ -997,7 +1267,7 @@ def finetune_phase(args, dev, cfg, data, ckpt, source, reset_counts, read_counts
     emit("finetune", source=source, compute_dtype="bfloat16", steps=steps, wall_s=wall,
          loaded_skipped=trainer.finetune_counts, windows=trainer.train_windows,
          eval_auc_logloss=trainer.eval_metrics, test=test, launches=launches,
-         expected_launches=expected)
+         expected_launches=expected, graphs=graph_replays(trainer))
     check(f"finetune from {source}: eval AUC > 0.6", trainer.eval_metrics[0][0] > 0.6,
           eval_auc=trainer.eval_metrics[0][0])
     check(f"finetune from {source}: launches", launches == expected)
@@ -1030,7 +1300,7 @@ def rfd_step_fn(dev, cfg, targs, seed: int, plain: bool = False):
     m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
     opt, _ = build_optimizer(
         m, targs, 100, 0,
-        update=fused_adamw.fused_adamw_multi_plain if plain else fused_adamw.fused_adamw_multi)
+        update=fused_adamw.fused_adamw_leaves_plain if plain else fused_adamw.fused_adamw_leaves)
     step, _ = make_rfd_steps(m, opt, cfg, MFP_MASK_RATIO, "randint", "Unigram",
                              torch.Generator(device=dev), dev)
     return m, step
@@ -1088,7 +1358,7 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     trainer.RFD_pretrain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = read_counts()
+    launches = trainer.multi.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     # a train step: K4 and K2 forward, K3 on the 3 big fields' rows and K6b
@@ -1103,7 +1373,8 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     losses = [w["window_rfd_loss"] for w in trainer.train_windows]
     emit("rfd_training", compute_dtype="bfloat16", hybrid_mode="bwd_pallas", steps=steps,
          batch=TRAIN_BATCH, wall_s=wall, windows=trainer.train_windows, eval=ev,
-         launches=launches, expected_launches=expected, num_params=num_params,
+         launches=launches, expected_launches=expected, graphs=graph_replays(trainer),
+         num_params=num_params,
          peak_mem_gb=peak_gb)
     check(f"rfd: {args.train_steps} steps", steps == args.train_steps)
     check("rfd: 17 parameters", num_params == 17)
@@ -1175,6 +1446,18 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
              batch=TRAIN_BATCH, step_ms=step_ms, examples_per_s=TRAIN_BATCH / step_ms * 1e3,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
              **kernel_ms_per_step(prof, prof_steps), **prof)
+    del trainer
+
+    # today's path against the new default, on the same batches, both modes
+    for mode in ("bwd_pallas", "fwd"):
+        def make(resident, spc, mode=mode):
+            c = rfd_cfg("bfloat16", mode)
+            return Trainer(models.from_config(c, torch.Generator().manual_seed(args.seed)),
+                           c, dataclasses.replace(
+                               targs, hybrid_mode=mode, num_train_epochs=3,
+                               device_resident_data=resident, steps_per_call=spc), data)
+
+        path_phase(f"rfd bfloat16 {mode}", make)
     return dict(launches=launches, ckpt=ckpt, work=work)
 
 
@@ -1524,7 +1807,8 @@ def main(argv=None) -> int:
         test = trainer.test()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = train_launches[dname] = read_counts()
+        # the launches that ran: a graph's replay counts its captured launches
+        counts = train_launches[dname] = trainer.multi.launches_run(read_counts())
         steps = trainer.global_step
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
@@ -1537,7 +1821,7 @@ def main(argv=None) -> int:
         emit("training", compute_dtype=dname, steps=steps, batch=TRAIN_BATCH,
              wall_s=wall, windows=windows, eval_auc_logloss=trainer.eval_metrics,
              test=test, best_step=trainer.best_eval_step, launches=counts,
-             expected_launches=expected,
+             expected_launches=expected, graphs=graph_replays(trainer),
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         check(f"training {dname}: {args.train_steps} steps", steps == args.train_steps)
         check(f"training {dname}: loss finite and falling",
@@ -1564,8 +1848,8 @@ def main(argv=None) -> int:
             m = models.from_config(cfg_d, torch.Generator().manual_seed(args.seed)).to(dev)
             opt, _ = build_optimizer(
                 m, targs, args.train_steps, 0,
-                update=(fused_adamw.fused_adamw_multi_plain if plain
-                        else fused_adamw.fused_adamw_multi))
+                update=(fused_adamw.fused_adamw_leaves_plain if plain
+                        else fused_adamw.fused_adamw_leaves))
             step, _ = make_supervised_steps(m, opt, dev)
             before = read_counts()
             with plain_layers() if plain else contextlib.nullcontext():
@@ -1588,10 +1872,11 @@ def main(argv=None) -> int:
         if dname == "bfloat16":
             opt, update, captured = trainer.optimizer, trainer.optimizer.update, {}
 
-            def capture_step(ps, mus, nus, gs, ss):
+            def capture_step(ps, mus, nus, gs, wds, scal, slot):
                 captured.update(state=[[t.clone() for t in leaf] for leaf in zip(ps, mus, nus)],
-                                gs=[g.clone() for g in gs], ss=list(ss))
-                update(ps, mus, nus, gs, ss)
+                                gs=[g.clone() for g in gs],
+                                ss=[step_scalars(scal, slot, wd) for wd in wds])
+                update(ps, mus, nus, gs, wds, scal, slot)
 
             opt.update = capture_step
             try:
@@ -1637,7 +1922,19 @@ def main(argv=None) -> int:
         emit("training_profile", compute_dtype=dname, steps=prof_steps,
              busy_ms_per_step=prof["device_busy_ms"] / prof_steps,
              **kernel_ms_per_step(prof, prof_steps), **prof)
+        k1_host_us = k1_plan_host_us(trainer.optimizer)
         del trainer, pred
+
+        # today's path against the new default, on the same batches
+        def make(resident, spc, cfg_d=cfg_d, targs=targs):
+            return Trainer(models.from_config(cfg_d, torch.Generator().manual_seed(args.seed)),
+                           cfg_d, dataclasses.replace(
+                               targs, num_train_epochs=3, device_resident_data=resident,
+                               steps_per_call=spc), data)
+
+        path = path_phase(f"supervised {dname}", make)
+        emit("k1_plan_host", compute_dtype=dname, us_per_step=k1_host_us,
+             share_of_today_wall=k1_host_us / 1e3 / path["today"]["wall_ms_per_step"])
     train_dirs.cleanup()
 
     # 7b-9. RFD and MFP pretraining, and the finetunes from their checkpoints
@@ -1763,8 +2060,11 @@ def main(argv=None) -> int:
                             amsgrad=False, maximize=False)
 
             ps_, mus_, nus_ = ([leaf[j] for leaf in state] for j in range(3))
+            # the step's form: the scalars from a row of a buffer on the card
+            row = torch.tensor([fused_adamw.scalar_row(sc[0])], device=dev)
+            wds = [s_.wd for s_ in sc]
             t = time_ms_each(dict(
-                ms=lambda: fused_adamw.fused_adamw_multi(ps_, mus_, nus_, grads, sc),
+                ms=lambda: fused_adamw.fused_adamw_leaves(ps_, mus_, nus_, grads, wds, row, 0),
                 plain_ms=lambda: fused_adamw.fused_adamw_multi_plain(ps_, mus_, nus_, grads, sc),
                 library_ms=k1_library))
             t.update(bound_ms=max(byte_ms, op_ms),
@@ -1863,13 +2163,16 @@ def main(argv=None) -> int:
                                 lr=s.lr, beta1=s.b1, beta2=s.b2, weight_decay=s.wd,
                                 eps=s.eps, amsgrad=False, maximize=False)
 
+        row7 = torch.tensor([fused_adamw.scalar_row(s)], device=dev)
+
         def k7_dense_route():
             g = (scatter_unique.scatter_unique_sorted(*target, v7)[0]
                  + scatter_unique.scatter_unique_sorted(*noise, v7)[0])
-            fused_adamw.fused_adamw(*state, g, s)
+            fused_adamw.fused_adamw_leaves(*([t_] for t_ in state), [g], [s.wd], row7, 0)
 
         times["K7"] = dict(
-            ms=time_ms(lambda: sparse_adamw.sparse_adamw(*state, target, noise, s)),
+            ms=time_ms(lambda: sparse_adamw.sparse_adamw_step(*state, target, noise, s.wd,
+                                                              row7, 0)),
             plain_ms=time_ms(lambda: sparse_adamw.sparse_adamw_plain(*state, target, noise, s)),
             library_ms=None, chain_ms=time_ms(k7_chain), dense_route_ms=time_ms(k7_dense_route),
             bound_ms=max(byte_ms, op_ms), bound_by="bytes" if byte_ms >= op_ms else "operations",

@@ -10,7 +10,9 @@ backward modes, and finetune transfer; plus the port's own `--device`
 bool whose default is True takes `BooleanOptionalAction`, so `--no-<flag>`
 can turn it off (map_tpu registers every bool as store_true, which cannot).
 `build_config` assembles the model `Config` from the flags and the dataset,
-as `config.py:330-373` does.
+as `config.py:330-373` does. `steps_per_call`, `prefetch_batches`,
+`device_resident_data` and `device_data_budget_gb` are map_tpu's input
+pipeline and multi-step dispatch, with its defaults (`train/trainer.py`).
 
 The field-blocked hybrid lookup (`ops/hybrid_gather.py`) engages where
 map_tpu's does with its default packed tables (`packed_tables=True`, which
@@ -158,6 +160,15 @@ class TrainingArguments:
     field_blocked_lookup: bool = True
     hybrid_mode: str = ""
     device: Optional[str] = None  # None: the card ("cuda"); "cpu" for the plain path
+    # the input pipeline and the multi-step dispatch (map_tpu config.py:85-86,
+    # :144-145): train steps a host call (a captured CUDA graph on the card),
+    # the depth of the prefetch thread's queue, and the train matrix on the
+    # device (auto: when it fits device_data_budget_gb) so that a step ships
+    # a batch number (or indices, with RFD's noise rows) instead of its rows
+    steps_per_call: int = 8
+    prefetch_batches: int = 2
+    device_resident_data: str = "auto"  # auto | on | off
+    device_data_budget_gb: float = 8.0
 
     @property
     def train_batch_size(self) -> int:
@@ -226,13 +237,17 @@ RFD_REPLACE = ("Unigram", "Uniform", "Whole-Uniform", "Whole-Unigram")
 
 def check_supported(model_args: ModelArguments,
                     training_args: TrainingArguments) -> None:
-    """Raise on a pretraining type or RFD generator map_tpu does not have."""
+    """Raise on a pretraining type or RFD generator map_tpu does not have,
+    and on a device_resident_data other than auto, on or off."""
     if training_args.pretrain and training_args.pt_type not in ("MFP", "RFD"):
         raise NotImplementedError(f"pt_type={training_args.pt_type}: MFP | RFD")
     if (training_args.pretrain and training_args.pt_type == "RFD"
             and training_args.RFD_replace not in RFD_REPLACE):
         raise NotImplementedError(f"RFD_replace={training_args.RFD_replace}: "
                                   f"one of {RFD_REPLACE}")
+    if training_args.device_resident_data not in ("auto", "on", "off"):
+        raise ValueError(f"device_resident_data={training_args.device_resident_data}: "
+                         "auto | on | off")
 
 
 def build_config(model_args: ModelArguments, training_args: TrainingArguments,

@@ -763,11 +763,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The dynamic shared memory a kernel may take is raised to the most any plan
+// has asked of it, once a size, not on every launch (the other sources keep
+// theirs in a static): a record a kernel, for the four kernels here.
+cudaError_t allow_smem(const void* kernel, size_t smem) {
+  constexpr int kKernels = 4;
+  static const void* kernels[kKernels] = {};
+  static size_t allowed[kKernels] = {};
+  int i = 0;
+  while (i < kKernels && kernels[i] != nullptr && kernels[i] != kernel) ++i;
+  if (i < kKernels && kernels[i] == kernel && smem <= allowed[i]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess && i < kKernels) {
+    kernels[i] = kernel;
+    allowed[i] = smem;
+  }
+  return err;
+}
+
 template <typename Kernel, typename... Args>
 cudaError_t launch_cluster(Kernel kernel, int grid, int threads, int cluster,
                            size_t smem, cudaStream_t s, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));

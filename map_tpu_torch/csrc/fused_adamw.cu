@@ -5,7 +5,10 @@
 //   upd = (mu / bc1) / (sqrt(nu / bc2) + eps) + wd * p
 //   p   = p - lr * upd
 // with bc = 1 - b^t computed on the host in float32 (optax.adamw's algebra,
-// eps_root = 0) and wd the leaf's own (0 for a leaf without decay).
+// eps_root = 0) and wd the leaf's own (0 for a leaf without decay). lr, b1,
+// b2, eps, bc1 and bc2 are read on the card from the step's row of the
+// optimizer's scalar buffer (step_scalars.cuh), so that a CUDA graph that
+// captured the launch reads each replay's values.
 //
 // Replaces map_tpu/ops/fused_adamw.py:fused_adamw_dense, which streams
 // (512, W) tiles of one table's p, mu, nu and g through VMEM once and writes
@@ -21,7 +24,7 @@
 // 533 MB, or about 0.16 ms at 3.35 TB/s.
 //
 // Design. The descriptor block (`Leaves`, at most 4 KB) is the kernel's
-// parameter, passed by value: the scalars the leaves share, and for each
+// parameter, passed by value: the address of the step's scalars, and for each
 // leaf its pointers, size, wd, 16-byte alignment and first unit. A unit is 4
 // consecutive elements of one leaf, one 16-byte vector; the leaves' units
 // lie end to end in one flat space, laid out by the plan in
@@ -45,7 +48,7 @@
 #include <stdint.h>
 #include <string.h>
 
-#include "adamw_math.cuh"
+#include "step_scalars.cuh"
 
 namespace {
 
@@ -69,7 +72,7 @@ static_assert(offsetof(Leaf, start) == 40 && offsetof(Leaf, wd) == 48,
               "Leaf must match ops/fused_adamw.py LEAF_DTYPE");
 
 struct Leaves {
-  Scalars s;  // s.wd unused: each leaf has its own
+  const float* scal;  // the step's row: [lr, wd (unused: each leaf has its own), b1, ...]
   int count;
   long long units;
   Leaf leaf[kMaxLeaves];
@@ -88,6 +91,7 @@ __global__ void __launch_bounds__(kThreads, 4)
 adamw_leaves(const __grid_constant__ Leaves L) {
   __shared__ long long first[kMaxLeaves];
   for (int i = threadIdx.x; i < L.count; i += kThreads) first[i] = L.leaf[i].start;
+  const Scalars common = load_scalars(L.scal, 0.f);
   __syncthreads();
 
   const long long u0 = static_cast<long long>(blockIdx.x) * kThreads * kUnits + threadIdx.x;
@@ -126,7 +130,7 @@ adamw_leaves(const __grid_constant__ Leaves L) {
   for (int k = 0; k < kUnits; ++k) {
     if (leaf[k] < 0) continue;
     const Leaf& f = L.leaf[leaf[k]];
-    Scalars s = L.s;
+    Scalars s = common;
     s.wd = f.wd;
     if (vec[k]) {
       adamw4(pv[k], mv[k], vv[k], gv[k], s);
@@ -151,17 +155,18 @@ adamw_leaves(const __grid_constant__ Leaves L) {
 // One launch over `count` leaves: `leaves` points to `count` host records of
 // ops/fused_adamw.py LEAF_DTYPE (copied before the call returns), laid out by
 // its plan: the first leaf at unit 0, each next one where the one before
-// ends, `units` in all, `blocks` of kThreads * kUnits units. The scalars but
-// wd are the leaves' common ones.
+// ends, `units` in all, `blocks` of kThreads * kUnits units. `scal` is the
+// optimizer's (slots, 8) float32 scalar buffer on the card and `slot` the
+// step's row; its scalars but wd are the leaves' common ones.
 extern "C" int map_tpu_fused_adamw_leaves(const void* leaves, int count, long long units,
-                                          int blocks, float lr, float b1, float b2,
-                                          float eps, float bc1, float bc2, void* stream) {
-  if (count < 1 || count > kMaxLeaves || units < 1 || blocks < 1 ||
-      static_cast<long long>(blocks) * kThreads * kUnits < units)
+                                          int blocks, const void* scal, int slot,
+                                          void* stream) {
+  if (count < 1 || count > kMaxLeaves || units < 1 || blocks < 1 || scal == nullptr ||
+      slot < 0 || static_cast<long long>(blocks) * kThreads * kUnits < units)
     return static_cast<int>(cudaErrorInvalidValue);
   Leaves L;
   memset(&L, 0, sizeof(L));
-  L.s = make_scalars(lr, 0.f, b1, b2, eps, bc1, bc2);
+  L.scal = static_cast<const float*>(scal) + static_cast<long long>(slot) * kScalarWidth;
   L.count = count;
   L.units = units;
   memcpy(L.leaf, leaves, sizeof(Leaf) * count);

@@ -3,8 +3,11 @@
 //   g[r] = 0 + (target value of r, if the target stream names r)
 //            + (noise value of r, if the noise stream names r)
 // in that order, each addition rounded on its own, then K1's AdamW arithmetic
-// (adamw_math.cuh) with the decoupled weight decay. The decay touches every
-// row, so the pass is dense; a row no stream names updates with g = 0.
+// (adamw_math.cuh) with the decoupled weight decay, lr, b1, b2, eps, bc1
+// and bc2 read on the card from the step's row of the optimizer's scalar
+// buffer (step_scalars.cuh), so that a captured CUDA graph reads each
+// replay's. The decay touches every row, so the pass is dense; a row no
+// stream names updates with g = 0.
 // Each stream is uids (n,) int32, ascending and distinct below V, followed by
 // a sentinel tail (entries >= V), with vals (n, e) f32: the layout of the
 // decoder backward's folded stream (map_tpu_torch/ops/dedup_scatter.py
@@ -32,8 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "adamw_math.cuh"
 #include "sorted_stream.cuh"
+#include "step_scalars.cuh"
 
 namespace {
 
@@ -52,7 +55,8 @@ sparse_adamw_kernel(float* __restrict__ p, float* __restrict__ mu, float* __rest
                     const int* __restrict__ t_uids, const float* __restrict__ t_vals,
                     long long nt, const int* __restrict__ n_uids,
                     const float* __restrict__ n_vals, long long nn, long long vocab,
-                    int e, int vec, Scalars s) {
+                    int e, int vec, const float* __restrict__ scal, float wd) {
+  const Scalars s = load_scalars(scal, wd);
   __shared__ int slot_t[kRows];
   __shared__ int slot_n[kRows];
   __shared__ long long window[4];  // target start, end; noise start, end
@@ -135,15 +139,17 @@ bool aligned16(const void* ptr) {
 
 // p, mu, nu (vocab, e) f32 updated in place; t_uids (nt,) / n_uids (nn,)
 // int32 ascending and distinct below vocab, then sentinels >= vocab;
-// t_vals (nt, e) / n_vals (nn, e) f32; all contiguous.
+// t_vals (nt, e) / n_vals (nn, e) f32; all contiguous. lr, b1, b2, eps,
+// bc1 and bc2 from row `slot` of the optimizer's (slots, 8) float32 scalar
+// buffer `scal` on the card (step_scalars.cuh), wd by value.
 extern "C" int map_tpu_sparse_adamw(void* p, void* mu, void* nu, const void* t_uids,
                                     const void* t_vals, long long nt,
                                     const void* n_uids, const void* n_vals,
-                                    long long nn, long long vocab, int e, float lr,
-                                    float wd, float b1, float b2, float eps,
-                                    float bc1, float bc2, void* stream) {
+                                    long long nn, long long vocab, int e, float wd,
+                                    const void* scal, int slot, void* stream) {
+  if (scal == nullptr || slot < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (vocab <= 0 || e <= 0) return static_cast<int>(cudaGetLastError());
-  const Scalars s = make_scalars(lr, wd, b1, b2, eps, bc1, bc2);
+  const float* row = static_cast<const float*>(scal) + static_cast<long long>(slot) * kScalarWidth;
   const int vec = e % 4 == 0 && aligned16(p) && aligned16(mu) && aligned16(nu) &&
                   aligned16(t_vals) && aligned16(n_vals);
   const long long blocks = (vocab + kRows - 1) / kRows;
@@ -152,6 +158,6 @@ extern "C" int map_tpu_sparse_adamw(void* p, void* mu, void* nu, const void* t_u
       static_cast<float*>(p), static_cast<float*>(mu), static_cast<float*>(nu),
       static_cast<const int*>(t_uids), static_cast<const float*>(t_vals), nt,
       static_cast<const int*>(n_uids), static_cast<const float*>(n_vals), nn, vocab,
-      e, vec, s);
+      e, vec, row, wd);
   return static_cast<int>(cudaGetLastError());
 }

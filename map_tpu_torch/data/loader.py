@@ -1,5 +1,5 @@
 """Fixed-shape shuffled batches. Counterpart: `map_tpu/data/loader.py:24
-Batcher`, the `epoch()` path of one process.
+Batcher`, the `epoch()` and `epoch_stacked()` paths of one process.
 
 Every batch has batch_size rows; the last one is padded with row 0 at weight
 0, so the weighted loss and the metrics drop the padding. The shuffled order
@@ -13,13 +13,24 @@ also carries `noise_rows` (B * M, F) int32: rows of `noise_source` (the train
 split, for every split) at `rng.integers(0, len(noise_source), B * M)`,
 drawn after the batch is gathered from the same per-epoch generator as the
 permutation (map_tpu `loader.py:157-174`), so this stream is map_tpu's too.
+
+Index batches (map_tpu `loader.py:70-74`, `:140-175`), set by the Trainer
+when the train matrix lies on the device: `emit_indices` yields the rows'
+`index` (B,) int32 and `real_count` (a 0-d int32) in place of `input_ids`,
+and `noise_index` (B * M,) int32 in place of `noise_rows`; with
+`emit_start_only` as well, the scalar batch number `start` in place of
+`index` (the step reads the rows from the epoch's order on the device).
+Both keep `labels` and `weight` for the host's window AUC; nothing sends
+them to the card. The draws are the same, so the stream is the same.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+
+Batch = Dict[str, np.ndarray]
 
 
 class Batcher:
@@ -37,6 +48,8 @@ class Batcher:
         self.noise_source = (None if noise_source is None
                              else np.ascontiguousarray(noise_source, dtype=np.int32))
         self._epoch = 0
+        self.emit_indices = False
+        self.emit_start_only = False
 
     def __len__(self) -> int:
         return (len(self.Y) + self.batch_size - 1) // self.batch_size
@@ -44,26 +57,86 @@ class Batcher:
     def num_examples(self) -> int:
         return len(self.Y)
 
-    def epoch(self, epoch: Optional[int] = None) -> Iterator[Dict[str, np.ndarray]]:
+    def order(self, epoch: int) -> Tuple[np.ndarray, np.random.Generator]:
+        """The epoch's row order and the generator its noise draws continue."""
+        rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
+        n = len(self.Y)
+        return (rng.permutation(n) if self.shuffle else np.arange(n)), rng
+
+    def epoch(self, epoch: Optional[int] = None) -> Iterator[Batch]:
         """Yields {input_ids (B, F) int32, labels (B,) float32, weight (B,)
-        float32 in {0, 1}}, and noise_rows (B * M, F) int32 when M > 0."""
+        float32 in {0, 1}}, and noise_rows (B * M, F) int32 when M > 0 (or
+        the index forms above)."""
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
-        n = len(self.Y)
+        order, rng = self.order(epoch)
+        yield from self._batches(order, rng, 0)
+
+    def _batches(self, order: np.ndarray, rng: np.random.Generator,
+                 first: int) -> Iterator[Batch]:
+        """Batches first, first + 1, ... of the epoch whose order is `order`,
+        the noise drawn from `rng` (which has drawn the batches' before)."""
         bs = self.batch_size
-        rng = np.random.default_rng(np.random.SeedSequence([self.seed, epoch]))
-        order = rng.permutation(n) if self.shuffle else np.arange(n)
-        for b in range(len(self)):
+        for b in range(first, len(self)):
             idx = order[b * bs:(b + 1) * bs]
             real = len(idx)
             if real < bs:
                 idx = np.concatenate([idx, np.zeros(bs - real, dtype=idx.dtype)])
-            batch = {"input_ids": self.X[idx],
-                     "labels": self.Y[idx],
+            batch = {"labels": self.Y[idx],
                      "weight": (np.arange(bs) < real).astype(np.float32)}
+            if self.emit_indices:
+                batch["real_count"] = np.int32(real)
+                if self.emit_start_only:
+                    batch["start"] = np.int32(b)
+                else:
+                    batch["index"] = idx.astype(np.int32)
+            else:
+                batch["input_ids"] = self.X[idx]
             if self.noise_rows_per_example > 0:
                 pick = rng.integers(0, len(self.noise_source),
                                     size=bs * self.noise_rows_per_example)
-                batch["noise_rows"] = self.noise_source[pick]
+                if self.emit_indices:
+                    batch["noise_index"] = pick.astype(np.int32)
+                else:
+                    batch["noise_rows"] = self.noise_source[pick]
             yield batch
+
+    def epoch_stacked(self, spc: int, epoch: Optional[int] = None
+                      ) -> Iterator[Tuple[int, Batch, List[Batch]]]:
+        """Yields (n, batch, views): groups of `spc` full batches stacked on
+        a leading axis of n = spc (one numpy pass a group; the noise rows
+        drawn in one call of spc * B * M, which gives the per-batch draws),
+        then the epoch's tail (a short group and the padded last batch) as
+        single batches (n = 1). `views` are the group's batches for host
+        consumers. The stream is `epoch`'s."""
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        spc = max(1, int(spc))
+        bs = self.batch_size
+        order, rng = self.order(epoch)
+        n_groups = (len(self.Y) // bs) // spc
+        npe = self.noise_rows_per_example
+        for gi in range(n_groups):
+            b0 = gi * spc
+            idx = order[b0 * bs:(b0 + spc) * bs].reshape(spc, bs)
+            stacked = {"labels": self.Y[idx], "weight": np.ones((spc, bs), np.float32)}
+            if self.emit_indices:
+                stacked["real_count"] = np.full(spc, bs, np.int32)
+                if self.emit_start_only:
+                    stacked["start"] = np.arange(b0, b0 + spc, dtype=np.int32)
+                else:
+                    stacked["index"] = idx.astype(np.int32)
+            else:
+                stacked["input_ids"] = self.X[idx]
+            if npe > 0:
+                pick = rng.integers(0, len(self.noise_source),
+                                    size=spc * bs * npe).reshape(spc, bs * npe)
+                if self.emit_indices:
+                    stacked["noise_index"] = pick.astype(np.int32)
+                else:
+                    stacked["noise_rows"] = self.noise_source[pick]
+            yield spc, stacked, [{k: v[i] for k, v in stacked.items()} for i in range(spc)]
+        for b in self._batches(order, rng, n_groups * spc):
+            yield 1, b, [b]

@@ -7,8 +7,10 @@ fold's scan) at the MFP folds' shapes, for the map_tpu_torch package under
 --root (default: this file's tree) is put first on sys.path; the timing
 (`chip_smoke.time_ms_each`: CUDA events, L2 flushed and a ~1 ms spin queued
 on the card ahead of each call, the calls in turns rep by rep) and the
-shapes come from this file's tree. A tree whose K1 has no list call
-(`fused_adamw_multi`) updates a step's leaves one launch a leaf.
+shapes come from this file's tree. K1 takes its scalars as a step does:
+from a row of a buffer on the card (`fused_adamw_leaves`), or by value in a
+tree without it (`fused_adamw_multi`); a tree with neither list call
+updates a step's leaves one launch a leaf.
 
 K1: the canonical DCNv2's parameters (1,013,519 x 16 table, 24 fields, MLP
 3 x 1000, 3 cross layers) with random moments and gradients and the
@@ -81,9 +83,13 @@ def main(argv=None) -> int:
     ss = [fused_adamw.scalars(smoke.LR, wd if decays(n) else 0.0, 0.9, 0.999, 1e-8, 7)
           for n in names]
     multi = getattr(fused_adamw, "fused_adamw_multi", None)
+    leaves = getattr(fused_adamw, "fused_adamw_leaves", None)
 
     def k1(idx):
         sel = [[seq[i] for i in idx] for seq in (ps, mus, nus, gs, ss)]
+        if leaves is not None:  # the scalars from a row on the card, as a step takes them
+            row = torch.tensor([fused_adamw.scalar_row(ss[0])], device=dev)
+            return lambda: leaves(*sel[:4], [s.wd for s in sel[4]], row, 0)
         if multi is not None:
             return lambda: multi(*sel)
         return lambda: [fused_adamw.fused_adamw(*leaf) for leaf in zip(*sel)]

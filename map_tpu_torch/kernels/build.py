@@ -43,9 +43,9 @@ _SIGNATURES = {
     # (x0, w, b, y, xs, us, scratch, batch, d, layers, is_bf16, tile_rows,
     #  cluster, grid, smem, stages, x_buffers, vector, stream)
     "map_tpu_cross_net": [_P] * 7 + [ctypes.c_int] * 11 + [_P],
-    # (leaves, count, units, blocks, lr, b1, b2, eps, bc1, bc2, stream)
-    "map_tpu_fused_adamw_leaves": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
-                                  + [ctypes.c_float] * 6 + [_P],
+    # (leaves, count, units, blocks, scal, slot, stream)
+    "map_tpu_fused_adamw_leaves": [_P, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                   _P, ctypes.c_int, _P],
     # (sorted_ids, perm, grads, out, n, vocab, e, grads_bf16, stream)
     "map_tpu_scatter_add": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, _P],
@@ -53,11 +53,11 @@ _SIGNATURES = {
     "map_tpu_scatter_unique_sorted": [_P, _P, _P, _P, ctypes.c_longlong,
                                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                                       ctypes.c_int, _P],
-    # (p, mu, nu, t_uids, t_vals, nt, n_uids, n_vals, nn, vocab, e,
-    #  lr, wd, b1, b2, eps, bc1, bc2, stream)
+    # (p, mu, nu, t_uids, t_vals, nt, n_uids, n_vals, nn, vocab, e, wd,
+    #  scal, slot, stream)
     "map_tpu_sparse_adamw": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
-                             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-                            + [ctypes.c_float] * 7 + [_P],
+                             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                             ctypes.c_float, _P, ctypes.c_int, _P],
     # (x, out, agg, n, w, tile_rows, tiles, grid, rounds, segs, seg_rows,
     #  part_tiles, smem, vector, stream)
     "map_tpu_block_cumsum": [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -172,10 +172,10 @@ def library() -> ctypes.CDLL:
 
 def current_stream(device_index: int) -> int:
     """The raw handle of PyTorch's current stream on CUDA device
-    `device_index`, which a C entry launches on. On an H100 host it takes
-    about 0.2 us a call, against about 7 for
-    `torch.cuda.current_stream().cuda_stream`, which builds a Stream object
-    (`kernels/gather_times.py --sweep`)."""
+    `device_index`, which a C entry launches on: during a CUDA graph's
+    capture, the capture stream. On an H100 host it takes about 0.2 us a
+    call, against about 7 for `torch.cuda.current_stream().cuda_stream`,
+    which builds a Stream object (`kernels/gather_times.py --sweep`)."""
     import torch
 
     return torch._C._cuda_getCurrentRawStream(device_index)

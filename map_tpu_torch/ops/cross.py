@@ -201,7 +201,7 @@ def _forward(x0: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         *(None if t is None else t.data_ptr() for t in (xs, us, scratch)),
         batch, d, num_layers, int(x0.dtype == torch.bfloat16),
         p.tile_rows, p.cluster, p.grid, p.smem, p.stages, p.x_buffers,
-        int(p.vector), torch.cuda.current_stream().cuda_stream)
+        int(p.vector), build.current_stream(x0.device.index))
     build.check_status(status, "cross_net")
     launches += 1
     return (y, xs, us) if save_residuals else y

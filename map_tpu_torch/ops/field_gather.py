@@ -309,7 +309,7 @@ def _scatter(out: torch.Tensor, g_small: torch.Tensor, phys_small: torch.Tensor,
         g_small.data_ptr(), phys_small.data_ptr(), plan.work.data_ptr(),
         plan.pair_pos.data_ptr(), out.data_ptr(), b, fs, w, r, plan.work.shape[0],
         int(g_small.dtype == torch.bfloat16), int(add),
-        torch.cuda.current_stream().cuda_stream)
+        build.current_stream(g_small.device.index))
     build.check_status(status, "field_block_scatter")
     scatter_launches += 1
 

@@ -183,15 +183,15 @@ def block_cumsum(x: torch.Tensor, p: Optional[Plan] = None) -> torch.Tensor:
     out = torch.empty_like(x)
     if n == 0:
         return out
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
     if p is None:
-        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
         p = plan(n, w, build.sm_count(index), x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     agg = torch.empty(p.tiles * w, dtype=torch.float32, device=x.device)
     lib = build.library()
     status = lib.map_tpu_block_cumsum(
         x.data_ptr(), out.data_ptr(), agg.data_ptr(), n, w, p.tile_rows, p.tiles, p.grid,
         p.rounds, p.segs, p.seg_rows, p.part_tiles, p.smem, int(p.vector),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        build.current_stream(index))
     build.check_status(status, "block_cumsum")
     launches += 1
     return out

@@ -80,7 +80,7 @@ def scatter_add_sorted(sorted_ids: torch.Tensor, perm: torch.Tensor,
     status = lib.map_tpu_scatter_add(
         sorted_ids.data_ptr(), perm.data_ptr(), grads.data_ptr(), out.data_ptr(),
         sorted_ids.numel(), vocab_size, e, int(grads.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
+        build.current_stream(grads.device.index))
     build.check_status(status, "scatter_add")
     launches += 1
     return out

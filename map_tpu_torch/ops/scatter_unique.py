@@ -97,7 +97,7 @@ def scatter_unique_sorted(uids: torch.Tensor, vals: torch.Tensor, vocab_size: in
         uids.data_ptr(), vals.data_ptr(), outs[0].data_ptr(),
         outs[1].data_ptr() if len(outs) > 1 else None, uids.shape[0], vocab_size,
         vals.shape[1], w[0], int(matmul == "bf16x2"),
-        torch.cuda.current_stream().cuda_stream)
+        build.current_stream(vals.device.index))
     build.check_status(status, "scatter_unique_sorted")
     launches += 1
     return outs

@@ -37,7 +37,13 @@ map_tpu, so the port stays dense there too. map_tpu's other conditions
 (a table mesh, whether the encoding fits the packed table's rows) are about
 its sharding and its encoding; the port has neither.
 
-CUDA tensors go to the kernel, CPU tensors to `sparse_adamw_plain`.
+The scalars: `sparse_adamw_step` takes wd by value and the others from
+row `slot` of the optimizer's (K, 8) float32 scalar buffer on the device
+(`fused_adamw.scalar_row`), which the kernel reads on the card, so that a
+captured CUDA graph reads each replay's lr, bc1 and bc2;
+`sparse_adamw(..., s)` takes them by value, through a one-row buffer.
+
+CUDA tensors go to the kernel, CPU tensors to the plain versions.
 """
 
 from __future__ import annotations
@@ -47,7 +53,13 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from map_tpu_torch.kernels import build
-from map_tpu_torch.ops.fused_adamw import AdamScalars, fused_adamw_plain
+from map_tpu_torch.ops.fused_adamw import (
+    SCALAR_WIDTH,
+    AdamScalars,
+    fused_adamw_leaves_plain,
+    fused_adamw_plain,
+    scalar_row,
+)
 
 # Launches of the K7 kernel; the wrapper adds one where it launches, nowhere else.
 launches = 0
@@ -111,25 +123,57 @@ class StreamHandoff:
         return target, noise
 
 
-def sparse_adamw_plain(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
-                       target: Stream, noise: Stream, s: AdamScalars) -> None:
+def _dense_grad(p: torch.Tensor, target: Stream, noise: Stream) -> torch.Tensor:
     """Zeros, `index_add_` of the target stream, `index_add_` of the noise
-    stream (sentinels onto a spare row), then K1's plain update, in place."""
+    stream (sentinels onto a spare row): the (V, E) gradient."""
     v = p.shape[0]
     g = torch.zeros(v + 1, p.shape[1], dtype=torch.float32, device=p.device)
     for stream in (target, noise):
         g.index_add_(0, stream.uids.long().clamp(max=v), stream.vals.float())
-    fused_adamw_plain(p, mu, nu, g[:v], s)
+    return g[:v]
+
+
+def sparse_adamw_plain(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                       target: Stream, noise: Stream, s: AdamScalars) -> None:
+    """The streams' dense gradient, then K1's plain update, in place."""
+    fused_adamw_plain(p, mu, nu, _dense_grad(p, target, noise), s)
+
+
+def sparse_adamw_step_plain(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                            target: Stream, noise: Stream, wd: float,
+                            scal: torch.Tensor, slot: int) -> None:
+    """`sparse_adamw_step`'s plain version."""
+    fused_adamw_leaves_plain([p], [mu], [nu], [_dense_grad(p, target, noise)], [wd],
+                             scal, slot)
 
 
 def sparse_adamw(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
                  target: Stream, noise: Stream, s: AdamScalars) -> None:
-    """p, mu, nu (V, E) float32, updated in place; the streams as `Stream`
-    says (ascending distinct ids, unchecked by the kernel)."""
+    """`sparse_adamw_step` with the scalars by value (on the CPU,
+    `sparse_adamw_plain`)."""
     if p.device.type == "cpu":
         sparse_adamw_plain(p, mu, nu, target, noise, s)
         return
-    tensors = (p, mu, nu, *target, *noise)
+    scal = torch.tensor([scalar_row(s)], dtype=torch.float32, device=p.device)
+    sparse_adamw_step(p, mu, nu, target, noise, s.wd, scal, 0)
+
+
+def sparse_adamw_step(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                      target: Stream, noise: Stream, wd: float,
+                      scal: torch.Tensor, slot: int) -> None:
+    """p, mu, nu (V, E) float32, updated in place; the streams as `Stream`
+    says (ascending distinct ids, unchecked by the kernel); wd by value, the
+    other scalars from row `slot` of `scal`, a (K, SCALAR_WIDTH) float32
+    buffer on p's device."""
+    if scal.dim() != 2 or scal.shape[1] != SCALAR_WIDTH or scal.dtype != torch.float32 \
+            or not scal.is_contiguous() or not 0 <= slot < scal.shape[0]:
+        raise ValueError(f"sparse_adamw: scalar buffer {scal.dtype} {tuple(scal.shape)}, "
+                         f"slot {slot}: expected a contiguous (K, {SCALAR_WIDTH}) float32 "
+                         "buffer and 0 <= slot < K")
+    if p.device.type == "cpu" and scal.device.type == "cpu":
+        sparse_adamw_step_plain(p, mu, nu, target, noise, wd, scal, slot)
+        return
+    tensors = (p, mu, nu, *target, *noise, scal)
     if p.device.type != "cuda" or any(t.device != p.device for t in tensors):
         raise ValueError("sparse_adamw: tensors on "
                          f"{sorted({str(t.device) for t in tensors})}")
@@ -151,6 +195,7 @@ def sparse_adamw(p: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
         p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
         target.uids.data_ptr(), target.vals.data_ptr(), target.uids.shape[0],
         noise.uids.data_ptr(), noise.vals.data_ptr(), noise.uids.shape[0],
-        p.shape[0], p.shape[1], *s, torch.cuda.current_stream().cuda_stream)
+        p.shape[0], p.shape[1], wd, scal.data_ptr(), slot,
+        build.current_stream(p.device.index))
     build.check_status(status, "sparse_adamw")
     launches += 1

@@ -4,7 +4,7 @@ global-norm clip. Counterpart: `map_tpu/train/optimizer.py`
 
 The algebra is optax.adamw's (eps_root 0) as map_tpu's fused kernel computes
 it (`map_tpu/ops/fused_adamw.py:_adamw_math`), not torch.optim.AdamW's. A
-step updates every dense parameter in one `ops.fused_adamw_multi` call: one
+step updates every dense parameter in one `ops.fused_adamw_leaves` call: one
 K1 launch on the card (for up to 64 parameters), its plain version on the
 CPU, with wd = 0 where the mask says so. map_tpu splits the parameters
 (tables through its Pallas kernel, the rest through optax) only because
@@ -13,6 +13,18 @@ optax is the TPU's path for the rest; the update is the same.
 State: (mu, nu) per parameter, float32, plus the host int `count`. The
 learning rate of a step is the schedule at `count` (before the increment);
 bc1 = 1 - b1**t and bc2 = 1 - b2**t use t = count + 1, in float32.
+
+The step scalars reach the kernels through a (slots, 8) float32 buffer on
+the parameters' device, a row a step (`fused_adamw.scalar_row`), which K1
+and K7 read on the card. `begin(n)` writes the rows of the next n steps
+(one copy from pinned memory on the card, from one of two staging buffers,
+the other's copy being waited for before it is written again), and step j
+of them reads row j; a step with no row written writes its own first. So
+the multi-step dispatch (`train/graph.py`) writes a call's rows once and
+replays a graph that captured the steps' launches: `reserve(n)` gives a
+capture its rows without writing them, `rewind(count)` puts the host state
+back after the capture, and `advance(n)` moves it (the count and every
+handoff's step) past n steps that ran without this object.
 
 With `max_grad_norm > 0` the gradients are first clipped by their global
 norm, as optax.clip_by_global_norm does (`optimizer.py:170-192`).
@@ -29,17 +41,19 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from map_tpu_torch.ops import fused_adamw as k1
 from map_tpu_torch.ops import sparse_adamw as k7
 from map_tpu_torch.train.schedules import Schedule, make_schedule
 
-# (params, mus, nus, grads, scalars): one entry a dense parameter
+# (params, mus, nus, grads, wds, scalar buffer, slot): an entry a dense parameter
 UpdateFn = Callable[[List[torch.Tensor], List[torch.Tensor], List[torch.Tensor],
-                     List[torch.Tensor], List[k1.AdamScalars]], None]
+                     List[torch.Tensor], List[float], torch.Tensor, int], None]
+# (param, mu, nu, target stream, noise stream, wd, scalar buffer, slot)
 SparseUpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, k7.Stream,
-                           k7.Stream, k1.AdamScalars], None]
+                           k7.Stream, float, torch.Tensor, int], None]
 
 
 def decays(name: str) -> bool:
@@ -85,9 +99,10 @@ class AdamW:
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  schedule: Schedule, b1: float, b2: float, eps: float,
                  weight_decay: float, max_grad_norm: float = 0.0,
-                 update: UpdateFn = k1.fused_adamw_multi,
+                 update: UpdateFn = k1.fused_adamw_leaves,
                  sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
-                 sparse_update: SparseUpdateFn = k7.sparse_adamw):
+                 sparse_update: SparseUpdateFn = k7.sparse_adamw_step,
+                 slots: int = 1):
         named = list(named_params)
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -111,11 +126,57 @@ class AdamW:
                    for p in self.params]
         self.nu = [torch.zeros_like(m) for m in self.mu]
         self.count = 0
+        # each parameter's wd, float32 as the kernels take it
+        self.wds = [float(np.float32(weight_decay)) if d else 0.0 for d in self.decay]
+        device = self.params[0].device if self.params else torch.device("cpu")
+        self.scal = torch.zeros(max(1, int(slots)), k1.SCALAR_WIDTH, dtype=torch.float32,
+                                device=device)
+        self._staging = ([torch.zeros_like(self.scal, device="cpu").pin_memory()
+                          for _ in range(2)] if device.type == "cuda" else [])
+        self._copied: List[Optional[torch.cuda.Event]] = [None, None]
+        self._flip = 0
+        self._slot = self._left = 0  # the next step's row; rows written and not yet read
 
-    def scalars(self, decays_: bool) -> k1.AdamScalars:
-        return k1.scalars(self.schedule(self.count),
-                          self.weight_decay if decays_ else 0.0,
-                          self.b1, self.b2, self.eps, self.count + 1)
+    def scalar_rows(self, n: int) -> np.ndarray:
+        """(n, 8) float32: the rows of steps count, ..., count + n - 1."""
+        return np.asarray([k1.scalar_row(k1.scalars(
+            self.schedule(c), self.weight_decay, self.b1, self.b2, self.eps, c + 1))
+            for c in range(self.count, self.count + n)], np.float32)
+
+    def begin(self, n: int) -> None:
+        """Write the next n steps' rows into slots 0, ..., n - 1."""
+        if not 0 < n <= self.scal.shape[0]:
+            raise ValueError(f"AdamW.begin: {n} steps for {self.scal.shape[0]} slots")
+        rows = torch.from_numpy(self.scalar_rows(n))
+        if not self._staging:
+            self.scal[:n] = rows
+        else:
+            buf, done = self._staging[self._flip], self._copied[self._flip]
+            if done is not None:
+                done.synchronize()
+            buf[:n] = rows
+            self.scal[:n].copy_(buf[:n], non_blocking=True)
+            self._copied[self._flip] = torch.cuda.Event()
+            self._copied[self._flip].record()
+            self._flip ^= 1
+        self.reserve(n)
+
+    def reserve(self, n: int) -> None:
+        """The next n steps read slots 0, ..., n - 1, as they stand."""
+        if not 0 < n <= self.scal.shape[0]:
+            raise ValueError(f"AdamW.reserve: {n} steps for {self.scal.shape[0]} slots")
+        self._slot, self._left = 0, n
+
+    def rewind(self, count: int) -> None:
+        """The host state at step `count`, no row pending."""
+        self.count = count
+        self._slot = self._left = 0
+        for handoff in self.sparse.values():
+            handoff.step = count
+
+    def advance(self, n: int) -> None:
+        """n steps ran on the card without this object (a graph replay)."""
+        self.rewind(self.count + n)
 
     @torch.no_grad()
     def step(self, grads: Optional[List[Optional[torch.Tensor]]] = None) -> None:
@@ -133,14 +194,19 @@ class AdamW:
         grads = [None if g is None else g.float().contiguous() for g in grads]
         if self.max_grad_norm and self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm)
-        with_decay, without = self.scalars(True), self.scalars(False)
-        ss = [with_decay if d else without for d in self.decay]
+        if self._left == 0:
+            self.begin(1)
+        slot = self._slot
         dense = [i for i in range(len(self.params)) if i not in streams]
         self.update(*([seq[i] for i in dense]
-                      for seq in (self.params, self.mu, self.nu, grads, ss)))
+                      for seq in (self.params, self.mu, self.nu, grads, self.wds)),
+                    self.scal, slot)
         for i, (target, noise) in streams.items():
-            self.sparse_update(self.params[i], self.mu[i], self.nu[i], target, noise, ss[i])
+            self.sparse_update(self.params[i], self.mu[i], self.nu[i], target, noise,
+                               self.wds[i], self.scal, slot)
         self.count += 1
+        self._slot += 1
+        self._left -= 1
         for handoff in self.sparse.values():
             handoff.step = self.count
 
@@ -153,9 +219,9 @@ class AdamW:
 
 
 def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
-                    num_warmup_steps: int, update: UpdateFn = k1.fused_adamw_multi,
+                    num_warmup_steps: int, update: UpdateFn = k1.fused_adamw_leaves,
                     sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
-                    sparse_update: SparseUpdateFn = k7.sparse_adamw
+                    sparse_update: SparseUpdateFn = k7.sparse_adamw_step
                     ) -> Tuple[AdamW, Schedule]:
     beta1, beta2 = (float(x) for x in args.adam_betas.split(","))
     schedule = make_schedule(args.lr_sched, args.learning_rate,
@@ -163,5 +229,6 @@ def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
     opt = AdamW(model.named_parameters(), schedule, beta1, beta2,
                 args.adam_epsilon, args.weight_decay,
                 max_grad_norm=args.max_grad_norm or 0.0, update=update,
-                sparse=sparse, sparse_update=sparse_update)
+                sparse=sparse, sparse_update=sparse_update,
+                slots=getattr(args, "steps_per_call", 1))
     return opt, schedule

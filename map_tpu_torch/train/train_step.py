@@ -3,9 +3,16 @@
 non-streaming eval step), `:270-531 make_mfp_steps` and `:538-585
 make_rfd_steps`.
 
-A step takes one host batch from `data/loader.Batcher`, copies it to the
-device, and returns device tensors: nothing is read back, so the host runs
-ahead of the card until a logging window or an eval pass reads the values.
+A step takes one batch from `data/loader.Batcher`: a host batch (numpy
+arrays, copied to the device from pinned memory without blocking the host,
+or tensors already there), or an index batch (`index` or `start`,
+`real_count`, `noise_index`) that `resident_batch` rebuilds on the device
+from the resident train data (`ResidentData`, map_tpu's `_resident_batch`):
+the rows, labels and noise rows gathered there, the weight rebuilt from
+`real_count`. It returns device tensors: nothing is read back, so the host
+runs ahead of the card until a logging window or an eval pass reads the
+values. Nothing in a train step waits for the host or copies from it, so
+`train/graph.py` can capture it whole into a CUDA graph.
 
 supervised train step: forward in train mode, the weighted BCE
 (`objectives`), backward (K3 for the table, the cross-net chain from K2's
@@ -65,16 +72,80 @@ from map_tpu_torch.train.optimizer import AdamW
 Batch = Dict[str, np.ndarray]
 Step = Callable[[Batch], Dict[str, torch.Tensor]]
 
+# an index batch's keys that go to the device; its labels and weight stay on
+# the host (the window AUC reads them), the step regathers them
+INDEX_KEYS = ("index", "start", "real_count", "noise_index")
 
-def to_device(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+
+class ResidentData(NamedTuple):
+    """The train split on the device (map_tpu `trainer.py:298-370`): x (N,
+    F) int32, y (N,) float32, and with stream v2 `perm`, the epoch's order
+    padded to whole batches (int32), which the Trainer rewrites in place
+    once an epoch, so that a captured step reads each epoch's."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    perm: Optional[torch.Tensor]
+    batch_size: int
+
+
+def is_index_batch(batch) -> bool:
+    return "index" in batch or "start" in batch
+
+
+def to_device(batch, device: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's device keys on `device` (an index batch's INDEX_KEYS, else
+    all): numpy arrays through pinned memory, copied without blocking the
+    host on the card; tensors moved (nothing to do where they lie there)."""
+    out = {}
+    for k, v in batch.items():
+        if is_index_batch(batch) and k not in INDEX_KEYS:
+            continue
+        if not isinstance(v, torch.Tensor):
+            a = np.asarray(v)
+            v = torch.from_numpy(a if a.flags.c_contiguous else np.ascontiguousarray(a))
+        if device.type == "cuda" and v.device.type == "cpu":
+            v = v.pin_memory().to(device, non_blocking=True)
+        out[k] = v.to(device)
+    return out
+
+
+def resident_batch(batch: Dict[str, torch.Tensor], data: ResidentData
+                   ) -> Dict[str, torch.Tensor]:
+    """An index batch on the device -> the step batch: input_ids = x[index],
+    labels = y[index], weight = (arange(B) < real_count), noise_rows =
+    x[noise_index]; with `start`, index is row `start` of perm viewed as
+    (batches, B), taken on the device (no host read, so it captures)."""
+    if "start" in batch:
+        idx = data.perm.view(-1, data.batch_size).index_select(
+            0, batch["start"].reshape(1)).reshape(-1)
+    else:
+        idx = batch["index"]
+    out = {"input_ids": data.x.index_select(0, idx),
+           "labels": data.y.index_select(0, idx),
+           "weight": (torch.arange(idx.shape[0], device=idx.device)
+                      < batch["real_count"]).float()}
+    if "noise_index" in batch:
+        out["noise_rows"] = data.x.index_select(0, batch["noise_index"])
+    return out
+
+
+def device_batch(batch, device: torch.device, data: Optional[ResidentData] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """A host or index batch -> the step batch on `device`."""
+    b = to_device(batch, device)
+    if not is_index_batch(b):
+        return b
+    if data is None:
+        raise ValueError("an index batch needs the train data on the device")
+    return resident_batch(b, data)
 
 
 def make_supervised_steps(model: torch.nn.Module, optimizer: AdamW,
-                          device: torch.device) -> Tuple[Step, Step]:
+                          device: torch.device, data: Optional[ResidentData] = None
+                          ) -> Tuple[Step, Step]:
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
-        b = to_device(batch, device)
+        b = device_batch(batch, device, data)
         model.train()
         logits = model(b["input_ids"]).reshape(-1)
         loss = bce_loss(logits, b["labels"], b["weight"])
@@ -150,7 +221,7 @@ def draw_mfp(generator: torch.Generator, tables: NoiseTables, batch_size: int,
 def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
                    mask_ratio: float, sampling_method: str, tables: NoiseTables,
                    generator: torch.Generator, device: torch.device,
-                   shared_noise: bool = False):
+                   shared_noise: bool = False, data: Optional[ResidentData] = None):
     """-> (train_step(batch, draws=None), eval_step(batch, generator))."""
     mask_num = corruption.mask_num_of(config.num_fields, mask_ratio)
     k = int(config.pt_neg_num)
@@ -206,7 +277,7 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
 
     def train_step(batch: Batch, draws: Optional[MFPDraws] = None
                    ) -> Dict[str, torch.Tensor]:
-        b = to_device(batch, device)
+        b = device_batch(batch, device, data)
         if draws is None:
             draws = draw(generator, b)
         else:
@@ -229,7 +300,8 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
 
 def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
                    mask_ratio: float, sampling_method: str, rfd_replace: str,
-                   generator: torch.Generator, device: torch.device):
+                   generator: torch.Generator, device: torch.device,
+                   data: Optional[ResidentData] = None):
     """-> (train_step(batch, draws=None), eval_step(batch, generator))."""
     f = int(config.num_fields)
     mask_num = corruption.mask_num_of(f, mask_ratio)
@@ -259,7 +331,7 @@ def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
 
     def train_step(batch: Batch, draws: Optional[corruption.RFDDraws] = None
                    ) -> Dict[str, torch.Tensor]:
-        b = to_device(batch, device)
+        b = device_batch(batch, device, data)
         if draws is None:
             draws = draw(generator, b)
         else:

@@ -47,15 +47,39 @@ labels for "train", "valid" and "test", so an in-memory dataset serves as
 well as `data/dataset.CTRDataset`. float32 products on the card run in full
 float32 (`torch.backends.cuda.matmul.allow_tf32 = False`).
 
+The input pipeline and the multi-step dispatch (map_tpu `trainer.py:298-370
+_setup_resident_data`, `:416-459 _grouped_stream`, `:515-533
+_run_train_step`, `:617-632 _ensure_epoch_perm`), for train,
+MFP_pretrain and RFD_pretrain:
+- `device_resident_data` (auto: on when the train matrix fits
+  `device_data_budget_gb`): the train split goes to the device once and
+  the Batcher yields index batches; without RFD noise rows (stream v2) each
+  epoch's order goes to the device once too and a step ships its batch
+  number only, else its indices and noise indices.
+- the train stream: `Batcher.epoch_stacked` groups of `steps_per_call`
+  batches (then the epoch's tail one by one), copied to the device by a
+  producer thread `prefetch_batches` groups ahead, from pinned memory on a
+  side stream that the compute stream waits for by event; an error in the
+  thread is raised in the loop.
+- `steps_per_call` steps a host call (`train/graph.py:MultiStep`): a
+  captured CUDA graph on the card, eager steps on the CPU. A call moves
+  `global_step` by n, and a logging window closes when a call crosses a
+  multiple of `logging_steps` (map_tpu's `_crossed`).
+`--device_resident_data=off --steps_per_call=1` is the path of one host
+batch a step. Eval passes stay eager.
+
 Not ported yet (ROADMAP.md): streaming AUC, metrics.jsonl, the async
-checkpoint writer, resume, device-resident data and the multi-step scan.
+checkpoint writer, resume (and the Batcher's `start_batch`) and the fused
+eval dispatch.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,12 +92,15 @@ from map_tpu_torch.objectives import alias
 from map_tpu_torch.objectives.corruption import mask_num_of
 from map_tpu_torch.ops import sparse_adamw
 from map_tpu_torch.train import checkpoints
+from map_tpu_torch.train.graph import CUDA_WORK, MultiStep
 from map_tpu_torch.train.optimizer import build_optimizer
 from map_tpu_torch.train.train_step import (
     NoiseTables,
+    ResidentData,
     make_mfp_steps,
     make_rfd_steps,
     make_supervised_steps,
+    to_device,
 )
 from map_tpu_torch.utils.metrics import binary_log_loss, roc_auc
 
@@ -90,8 +117,9 @@ class Trainer:
         self.config = model_config
         self.args = training_args
         self.dataset = dataset
-        set_dropout_generator(self.model, torch.Generator(
-            device=self.device).manual_seed(training_args.seed))
+        self._dropout_generator = torch.Generator(
+            device=self.device).manual_seed(training_args.seed)
+        set_dropout_generator(self.model, self._dropout_generator)
 
         self.global_step = 0
         self.eval_metrics: List[List[float]] = []
@@ -102,6 +130,12 @@ class Trainer:
         self._stop_training = False
         self.optimizer = self.schedule = None
         self.train_step = self.eval_step = None
+        self.multi: Optional[MultiStep] = None
+        self._data: Optional[ResidentData] = None
+        self._stream_v2 = False
+        self._perm_epoch = -1
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
         self.noise: Optional[NoiseTables] = None
         self.finetune_counts: Optional[Tuple[int, int]] = None  # (loaded, skipped)
         if model_config.mfp:
@@ -159,21 +193,25 @@ class Trainer:
             self.model.mfp_criterion.handoff = handoff
         self.optimizer, self.schedule = build_optimizer(
             self.model, self.args, self._t_total, self._t_warmup, sparse=sparse)
+        step_generator = None
+        if self.noise is not None or self.config.rfd:
+            step_generator = torch.Generator(device=self.device).manual_seed(
+                self.args.seed + 1)
         if self.noise is not None:
             self.train_step, self.eval_step = make_mfp_steps(
                 self.model, self.optimizer, self.config, self.args.mask_ratio,
-                self.args.sampling_method, self.noise,
-                torch.Generator(device=self.device).manual_seed(self.args.seed + 1),
-                self.device, shared_noise=self.args.pt_shared_noise)
+                self.args.sampling_method, self.noise, step_generator,
+                self.device, shared_noise=self.args.pt_shared_noise, data=self._data)
         elif self.config.rfd:
             self.train_step, self.eval_step = make_rfd_steps(
                 self.model, self.optimizer, self.config, self.args.mask_ratio,
-                self.args.sampling_method, self.args.RFD_replace,
-                torch.Generator(device=self.device).manual_seed(self.args.seed + 1),
-                self.device)
+                self.args.sampling_method, self.args.RFD_replace, step_generator,
+                self.device, data=self._data)
         else:
             self.train_step, self.eval_step = make_supervised_steps(
-                self.model, self.optimizer, self.device)
+                self.model, self.optimizer, self.device, data=self._data)
+        self.multi = MultiStep(self.train_step, self.args.steps_per_call, self.optimizer,
+                               self.device, (step_generator, self._dropout_generator))
 
     def _log_run_header(self, title: str = "training") -> None:
         logger.info(f"\n***** running {title} *****")
@@ -190,18 +228,145 @@ class Trainer:
         logger.info(f"  lr_sched = {self.args.lr_sched}")
         logger.info(f"  device = {self.device}")
 
+    def _crossed(self, prev: int, every: int) -> bool:
+        """A call that moved global_step from prev crossed a multiple of every."""
+        return every > 0 and self.global_step // every != prev // every
+
     def _should_log(self, prev: int) -> bool:
         if self.args.logging_first_step and prev == 0:
             return True
-        every = self.args.logging_steps
-        return every > 0 and self.global_step // every != prev // every
+        return self._crossed(prev, self.args.logging_steps)
 
     def _current_lr(self) -> float:
         return float(self.schedule(max(self.global_step - 1, 0)))
 
-    def train(self) -> None:
+    # ---- the input pipeline and the multi-step dispatch ----------------------
+
+    def _setup_resident_data(self, batcher: Batcher) -> None:
+        """The train split on the device (map_tpu `_setup_resident_data`):
+        `auto` when the id matrix fits `device_data_budget_gb`, `on` even if
+        not (with a warning), `off` never. Stream v2 (the epoch's order on
+        the device too) unless the batches carry RFD noise rows."""
+        self._data, self._stream_v2, self._perm_epoch = None, False, -1
+        mode = self.args.device_resident_data
+        if mode == "off":
+            return
+        x = self.dataset.X["train"]
+        budget = float(self.args.device_data_budget_gb) * 1e9
+        if x.nbytes > budget:
+            if mode == "auto":
+                logger.info(f"device-resident data: off (train matrix {x.nbytes/1e9:.1f} "
+                            f"GB > budget {budget/1e9:.1f} GB)")
+                return
+            logger.warning(f"device-resident data FORCED on: train matrix "
+                           f"{x.nbytes/1e9:.1f} GB exceeds device_data_budget_gb "
+                           f"{budget/1e9:.1f} — the upload may OOM the device")
+        self._stream_v2 = self._noise_rows_per_example() == 0
+        bs = batcher.batch_size
+        self._data = ResidentData(
+            torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(self.device),
+            torch.from_numpy(np.ascontiguousarray(self.dataset.Y["train"],
+                                                  dtype=np.float32)).to(self.device),
+            (torch.zeros(len(batcher) * bs, dtype=torch.int32, device=self.device)
+             if self._stream_v2 else None), bs)
+        logger.info(f"device-resident data: on ({x.nbytes/1e9:.2f} GB train matrix in HBM; "
+                    "per-step transfer = "
+                    + ("batch number only (resident epoch permutation)"
+                       if self._stream_v2 else "indices only)"))
+
+    def _ensure_epoch_perm(self, epoch: int, batcher: Batcher) -> None:
+        """Stream v2: the epoch's order, padded with row 0 to whole batches,
+        written into the resident permutation in place (the Batcher's order)."""
+        if self._perm_epoch == epoch:
+            return
+        order, _ = batcher.order(epoch)
+        padded = np.zeros(self._data.perm.numel(), np.int32)
+        padded[:len(order)] = order
+        self._data.perm.copy_(torch.from_numpy(padded))
+        self._perm_epoch = epoch
+
+    def _put(self, batch) -> Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
+        """The batch's device keys on the device; on the card copied on the
+        copy stream, with the event of its copies."""
+        if self._copy_stream is None:
+            return to_device(batch, self.device), None
+        with CUDA_WORK, torch.cuda.stream(self._copy_stream):
+            out = to_device(batch, self.device)
+            done = torch.cuda.Event()
+            done.record()
+        return out, done
+
+    def _grouped_stream(self, batches) -> Iterator[Tuple[int, Dict[str, torch.Tensor], list]]:
+        """(n, device batch, host batches) of each (n, batch, views) of
+        `batches`, copied by a producer thread at most `prefetch_batches`
+        groups ahead; the compute stream waits for each group's copies. An
+        error in the thread is raised here."""
+        q: queue.Queue = queue.Queue(maxsize=max(1, int(self.args.prefetch_batches)))
+        stop = threading.Event()
+
+        def producer():
+            try:
+                for n, payload, views in batches:
+                    if stop.is_set():
+                        return
+                    q.put((n, *self._put(payload), views))
+                q.put(None)
+            except BaseException as e:  # raised in the consumer
+                q.put(e)
+
+        thread = threading.Thread(target=producer, daemon=True, name="map_tpu_torch-prefetch")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                n, dev_batch, done, views = item
+                if done is not None:
+                    compute = torch.cuda.current_stream(self.device)
+                    compute.wait_event(done)
+                    for t in dev_batch.values():
+                        t.record_stream(compute)
+                yield n, dev_batch, views
+        finally:
+            stop.set()
+            while thread.is_alive():  # a producer blocked on a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                thread.join(timeout=0.01)
+
+    def _run_train_step(self, n: int, dev_batch: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        metrics = self.multi(n, dev_batch)
+        self.global_step += n
+        return metrics
+
+    def train_epoch(self, batcher: Batcher, epoch: int
+                    ) -> Iterator[Tuple[int, Dict[str, torch.Tensor], list]]:
+        """One epoch of train steps through the pipeline, a host call at a
+        time: (n, the n steps' metrics stacked (n, ...), their host batches)."""
+        batcher.emit_indices = self._data is not None
+        batcher.emit_start_only = self._data is not None and self._stream_v2
+        if batcher.emit_start_only:
+            self._ensure_epoch_perm(epoch, batcher)
+        spc = max(1, int(self.args.steps_per_call))
+        batches = (batcher.epoch_stacked(spc, epoch) if spc > 1
+                   else ((1, b, [b]) for b in batcher.epoch(epoch)))
+        for n, dev_batch, views in self._grouped_stream(batches):
+            yield n, self._run_train_step(n, dev_batch), views
+
+    def _prepare_training(self) -> Batcher:
         batcher = self.get_batcher("train", True)
+        self._setup_resident_data(batcher)
         self.build_steps(len(batcher))
+        return batcher
+
+    def train(self) -> None:
+        batcher = self._prepare_training()
         self._log_run_header()
         self._stop_training = False
         losses: List[torch.Tensor] = []
@@ -211,17 +376,15 @@ class Trainer:
         window_t0 = time.time()
         for epoch in range(self.args.num_train_epochs):
             logger.info(f"-------------------- epoch-{epoch} --------------------")
-            for batch in batcher.epoch(epoch):
-                prev = self.global_step
-                metrics = self.train_step(batch)
-                self.global_step += 1
+            for n, metrics, group in self.train_epoch(batcher, epoch):
+                prev = self.global_step - n
                 losses.append(metrics["loss"])
                 probs.append(metrics["probs"])
-                labels.append(batch["labels"])
-                weights.append(batch["weight"])
+                labels.extend(b["labels"] for b in group)
+                weights.extend(b["weight"] for b in group)
                 if self._should_log(prev):
-                    loss_w = torch.stack(losses).cpu().numpy().astype(np.float64)
-                    probs_w = torch.cat(probs).cpu().numpy().astype(np.float64)
+                    loss_w = torch.cat(losses).cpu().numpy().astype(np.float64)
+                    probs_w = torch.cat(probs).reshape(-1).cpu().numpy().astype(np.float64)
                     w = np.concatenate(weights) > 0
                     dt = time.time() - window_t0
                     _log = {"window_auc": self._window_auc(
@@ -246,8 +409,7 @@ class Trainer:
         return "\n".join(rows)
 
     def MFP_pretrain(self) -> None:
-        batcher = self.get_batcher("train", True)
-        self.build_steps(len(batcher))
+        batcher = self._prepare_training()
         self._log_run_header("pretraining")
         logger.info(f"  mask_ratio = {self.args.mask_ratio}")
         logger.info(f"  pt_neg_num = {self.config.pt_neg_num}")
@@ -260,14 +422,12 @@ class Trainer:
         window_t0 = time.time()
         for epoch in range(self.args.num_train_epochs):
             logger.info(f"-------------------- epoch-{epoch} --------------------")
-            for batch in batcher.epoch(epoch):
-                prev = self.global_step
-                metrics = self.train_step(batch)
-                self.global_step += 1
+            for n, metrics, _ in self.train_epoch(batcher, epoch):
+                prev = self.global_step - n
                 for key, values in window.items():
                     values.append(metrics[key])
                 if self._should_log(prev):
-                    host = {k: torch.stack(v).cpu().numpy().astype(np.float64)
+                    host = {k: torch.cat(v).cpu().numpy().astype(np.float64)
                             for k, v in window.items()}
                     dt = time.time() - window_t0
                     _log = {"window_loss": float(host["loss"].mean()),
@@ -301,8 +461,7 @@ class Trainer:
         return _log
 
     def RFD_pretrain(self) -> None:
-        batcher = self.get_batcher("train", True)
-        self.build_steps(len(batcher))
+        batcher = self._prepare_training()
         self._log_run_header("pretraining")
         logger.info(f"  pt_type = {self.config.pt_type}")
         logger.info(f"  mask_ratio = {self.args.mask_ratio}")
@@ -314,14 +473,12 @@ class Trainer:
         window_t0 = time.time()
         for epoch in range(self.args.num_train_epochs):
             logger.info(f"-------------------- epoch-{epoch} --------------------")
-            for batch in batcher.epoch(epoch):
-                prev = self.global_step
-                metrics = self.train_step(batch)
-                self.global_step += 1
+            for n, metrics, _ in self.train_epoch(batcher, epoch):
+                prev = self.global_step - n
                 for key in keys:
                     window[key].append(metrics[key])
                 if self._should_log(prev):
-                    host = {k: torch.stack(v).cpu().numpy().astype(np.float64)
+                    host = {k: torch.cat(v).cpu().numpy().astype(np.float64)
                             for k, v in window.items()}
                     _log = {"window_rfd_loss": float(host["loss"].mean()),
                             "window_rfd_acc": float(host["acc"].mean()),

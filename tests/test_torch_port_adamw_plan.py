@@ -204,16 +204,20 @@ def test_optimizer_step_makes_one_list_call():
     params = [torch.nn.Parameter(p) for p in ps]
     calls = []
 
-    def update(*args):
-        calls.append([list(a) for a in args])
-        k1.fused_adamw_multi(*args)
+    def update(ps, mus, nus, grads, wds, scal, slot):
+        calls.append(([list(a) for a in (ps, mus, nus, grads, wds)], scal.clone(), slot))
+        k1.fused_adamw_leaves(ps, mus, nus, grads, wds, scal, slot)
 
     opt = AdamW(zip(names, params), make_schedule("const", 1e-3, 0, 10), 0.9, 0.999,
                 1e-8, 0.1, update=update)
+    opt.count = 6
     opt.step(gs)
     assert len(calls) == 1
-    got_p, _, _, got_g, got_s = calls[0]
+    (got_p, _, _, got_g, got_wds), scal, slot = calls[0]
     assert [id(t) for t in got_p] == [id(t) for t in params]
     assert all(torch.equal(a, b) for a, b in zip(got_g, gs))
-    assert [s.wd for s in got_s] == [np.float32(0.1).item() if decays(n) else 0.0
-                                    for n in names]
+    assert got_wds == [np.float32(0.1).item() if decays(n) else 0.0 for n in names]
+    # the step's scalars, in its slot of the buffer: pack_scalars' row at t = 7
+    assert scal[slot].tolist() == list(k1.scalar_row(k1.scalars(1e-3, 0.1, 0.9, 0.999,
+                                                                1e-8, 7)))
+    assert opt.count == 7

@@ -6,7 +6,9 @@ Marked `cuda`: each test skips without a CUDA device. On a machine with one
 Shapes here are the awkward ones (odd batch, ragged D, E not a multiple of
 4, empty and all-duplicate id segments, a last tile running past the
 table); chip_smoke.py holds the same kernels at the serving and training
-shapes.
+shapes. The last cases capture each train step kind into CUDA graphs
+(`train/graph.py`) and hold them to eager steps bit for bit, with draws
+that move on from replay to replay.
 """
 
 import pytest
@@ -1017,3 +1019,166 @@ def test_hybrid_bwd_pallas_gradient_equals_flat_k3(dev, dtype, sizes):
     assert (field_gather.scatter_launches, scatter.launches) == (before[0] + 1,
                                                                  before[1] + 2)
     assert torch.equal(blocked, flat)
+
+
+# ---- the multi-step dispatch: captured CUDA graphs ------------------------------------
+
+GRAPH_SIZES = [7, 24, 60, 300, 20_000, 5, 150, 30_000]  # 6 small fields, 2 big
+
+
+def _graph_trainer(dev, kind, dtype, resident, spc, seed=0):
+    """A narrow DCNv2 Trainer on the card for `kind`: supervised, rfd
+    (bwd_pallas), mfp (per-position, matmul) or pf_shared (per-field shared
+    noise, k = 20, the sparse table update)."""
+    import numpy as np
+
+    from map_tpu_torch.config import TrainingArguments
+    from map_tpu_torch.train.trainer import Trainer
+
+    lo = [int(x) for x in np.cumsum([10] + GRAPH_SIZES[:-1])]
+    hi = [a + s for a, s in zip(lo, GRAPH_SIZES)]
+    vocab = hi[-1]
+    rng = np.random.default_rng(seed)
+    rows = 4 * 512 + 100  # a group of 4 full batches, then a padded one
+    x = np.stack([rng.integers(a, b, rows) for a, b in zip(lo, hi)], 1).astype(np.int32)
+    y = rng.integers(0, 2, rows).astype(np.float32)
+    pretrain = kind != "supervised"
+    mfp = kind in ("mfp", "pf_shared")
+    cfg = Config(model_name="dcnv2", input_size=vocab, num_fields=8, embed_size=16,
+                 hidden_size=64, num_hidden_layers=2, num_cross_layers=2,
+                 compute_dtype=dtype, pretrain=pretrain, pt_type="MFP" if mfp else "RFD",
+                 proj_size=16, pt_neg_num=20, idx_low=lo, idx_high=hi,
+                 pt_per_field_noise=kind == "pf_shared",
+                 hybrid_mode={"rfd": "bwd_pallas", "mfp": "matmul"}.get(kind, ""),
+                 feat_count=(np.arange(vocab) % 89 + 1).astype(np.float32) if mfp else None)
+    args = TrainingArguments(
+        per_device_train_batch_size=512, learning_rate=1e-3, weight_decay=0.05,
+        lr_sched="cosine", num_train_epochs=2, seed=seed, compute_dtype=dtype,
+        pretrain=pretrain, pt_type=cfg.pt_type, RFD_replace="Unigram", mask_ratio=0.3,
+        sampling_method="randint", data_dir="", pt_shared_noise=kind == "pf_shared",
+        pt_per_field_noise=kind == "pf_shared", sparse_table_update=kind == "pf_shared",
+        device_resident_data=resident, steps_per_call=spc)
+    data = type("D", (), {"X": {"train": x}, "Y": {"train": y}})()
+    return Trainer(models.from_config(cfg, torch.Generator().manual_seed(seed)), cfg, args,
+                   data, device=dev)
+
+
+def _graph_run(trainer):
+    """Two epochs of 5 steps through the Trainer's pipeline -> each step's
+    metrics, stacked."""
+    batcher = trainer._prepare_training()
+    out = []
+    for epoch in range(2):
+        for n, metrics, _ in trainer.train_epoch(batcher, epoch):
+            out.append({k: v.reshape(n, -1) for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    return {k: torch.cat([m[k] for m in out]) for k in out[0]}
+
+
+@pytest.mark.parametrize("kind,dtype", [("supervised", "bfloat16"), ("supervised", "float32"),
+                                        ("rfd", "bfloat16"), ("mfp", "bfloat16"),
+                                        ("pf_shared", "bfloat16")])
+def test_graph_steps_equal_eager_steps(dev, kind, dtype):
+    """10 steps as captured graphs (the first call eager on a side stream,
+    then a graph of 4 and one of 1, each replayed) against 10 eager steps on
+    host batches, the port's own draws: the same bits."""
+    from map_tpu_torch.train.graph import launch_counts
+
+    eager = _graph_trainer(dev, kind, dtype, "off", 1)
+    ref = _graph_run(eager)
+    graphed = _graph_trainer(dev, kind, dtype, "on", 4)
+    before = launch_counts()
+    got = _graph_run(graphed)
+    multi = graphed.multi
+    assert multi.graphed and sorted(multi.graphs) == [1, 4]
+    assert {n: g.replays for n, g in multi.graphs.items()} == {1: 2, 4: 1}
+    assert graphed.optimizer.count == 10
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
+    ran = multi.launches_run(counts)
+    # K1 and K4 once a step, whichever way the step ran
+    assert ran["fused_adamw"] == 10 and ran["embedding_gather"] >= 10, ran
+    if kind == "pf_shared":
+        assert ran["sparse_adamw"] == 10 and ran["block_cumsum"] >= 10, ran
+    if kind == "rfd":
+        assert ran["field_block_scatter"] == 10, ran
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    for (name, a), b in zip(eager.model.named_parameters(), graphed.model.parameters()):
+        assert torch.equal(a, b), name
+
+
+def test_graph_replays_draw_anew_as_eager_steps_do(dev):
+    """A registered generator's replays draw on from where it stands: the
+    replayed draws are the eager sequence, and no two replays repeat."""
+    from map_tpu_torch.train.graph import MultiStep
+    from map_tpu_torch.train.optimizer import AdamW
+    from map_tpu_torch.train.schedules import make_schedule
+
+    w = torch.nn.Parameter(torch.zeros(8, device=dev))
+    opt = AdamW([("w", w)], make_schedule("const", 1e-3, 0, 10), 0.9, 0.999, 1e-8, 0.0,
+                slots=2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def step(batch):
+        r = torch.rand(8, generator=gen, device=dev) + batch["x"]
+        opt.step([r.clone()])
+        return {"r": r}
+
+    multi = MultiStep(step, 2, opt, dev, [gen])
+    x = {"x": torch.zeros(2, 8, device=dev)}
+    calls = [multi(2, x)["r"] for _ in range(4)]  # warm-up, capture + replay, 2 replays
+    assert multi.graphs[2].replays == 3
+    got = torch.cat(calls)
+    ref_gen = torch.Generator(device=dev).manual_seed(3)
+    ref = torch.stack([torch.rand(8, generator=ref_gen, device=dev) for _ in range(8)])
+    assert torch.equal(got, ref)
+    assert len({tuple(r.tolist()) for r in got}) == 8
+    assert opt.count == 8
+
+
+def test_wrappers_launch_on_the_capture_stream(dev):
+    """`build.current_stream`, the stream every wrapper launches on, is the
+    capture stream while a graph is captured, and the launch lands in the
+    graph: a K4 gather replayed gives the rows of the ids copied in."""
+    from map_tpu_torch.kernels import build
+
+    table = torch.randn(1000, 16, device=dev)
+    ids = torch.zeros(64, 8, dtype=torch.int32, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    embedding.embedding_lookup(table, ids)  # the warm-up: the library and the plan
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        seen = build.current_stream(dev.index or 0)
+        capture = torch.cuda.current_stream(dev).cuda_stream
+        out = embedding.embedding_lookup(table, ids)
+    assert seen == capture != torch.cuda.default_stream(dev).cuda_stream
+    ids.copy_(torch.randint(0, 1000, (64, 8), dtype=torch.int32, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, embedding.embedding_lookup_plain(table, ids))
+
+
+def test_capture_failure_raises(dev):
+    """A step that copies from the host inside the capture fails it; the
+    dispatch raises and runs nothing eagerly in its place."""
+    from map_tpu_torch.train.graph import MultiStep
+    from map_tpu_torch.train.optimizer import AdamW
+    from map_tpu_torch.train.schedules import make_schedule
+
+    w = torch.nn.Parameter(torch.zeros(4, device=dev))
+    opt = AdamW([("w", w)], make_schedule("const", 1e-3, 0, 10), 0.9, 0.999, 1e-8, 0.0,
+                slots=2)
+
+    def step(batch):
+        g = torch.tensor([1.0, 2.0, 3.0, 4.0], device=dev)  # a synchronous host copy
+        opt.step([g + batch["x"]])
+        return {"g": g}
+
+    multi = MultiStep(step, 2, opt, dev)
+    x = {"x": torch.zeros(2, 4, device=dev)}
+    multi(2, x)  # the warm-up runs eagerly
+    with pytest.raises(RuntimeError):
+        multi(2, x)
+    assert opt.count == 2
+

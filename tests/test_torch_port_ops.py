@@ -8,6 +8,7 @@ against the same plain versions on the card by `chip_smoke.py` and
 `tests/test_torch_port_cuda.py`.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,18 +152,22 @@ def test_adamw_plain_matches_pallas(wd):
     mu = (rng.normal(size=shape) * 1e-2).astype(np.float32)
     nu = (rng.random(size=shape) * 1e-4).astype(np.float32)
     g = (rng.normal(size=shape) * 1e-2).astype(np.float32)
-    # the port's copies first: the Pallas call updates p, mu, nu in place
-    # and runs asynchronously
-    tp, tmu, tnu = _t(p.copy()), _t(mu.copy()), _t(nu.copy())
-    ref = fused_adamw_dense(jnp.asarray(p), jnp.asarray(mu), jnp.asarray(nu),
-                            jnp.asarray(g), pack_scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3),
-                            interpret=True)
+    # map_tpu's update first, run to its end, on arrays of its own: JAX on
+    # the CPU dispatches it asynchronously and may take a numpy buffer as
+    # its own (zero-copy, when the buffer happens to be 64-byte aligned), so
+    # nothing it reads is shared with the port or with the test
+    scalars = pack_scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3)
+    ref = [np.array(r) for r in jax.block_until_ready(fused_adamw_dense(
+        *(jnp.array(a, copy=True) for a in (p, mu, nu, g)), scalars, interpret=True))]
+    # the port's update from the same float32 scalars (their computation is
+    # test_adamw_scalars_match_pack_scalars's), on copies of its own
+    s = port_adamw.AdamScalars(*np.asarray(scalars)[0, :7].tolist())
+    tp, tmu, tnu, tg = (torch.from_numpy(a.copy()) for a in (p, mu, nu, g))
     before = port_adamw.launches
-    port_adamw.fused_adamw(tp, tmu, tnu, _t(g),
-                           port_adamw.scalars(1e-3, wd, 0.9, 0.999, 1e-8, 3))
+    port_adamw.fused_adamw(tp, tmu, tnu, tg, s)
     assert port_adamw.launches == before  # the CPU path launches nothing
     for got, want in zip((tp, tmu, tnu), ref):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-9)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-9)
 
 
 # ---- K3: gradient scatter-add ----------------------------------------------
