@@ -110,13 +110,26 @@ each; any failure ends the run with a nonzero exit code.
 9. finetune: supervised DCNv2 from the RFD checkpoint (run_DCNv2_finetune.sh's
    default) and from the MFP one (13 tensors loaded, 4 skipped each), one
    epoch, eval AUC > 0.6, launches checked;
+9b. the rest of the zoo (`zoo_phase`): LR, FM, DNN, DeepFM, xDeepFM (CIN
+   50,50), AutoInt (2 layers of 40, 1 head, attention dropout 0.1) and the
+   Transformer (hidden = embed = 16, 3 layers, 2 heads, FFN 128, `attn,fc`)
+   at map_tpu's defaults on the widths above (MLP 3 x 1000), each: 5
+   supervised steps through the kernels against the plain versions in
+   bf16 and f32 (K1, K3, K4; LR's (V, 1) table through K4 and K3 at E = 1);
+   for the five pretrain-capable ones 5 MFP per-position steps the same way
+   and the finetune restore's counts from an MFP checkpoint; for DNN and
+   AutoInt 5 RFD steps under bwd_pallas; its supervised bf16 cell on both
+   paths (`path_time`, the 16-step bit check, the launches counted from 0
+   before it); `Predictor` rows/s at batch 10000 in bf16, the first
+   chunk's logits against the plain versions';
 10. times: median ms of each kernel (CUDA events, L2 flushed and a spin of
    about 1 ms queued on the card before each launch, so that the card, not
    the host's launch pace, sets the time), its bound on an H100 SXM, its
    plain version and one-call library yardstick; K4 at every shape the main
    path launches it (serving in f32 and bf16, the training input, the MFP
-   per-position candidates, per-field shared targets and noise; the
-   phases' own ids), each bit-equal to its plain version twice, beside
+   per-position candidates, per-field shared targets and noise, LR's
+   (V, 1) table; the phases' own ids), each bit-equal to its plain version
+   twice, beside
    F.embedding and `copy_` of its output, with its launches by shape in each
    training run (checked against the run's count) and its wrapper's host
    time a call; K2 at (10000, 384) and
@@ -137,8 +150,9 @@ each; any failure ends the run with a nonzero exit code.
    its plan's rows of b a block); the
    MFP step's matmul backward in its parts;
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
-   from the per-field shared run of 8b for K5, K7 and K8), nvidia-smi's
-   line, and last
+   from the per-field shared run of 8b for K5, K7 and K8, plus each zoo
+   model's graph path; `launches_by_path` gives each), nvidia-smi's line,
+   and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -693,10 +707,11 @@ def teacher_dataset(rng: np.random.Generator, train_rows: int):
 
 @contextlib.contextmanager
 def plain_layers():
-    """The DCNv2 layers with the gather and the cross net swapped for their
-    plain versions (differentiated by autograd), the hybrid lookup's K4, K3
-    and K6b, and the MFP decoder's gather, K8 and K5 for theirs, for the
-    comparison runs."""
+    """The layers with the gather (the table's and LR's, `layers.embedding_lookup`)
+    and the cross net swapped for their plain versions (differentiated by
+    autograd), the hybrid lookup's K4, K3 and K6b, and the MFP decoder's
+    gather, K8 and K5 for theirs, for the comparison runs. The zoo's other
+    layers run no kernel."""
     from map_tpu_torch.nn import layers
     from map_tpu_torch.ops import (
         cross,
@@ -729,6 +744,54 @@ def plain_layers():
             setattr(mod, name, fn)
 
 
+def seeded_model(dev, cfg, seed: int):
+    """The model of `cfg` from the weights of `seed` on `dev`, its dropout
+    drawing from a generator on `dev` seeded from `seed` too (AutoInt's
+    attention dropout), so that two runs from one seed draw alike."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.nn.layers import set_dropout_generator
+
+    m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    set_dropout_generator(m, torch.Generator(device=dev).manual_seed(seed + 7))
+    return m
+
+
+def launched_during(read_counts, fn, plain: bool):
+    """fn() -> (its result, the launches during it); a plain run (every
+    kernel swapped for its plain version) must launch none."""
+    before = read_counts()
+    with plain_layers() if plain else contextlib.nullcontext():
+        result = fn()
+    after = read_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    if plain and any(launched.values()):
+        raise AssertionError(f"the plain run launched kernels: {launched}")
+    return result, launched
+
+
+def supervised_steps(dev, cfg, targs, batches, read_counts, *, seed: int, steps: int,
+                     plain: bool):
+    """Supervised steps of `cfg` from the weights of `seed`, one per batch,
+    through the kernels or (plain) through their plain versions, a schedule
+    of `steps` -> (losses (n,), {name: parameter}, launches during the steps)."""
+    import torch
+
+    from map_tpu_torch.ops import fused_adamw
+    from map_tpu_torch.train.optimizer import build_optimizer
+    from map_tpu_torch.train.train_step import make_supervised_steps
+
+    m = seeded_model(dev, cfg, seed)
+    opt, _ = build_optimizer(
+        m, targs, steps, 0,
+        update=fused_adamw.fused_adamw_leaves_plain if plain else fused_adamw.fused_adamw_leaves)
+    step, _ = make_supervised_steps(m, opt, dev)
+    losses, launched = launched_during(
+        read_counts, lambda: torch.stack([step(b)["loss"] for b in batches]).cpu(), plain)
+    return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
+
+
 def mfp_args(output_dir: str, seed: int, **kw):
     """run_script/run_DCNv2_MFP.sh's flags, bf16, batch TRAIN_BATCH."""
     from map_tpu_torch.config import TrainingArguments
@@ -749,12 +812,11 @@ def mfp_step_fn(dev, cfg, targs, tables, *, seed: int, steps: int, shared: bool 
     -> (model, step)."""
     import torch
 
-    from map_tpu_torch import models
     from map_tpu_torch.ops import fused_adamw, sparse_adamw
     from map_tpu_torch.train.optimizer import build_optimizer
     from map_tpu_torch.train.train_step import make_mfp_steps
 
-    m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    m = seeded_model(dev, cfg, seed)
     handoff = sparse_adamw.StreamHandoff() if sparse else None
     m.mfp_criterion.handoff = handoff
     opt, _ = build_optimizer(
@@ -778,13 +840,8 @@ def mfp_steps(dev, cfg, targs, tables, batches, draws, read_counts, *, seed: int
 
     m, step = mfp_step_fn(dev, cfg, targs, tables, seed=seed, steps=len(batches),
                           shared=shared, sparse=sparse, plain=plain)
-    before = read_counts()
-    with plain_layers() if plain else contextlib.nullcontext():
-        losses = torch.stack([step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu()
-    after = read_counts()
-    launched = {k: after[k] - before[k] for k in after}
-    if plain and any(launched.values()):
-        raise AssertionError(f"the plain run launched kernels: {launched}")
+    losses, launched = launched_during(read_counts, lambda: torch.stack(
+        [step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu(), plain)
     return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
 
 
@@ -1292,12 +1349,11 @@ def rfd_step_fn(dev, cfg, targs, seed: int, plain: bool = False):
     through K1 or (plain) its plain version -> (model, step)."""
     import torch
 
-    from map_tpu_torch import models
     from map_tpu_torch.ops import fused_adamw
     from map_tpu_torch.train.optimizer import build_optimizer
     from map_tpu_torch.train.train_step import make_rfd_steps
 
-    m = models.from_config(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    m = seeded_model(dev, cfg, seed)
     opt, _ = build_optimizer(
         m, targs, 100, 0,
         update=fused_adamw.fused_adamw_leaves_plain if plain else fused_adamw.fused_adamw_leaves)
@@ -1313,13 +1369,8 @@ def rfd_steps(dev, cfg, targs, batches, draws, read_counts, *, seed: int, plain:
     import torch
 
     m, step = rfd_step_fn(dev, cfg, targs, seed, plain)
-    before = read_counts()
-    with plain_layers() if plain else contextlib.nullcontext():
-        losses = torch.stack([step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu()
-    after = read_counts()
-    launched = {k: after[k] - before[k] for k in after}
-    if plain and any(launched.values()):
-        raise AssertionError(f"the plain run launched kernels: {launched}")
+    losses, launched = launched_during(read_counts, lambda: torch.stack(
+        [step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu(), plain)
     return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
 
 
@@ -1461,6 +1512,195 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     return dict(launches=launches, ckpt=ckpt, work=work)
 
 
+# the zoo at full width: map_tpu's model defaults (the reference's
+# code/arguments.py) on the canonical DCNv2 scripts' shared settings (24
+# fields, embed 16, batch 4096, the MLP 3 x 1000 of run_DCNv2_*.sh)
+ZOO_KNOBS = {
+    "lr": {},
+    "fm": {},
+    "dnn": {},
+    "deepfm": {},
+    "xdeepfm": dict(cin_layer_units="50,50"),
+    "autoint": dict(num_attn_layers=2, attn_size=40, num_attn_heads=1,
+                    attn_probs_dropout_rate=0.1),
+    "trans": dict(hidden_size=EMBED, num_hidden_layers=3, num_attn_heads=2,
+                  intermediate_size=128, output_reduction="attn,fc", norm_first=False,
+                  layer_norm_eps=1e-12),
+}
+ZOO_PRETRAIN = ("dnn", "deepfm", "xdeepfm", "autoint", "trans")
+ZOO_RFD = ("dnn", "autoint")
+
+
+def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
+    """8e. The rest of the zoo (LR, FM, DNN, DeepFM, xDeepFM, AutoInt,
+    Transformer) at full width, each model in turn:
+    - 5 supervised steps through the kernels against the plain versions
+      (`parity_check`), bf16 and f32, with K1, K3 and K4 launched;
+    - the five pretrain-capable ones: 5 MFP per-position steps the same way
+      (phase 8's noise, batches and draws), and the finetune restore's
+      loaded / skipped counts from an MFP checkpoint of the model;
+    - DNN and AutoInt: 5 RFD steps under bwd_pallas the same way, K6b once
+      a step;
+    - the two paths of its supervised bf16 cell (`path_phase`: wall, busy
+      and idle a step, the 16-step bit check, the launches, counted from 0
+      before it);
+    - `Predictor` over --rows rows at batch 10000 in bf16: rows/s, its first
+      chunk's logits against the plain versions'.
+    Returns {model: its graph path's launches} for the kernels line."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.config import TrainingArguments
+    from map_tpu_torch.data.loader import Batcher
+    from map_tpu_torch.objectives.corruption import draw_rfd, mask_num_of
+    from map_tpu_torch.serve import Predictor
+    from map_tpu_torch.train import checkpoints
+    from map_tpu_torch.train.train_step import draw_mfp
+    from map_tpu_torch.train.trainer import Trainer
+
+    _, _, vocab = field_blocks()
+    num_fields = len(FIELD_SIZES)
+    mask_num = mask_num_of(num_fields, MFP_MASK_RATIO)
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH, shuffle=True,
+                           seed=args.seed).epoch(0))[:PARITY_STEPS]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    mfp_draws = [draw_mfp(gen, mfp["noise"], TRAIN_BATCH, num_fields, mask_num, MFP_NEG,
+                          "randint") for _ in batches]
+    rfd_batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH, shuffle=True,
+                               seed=args.seed, noise_source=data.X["train"],
+                               noise_rows_per_example=mask_num).epoch(0))[:PARITY_STEPS]
+    rfd_draws = [draw_rfd(gen, TRAIN_BATCH, num_fields, mask_num, "randint", "Unigram",
+                          vocab, dev) for _ in rfd_batches]
+    score_ids = draw_ids(np.random.default_rng(args.seed + 5), args.rows)
+    sup_args = TrainingArguments(
+        output_dir=work, dataset_name="in-memory", data_dir="",
+        per_device_train_batch_size=TRAIN_BATCH, per_device_eval_batch_size=EVAL_BATCH,
+        learning_rate=LR, weight_decay=WEIGHT_DECAY, lr_sched="const", num_train_epochs=1,
+        logging_steps=10, compute_dtype="bfloat16", seed=args.seed)
+    mfp_targs = mfp_args(work, args.seed)
+    rfd_targs = rfd_args(work, args.seed)
+    graph_launches = {}
+    for name, knobs in ZOO_KNOBS.items():
+        zc = dataclasses.replace(cfg, model_name=name, **knobs)
+
+        def fresh(c):
+            return dict(models.from_config(c, torch.Generator().manual_seed(
+                args.seed)).named_parameters())
+
+        # 5 supervised steps, kernels against plain versions
+        for dname in ("bfloat16", "float32"):
+            c = dataclasses.replace(zc, compute_dtype=dname)
+            (k_loss, k_params, launched), (p_loss, p_params, _) = (
+                supervised_steps(dev, c, sup_args, batches, read_counts, seed=args.seed,
+                                 steps=args.train_steps, plain=plain)
+                for plain in (False, True))
+            check(f"zoo {name} {dname}: K1 once a step, K3 and K4 at least once a step",
+                  launched["fused_adamw"] == PARITY_STEPS
+                  and launched["scatter_add"] >= PARITY_STEPS
+                  and launched["embedding_gather"] >= PARITY_STEPS, launched=launched)
+            parity_check(f"zoo {name} {dname}: {PARITY_STEPS} steps, kernels vs plain "
+                         "versions", dname, LR, k_loss, p_loss, k_params, p_params, fresh(c))
+            del k_params, p_params
+
+        if name in ZOO_PRETRAIN:
+            # 5 MFP steps, kernels against plain versions
+            for dname in ("bfloat16", "float32"):
+                c = dataclasses.replace(
+                    zc, compute_dtype=dname, pretrain=True, pt_type="MFP",
+                    proj_size=MFP_PROJ, pt_neg_num=MFP_NEG, nce_loss_type="nce",
+                    feat_count=mfp["feat_count"], hybrid_mode="matmul")
+                (k_loss, k_params, launched), (p_loss, p_params, _) = (
+                    mfp_steps(dev, c, mfp_targs, mfp["noise"], batches, mfp_draws,
+                              read_counts, seed=args.seed, shared=False, sparse=False,
+                              plain=plain) for plain in (False, True))
+                check(f"zoo {name} mfp {dname}: K5 and K8 once a step",
+                      launched["scatter_unique_sorted"] == PARITY_STEPS
+                      and launched["block_cumsum"] == PARITY_STEPS, launched=launched)
+                parity_check(f"zoo {name} mfp {dname}: {PARITY_STEPS} steps, kernels vs "
+                             "plain versions", dname, MFP_LR, k_loss, p_loss, k_params,
+                             p_params, fresh(c))
+                del k_params, p_params
+            # the finetune restore from an MFP checkpoint of the model
+            ckpt_dir = os.path.join(work, f"{name}_mfp")
+            sd = models.from_config(c, torch.Generator().manual_seed(args.seed)).state_dict()
+            ckpt = checkpoints.save_model(sd, ckpt_dir, 1)
+            c_ft = dataclasses.replace(zc, compute_dtype="bfloat16")
+            ft = Trainer(models.from_config(c_ft, torch.Generator().manual_seed(args.seed + 1)),
+                         c_ft, dataclasses.replace(sup_args, finetune=True,
+                                                   pretrained_model_path=ckpt), data)
+            expected = (len(sd) - 4, 4)
+            emit("zoo_finetune_restore", model=name, loaded_skipped=ft.finetune_counts,
+                 checkpoint_tensors=len(sd))
+            check(f"zoo {name}: finetune from MFP, {expected[0]} tensors loaded, "
+                  f"{expected[1]} skipped", ft.finetune_counts == expected,
+                  loaded_skipped=ft.finetune_counts)
+            del ft, sd
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+        if name in ZOO_RFD:
+            for dname in ("bfloat16", "float32"):
+                c = dataclasses.replace(zc, compute_dtype=dname, pretrain=True,
+                                        pt_type="RFD", RFD_replace="Unigram",
+                                        proj_size=MFP_PROJ, hybrid_mode="bwd_pallas")
+                (k_loss, k_params, launched), (p_loss, p_params, _) = (
+                    rfd_steps(dev, c, rfd_targs, rfd_batches, rfd_draws, read_counts,
+                              seed=args.seed, plain=plain) for plain in (False, True))
+                check(f"zoo {name} rfd {dname}: K6b launched once a step",
+                      launched["field_block_scatter"] == PARITY_STEPS, launched=launched)
+                parity_check(f"zoo {name} rfd {dname}: {PARITY_STEPS} steps, kernels vs "
+                             "plain versions", dname, MFP_LR, k_loss, p_loss, k_params,
+                             p_params, fresh(c))
+                del k_params, p_params
+
+        # today's path against the graph path, supervised bf16
+        c_sup = dataclasses.replace(zc, compute_dtype="bfloat16")
+
+        def make(resident, spc, c_sup=c_sup):
+            return Trainer(models.from_config(c_sup, torch.Generator().manual_seed(args.seed)),
+                           c_sup, dataclasses.replace(
+                               sup_args, num_train_epochs=3, device_resident_data=resident,
+                               steps_per_call=spc), data)
+
+        reset_counts()
+        path = path_phase(f"zoo {name} bfloat16", make)
+        graph = path["graph"]
+        graph_launches[name] = graph["launches"]
+        steps = sum(graph["steps"])
+        check(f"zoo {name}: the graph path launched K1 once a step, K3 and K4 at least "
+              "once a step", graph["launches"]["fused_adamw"] == steps
+              and graph["launches"]["scatter_add"] >= steps
+              and graph["launches"]["embedding_gather"] >= steps,
+              launches=graph["launches"], steps=steps)
+
+        # serving
+        model_dir = os.path.join(work, f"{name}_serve")
+        m = models.from_config(c_sup, torch.Generator().manual_seed(args.seed))
+        checkpoints.save_model(m.state_dict(), model_dir, 1)
+        c_sup.save(model_dir)
+        pred = Predictor(model_dir, 1, batch_size=args.batch)
+        first = score_ids[:args.batch]
+        logits0 = pred.predict_logits(first)  # the warm-up chunk
+        with torch.inference_mode(), plain_layers():
+            ref = pred.model(torch.from_numpy(first).to(dev)).reshape(-1).float().cpu()
+        err = compare(f"zoo {name} serving logits bfloat16, {args.batch} rows",
+                      torch.from_numpy(logits0), ref, *TOL_LOGITS["bfloat16"])
+        seconds = []
+        for _ in range(SERVING_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict_logits(score_ids)
+            seconds.append(time.perf_counter() - t0)
+        emit("zoo_serving", model=name, compute_dtype="bfloat16", rows=args.rows,
+             batch=args.batch, seconds=seconds, rows_per_s=args.rows / min(seconds),
+             max_abs_err=err, num_params=len(list(m.parameters())), card=smi_line())
+        del pred, m
+        shutil.rmtree(model_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return graph_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1500,8 +1740,6 @@ def main(argv=None) -> int:
     )
     from map_tpu_torch.serve import Predictor
     from map_tpu_torch.train import checkpoints
-    from map_tpu_torch.train.optimizer import build_optimizer
-    from map_tpu_torch.train.train_step import make_supervised_steps
     from map_tpu_torch.train.trainer import Trainer
     from map_tpu_torch.utils.metrics import roc_auc
 
@@ -1844,22 +2082,9 @@ def main(argv=None) -> int:
         batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH,
                                shuffle=True, seed=args.seed).epoch(0))[:PARITY_STEPS]
 
-        def five_steps(plain: bool):
-            m = models.from_config(cfg_d, torch.Generator().manual_seed(args.seed)).to(dev)
-            opt, _ = build_optimizer(
-                m, targs, args.train_steps, 0,
-                update=(fused_adamw.fused_adamw_leaves_plain if plain
-                        else fused_adamw.fused_adamw_leaves))
-            step, _ = make_supervised_steps(m, opt, dev)
-            before = read_counts()
-            with plain_layers() if plain else contextlib.nullcontext():
-                losses = torch.stack([step(b)["loss"] for b in batches]).cpu()
-            if plain and read_counts() != before:
-                raise AssertionError("the plain run launched a kernel")
-            return losses, {n: p.detach() for n, p in m.named_parameters()}
-
-        k_loss, k_params = five_steps(plain=False)
-        p_loss, p_params = five_steps(plain=True)
+        (k_loss, k_params, _), (p_loss, p_params, _) = (
+            supervised_steps(dev, cfg_d, targs, batches, read_counts, seed=args.seed,
+                             steps=args.train_steps, plain=plain) for plain in (False, True))
         p0 = dict(models.from_config(cfg_d, torch.Generator().manual_seed(args.seed))
                   .named_parameters())
         parity_check(f"training {dname}: {PARITY_STEPS} steps, kernels vs plain versions",
@@ -1945,6 +2170,7 @@ def main(argv=None) -> int:
     pfs = mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts)
     finetune_phase(args, dev, cfg, data, mfp["ckpt"], "MFP", reset_counts, read_counts)
     shutil.rmtree(mfp["work"], ignore_errors=True)
+    zoo = zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts)
 
     # 10. times at the serving, training and MFP shapes. K4 at every shape
     # the main path launches it (the phases' own ids; the decoder table is
@@ -1980,6 +2206,16 @@ def main(argv=None) -> int:
                                       for run, shapes in by_shape.items()})
             check(f"{key} {tuple(id_t.shape)} x {tab.shape[1]}: bit-equal to the plain "
                   "version, twice", t["bit_equal_twice"])
+        # LR's (V, 1) table (LR, FM, DeepFM): K4 at E = 1, f32 out, the
+        # training input and the serving ids (the scalar path)
+        lr_table = (torch.randn(vocab, 1, generator=torch.Generator().manual_seed(
+            args.seed + 12))).to(dev)
+        for key, id_t in (("K4 LR table, training", train_ids),
+                          ("K4 LR table, serving", ids)):
+            t = times[key] = k4_times(lr_table, id_t, None)
+            t.update(plan=embedding.plan(id_t.numel(), 1, False, True)._asdict())
+            check(f"{key} {tuple(id_t.shape)} x 1: bit-equal to the plain version, twice",
+                  t["bit_equal_twice"])
         times["K4 training input"]["host_us_per_call"] = host_us_per_call(
             lambda: embedding.embedding_lookup(table, train_ids, torch.bfloat16))
         del decoder
@@ -2079,20 +2315,20 @@ def main(argv=None) -> int:
         def k3_times(k3_ids, g, vocab):
             """K3 as the step calls it (ms: the stable sort and the kernel),
             and apart: the sort alone and the kernel alone on sorted ids."""
-            flat = k3_ids.reshape(-1)
-            flat_long, g32 = flat.long(), g.reshape(-1, EMBED).float()
+            flat, e = k3_ids.reshape(-1), g.shape[-1]
+            flat_long, g32 = flat.long(), g.reshape(-1, e).float()
             sorted_ids, perm = torch.sort(flat, stable=True)
             # ids (int32) and grads read once, the dense f32 table written once
-            nbytes = flat.numel() * 4 + g.numel() * g.element_size() + vocab * EMBED * 4
+            nbytes = flat.numel() * 4 + g.numel() * g.element_size() + vocab * e * 4
             counts = torch.bincount(flat_long)
             t = dict(
                 ms=time_ms(lambda: scatter.scatter_add(k3_ids, g, vocab)),
                 sort_ms=time_ms(lambda: torch.sort(flat, stable=True)),
                 kernel_ms=time_ms(lambda: scatter.scatter_add_sorted(sorted_ids, perm, g, vocab)),
                 plain_ms=time_ms(lambda: scatter.scatter_add_plain(k3_ids, g, vocab)),
-                library_ms=time_ms(lambda: torch.zeros(vocab, EMBED, device=dev)
+                library_ms=time_ms(lambda: torch.zeros(vocab, e, device=dev)
                                    .index_add_(0, flat_long, g32)),
-                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", width=e,
                 # max_duplicates: the longest segment, which one warp sums in order
                 ids=flat.numel(), segments=int((counts > 0).sum()),
                 max_duplicates=int(counts.max()))
@@ -2109,16 +2345,40 @@ def main(argv=None) -> int:
                                     dtype=torch.int32).to(dev)
         # and on an MFP step's corrupted ids, where every masked position
         # holds the <mask> id 3: one segment of about 25,000 rows
-        for key, dname, k3_ids in (("K3 bfloat16", "bfloat16", train_ids),
+        # and LR's (V, 1) table gradient from f32 rows (E = 1, the scalar walk)
+        k3_grads["lr"] = (torch.randn(TRAIN_BATCH, len(FIELD_SIZES), 1,
+                                      generator=gen) * 1e-3).to(dev)
+        for key, dname, k3_ids in (("K3 LR table, f32, E = 1", "lr", train_ids),
+                                   ("K3 bfloat16", "bfloat16", train_ids),
                                    ("K3 float32", "float32", train_ids),
                                    ("K3 bfloat16, uniform ids", "bfloat16", uniform_ids),
                                    ("K3 bfloat16, MFP corrupted ids", "bfloat16",
                                     mfp["corrupted"])):
             g = k3_grads[dname]
             times[key] = k3_times(k3_ids, g, vocab)
-            check(f"{key}: bit-equal to the plain version", torch.equal(
-                scatter.scatter_add(k3_ids, g, vocab), scatter.scatter_add_plain(k3_ids, g, vocab)),
-                max_duplicates=times[key]["max_duplicates"])
+            got = scatter.scatter_add(k3_ids, g, vocab)
+            if g.shape[-1] > 1:
+                check(f"{key}: bit-equal to the plain version", torch.equal(
+                    got, scatter.scatter_add_plain(k3_ids, g, vocab)),
+                    max_duplicates=times[key]["max_duplicates"])
+            else:
+                # at width 1 the card's index_put_ sums a segment of 32 or
+                # more rows by warps, not in turn: the plain version's
+                # in-order sum is its CPU route (index_add_), and the card's
+                # is held within the f32 sums' rounding bound
+                plain = scatter.scatter_add_plain(k3_ids, g, vocab)
+                flat = k3_ids.reshape(-1).long()
+                abs_sum = torch.zeros_like(plain).index_add_(0, flat, g.reshape(-1, 1).abs())
+                count = torch.bincount(flat, minlength=vocab).float()[:, None]
+                bound = 2 * (count - 1).clamp(min=0) * 2.0 ** -24 * abs_sum
+                check(f"{key}: bit-equal to the plain version's in-order sum (index_add_ "
+                      "on the CPU), within the rounding bound of the card's index_put_",
+                      torch.equal(got.cpu(), scatter.scatter_add_plain(
+                          k3_ids.cpu(), g.cpu(), vocab))
+                      and bool(((got - plain).abs() <= bound).all()),
+                      max_duplicates=times[key]["max_duplicates"],
+                      max_abs_err_card_plain=float((got - plain).abs().max()))
+            del got
 
         # K5 on the MFP step's folded candidate stream: the dense output
         # written once, the num_unique valid entries (id and 33 values) read
@@ -2281,16 +2541,24 @@ def main(argv=None) -> int:
     # backward (this slice's main path: K1-K4, K6b) and the per-field shared
     # MFP run (K5, K7, K8). K6a has no caller in the package (nor in
     # map_tpu's): 0.
+    # The zoo's paths (each model's supervised bf16 graph path, counted from
+    # 0 before it) add theirs: `launches` sums the paths, `launches_by_path`
+    # gives each.
     src = "map_tpu_torch/csrc"
     main_path = {**pfs["launches"], **{k: v for k, v in rfd["launches"].items()
                                        if k not in ("scatter_unique_sorted",
                                                     "block_cumsum", "sparse_adamw")}}
+    by_path = {name: {"dcnv2 rfd bwd_pallas / mfp pf-shared": n,
+                      **{f"zoo {m} graph": zoo[m][name] for m in zoo}}
+               for name, n in main_path.items()}
 
     def entry(name, source, replaces, err, timing):
         return dict(name=name, route="cuda", source=f"{src}/{source}",
-                    replaces=replaces, launches=main_path[name], max_abs_err=err,
+                    replaces=replaces, launches=sum(by_path[name].values()),
+                    max_abs_err=err,
                     **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")})
+                                               "bound_by", "library_ms")},
+                    launches_by_path=by_path[name])
 
     kernels = [
         entry("embedding_gather", "embedding_gather.cu",

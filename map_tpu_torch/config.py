@@ -1,7 +1,8 @@
 """Run flags and the model config. Counterpart: `map_tpu/config.py`.
 
-`TrainingArguments` and `ModelArguments` are the DCNv2 subset of map_tpu's
-flags (`config.py:21-245`) with map_tpu's defaults: supervised training, MFP
+`TrainingArguments` and `ModelArguments` are the ported subset of map_tpu's
+flags (`config.py:21-245`) with map_tpu's defaults: the models of
+`models/zoo.py` (all of map_tpu's but FGCNN and FiGNN), supervised training, MFP
 pretraining (per-position, shared, per-field and per-field-shared noise; the
 `nce`, `sampled` and `full` losses; the sparse table update), RFD
 pretraining (its four generators), the field-blocked hybrid lookup and its
@@ -77,6 +78,23 @@ class Config:
     nce_loss_type: str = "nce"
     field_blocked_lookup: bool = True
     hybrid_mode: str = ""
+    # the rest of the zoo (map_tpu config.py:188-241): AutoInt's and the
+    # Transformer's attention, xDeepFM's CIN, the LR and MLP towers
+    num_attn_heads: int = 1
+    attn_probs_dropout_rate: float = 0.1
+    intermediate_size: int = 128
+    norm_first: bool = False
+    res_conn: bool = False
+    output_reduction: str = "sum,max,sum"
+    attn_scale: bool = False
+    use_lr: bool = False
+    attn_size: int = 40
+    num_attn_layers: int = 2
+    cin_layer_units: str = "50,50"
+    dnn_size: int = 1000
+    num_dnn_layers: int = 0
+    dnn_act: str = "relu"
+    dnn_drop: float = 0.0
     feat_count: Optional[np.ndarray] = field(default=None, repr=False)
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -181,8 +199,8 @@ class TrainingArguments:
 
 @dataclass
 class ModelArguments:
-    """DCNv2's and the MFP head's hyperparameters (map_tpu
-    `config.py:176-235`)."""
+    """The hyperparameters of the ported models and of the pretraining
+    heads (map_tpu `config.py:176-241`)."""
 
     model_name: str = "dcnv2"
     embed_size: int = 32
@@ -194,6 +212,21 @@ class ModelArguments:
     layer_norm_eps: float = 1e-12
     embed_norm: bool = False
     num_cross_layers: int = 1
+    num_attn_heads: int = 1
+    attn_probs_dropout_rate: float = 0.1
+    intermediate_size: int = 128
+    norm_first: bool = False
+    res_conn: bool = False
+    output_reduction: str = "sum,max,sum"  # trans: fc | mean,fc | sum,fc | attn,fc
+    attn_scale: bool = False
+    use_lr: bool = False
+    attn_size: int = 40
+    num_attn_layers: int = 2
+    cin_layer_units: str = "50,50"
+    dnn_size: int = 1000
+    num_dnn_layers: int = 0
+    dnn_act: str = "relu"
+    dnn_drop: float = 0.0
     pt_neg_num: int = 25
     proj_size: int = 32
     nce_loss_type: str = "nce"  # nce | sampled | full
@@ -238,7 +271,8 @@ RFD_REPLACE = ("Unigram", "Uniform", "Whole-Uniform", "Whole-Unigram")
 def check_supported(model_args: ModelArguments,
                     training_args: TrainingArguments) -> None:
     """Raise on a pretraining type or RFD generator map_tpu does not have,
-    and on a device_resident_data other than auto, on or off."""
+    on a device_resident_data other than auto, on or off, and on a model
+    config map_tpu refuses (`validate_model_config`)."""
     if training_args.pretrain and training_args.pt_type not in ("MFP", "RFD"):
         raise NotImplementedError(f"pt_type={training_args.pt_type}: MFP | RFD")
     if (training_args.pretrain and training_args.pt_type == "RFD"
@@ -248,6 +282,16 @@ def check_supported(model_args: ModelArguments,
     if training_args.device_resident_data not in ("auto", "on", "off"):
         raise ValueError(f"device_resident_data={training_args.device_resident_data}: "
                          "auto | on | off")
+    validate_model_config(model_args)
+
+
+def validate_model_config(c) -> None:
+    """map_tpu's `validate_model_config` (`models/base.py:143-147`): the
+    Transformer adds its layers' outputs to the embeddings, so it needs
+    embed_size == hidden_size."""
+    if c.model_name.lower() == "trans" and c.embed_size != c.hidden_size:
+        raise ValueError(f"model trans requires embed_size == hidden_size, got "
+                         f"{c.embed_size} and {c.hidden_size}")
 
 
 def build_config(model_args: ModelArguments, training_args: TrainingArguments,

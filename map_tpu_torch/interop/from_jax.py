@@ -5,7 +5,8 @@ numpy arrays (`train/checkpoints.load_jax_model_file` reads one from a
 `{step}.model` file) and returns the port's `state_dict`, whose keys are the
 reference torch names of `map_tpu/interop/torch_import.py:model_rules`.
 
-Layout changes on the way:
+The rules are the port's copy of map_tpu's, for every ported model (all of
+map_tpu's but FGCNN and FiGNN). Layout changes on the way:
 - lane-packed tables (map_tpu `ops/packed_table.py`, (R, p*E) with p = 128//E
   and padding rows up to a 512-row multiple) are unpacked to (V, E) with
   `reshape(-1, E)[:V]`, which drops the padding rows; a plain (V, E) table
@@ -13,9 +14,14 @@ Layout changes on the way:
   same way: `emb` (R, 4 * 32) or (V, 32) to (V, proj_size), `bias` (R, 128)
   or (V,) to the reference's (V, 1);
 - Dense and cross kernels are flax (in, out) and become torch (out, in);
+- CIN's kernels (in, out) become the reference's Conv1d weights (out, in, 1);
+- the Transformer's q_proj, k_proj and v_proj (kernels and biases) stack
+  into torch's packed `self_attn.in_proj_weight` (3D, D) / `in_proj_bias`;
 - LayerNorm `scale` / `bias` become `weight` / `bias`.
 The heads follow the config: the MFP head, the RFD head (`pred_rfd_hidden`
-and `pred_rfd_out` to `pred_rfd.0` and `pred_rfd.2`), or fc_out.
+and `pred_rfd_out` to `pred_rfd.0` and `pred_rfd.2`), or the model's
+supervised heads (with the `attn,fc` reduction's `attn_hidden` and
+`attn_score` as `field_reduction_attn.0` and `.2`).
 """
 
 from __future__ import annotations
@@ -30,36 +36,141 @@ from map_tpu_torch.config import Config
 Rule = Tuple[str, Tuple[str, ...], str]  # (torch key, flax path, transform)
 
 
-def dcnv2_rules(config: Config) -> List[Rule]:
+def _linear(tk: str, fp: Tuple[str, ...]) -> List[Rule]:
+    return [(f"{tk}.weight", fp + ("dense", "kernel"), "t"),
+            (f"{tk}.bias", fp + ("dense", "bias"), "id")]
+
+
+def _emb(config: Config) -> List[Rule]:
     rules: List[Rule] = [("embed.embedding.weight", ("embed", "embedding"), "table")]
     if config.embed_norm:
         rules += [("embed.layer_norm.weight", ("embed", "layer_norm", "scale"), "id"),
                   ("embed.layer_norm.bias", ("embed", "layer_norm", "bias"), "id")]
-    for i in range(config.num_cross_layers):
-        rules += [(f"cross_net.cross_layers.{i}.weight", ("cross_net", f"kernel_{i}"), "t"),
-                  (f"cross_net.cross_layers.{i}.bias", ("cross_net", f"bias_{i}"), "id")]
-    for j in range(config.num_hidden_layers):
-        fp = ("parallel_dnn", f"layer_{j}", "dense")
-        rules += [(f"parallel_dnn.dnn.{3 * j}.weight", fp + ("kernel",), "t"),
-                  (f"parallel_dnn.dnn.{3 * j}.bias", fp + ("bias",), "id")]
-    if config.mfp:  # the MFP head replaces fc_out (torch_import.py:281-289)
-        rules += [("feat_encoder.weight", ("feat_encoder", "dense", "kernel"), "t"),
-                  ("feat_encoder.bias", ("feat_encoder", "dense", "bias"), "id"),
-                  ("mfp_criterion.emb.weight", ("mfp_decoder", "emb"), "proj_table"),
-                  ("mfp_criterion.bias.weight", ("mfp_decoder", "bias"), "bias_table")]
-    elif config.rfd:  # pred_rfd.0 / pred_rfd.2 (torch_import.py:287-288)
-        for key, node in (("pred_rfd.0", "pred_rfd_hidden"), ("pred_rfd.2", "pred_rfd_out")):
-            rules += [(f"{key}.weight", (node, "dense", "kernel"), "t"),
-                      (f"{key}.bias", (node, "dense", "bias"), "id")]
-    else:
-        rules += [("fc_out.weight", ("fc_out", "dense", "kernel"), "t"),
-                  ("fc_out.bias", ("fc_out", "dense", "bias"), "id")]
     return rules
 
 
-def _transform(kind: str, arr: np.ndarray, config: Config) -> np.ndarray:
+def _mlp(tk: str, fp: str, num_layers: int) -> List[Rule]:
+    # [Linear, act, Dropout] a layer in one nn.Sequential named `dnn`
+    rules: List[Rule] = []
+    for j in range(num_layers):
+        rules += _linear(f"{tk}.dnn.{3 * j}", (fp, f"layer_{j}"))
+    return rules
+
+
+def _lr(tk: str) -> List[Rule]:
+    # the standalone LR names its table embed_w (`code/models.py:133-135`)
+    return [(f"{tk}embed_w.weight", ("lr_layer", "weight"), "id"),
+            (f"{tk}bias", ("lr_layer", "bias"), "id")]
+
+
+def _cin(units: List[int]) -> List[Rule]:
+    # the reference's CIN names its 1x1 convolutions layer_1.. (torch
+    # (out, in, 1); map_tpu's kernel is (in, out))
+    rules: List[Rule] = []
+    for i in range(len(units)):
+        rules += [(f"cin.cin_layer.layer_{i + 1}.weight", ("cin", f"kernel_{i}"), "conv1x1"),
+                  (f"cin.cin_layer.layer_{i + 1}.bias", ("cin", f"bias_{i}"), "id")]
+    return rules
+
+
+def _encoder_layer(tk: str, fp: str) -> List[Rule]:
+    """torch's TransformerEncoderLayer; its packed in_proj holds map_tpu's
+    q_proj, k_proj and v_proj (the `in_proj_*` transforms read all three)."""
+    rules: List[Rule] = [(f"{tk}.self_attn.in_proj_weight", (fp,), "in_proj_weight"),
+                         (f"{tk}.self_attn.in_proj_bias", (fp,), "in_proj_bias")]
+    rules += _linear(f"{tk}.self_attn.out_proj", (fp, "out_proj"))
+    rules += _linear(f"{tk}.linear1", (fp, "linear1"))
+    rules += _linear(f"{tk}.linear2", (fp, "linear2"))
+    for j in (1, 2):
+        rules += [(f"{tk}.norm{j}.weight", (fp, f"norm{j}", "scale"), "id"),
+                  (f"{tk}.norm{j}.bias", (fp, f"norm{j}", "bias"), "id")]
+    return rules
+
+
+def _heads(config: Config, *supervised: str) -> List[Rule]:
+    """The MFP head or the RFD head in place of the supervised heads."""
+    if config.mfp:  # torch_import.py:281-289
+        return (_linear("feat_encoder", ("feat_encoder",))
+                + [("mfp_criterion.emb.weight", ("mfp_decoder", "emb"), "proj_table"),
+                   ("mfp_criterion.bias.weight", ("mfp_decoder", "bias"), "bias_table")])
+    if config.rfd:  # pred_rfd.0 / pred_rfd.2 (torch_import.py:287-288)
+        return (_linear("pred_rfd.0", ("pred_rfd_hidden",))
+                + _linear("pred_rfd.2", ("pred_rfd_out",)))
+    rules: List[Rule] = []
+    for name in supervised:
+        rules += _linear(name, (name,))
+    return rules
+
+
+def model_rules(config: Config) -> List[Rule]:
+    """The port's copy of map_tpu's `model_rules` (`interop/torch_import.py:
+    292-363`, with `model_composites` :366 for the Transformer's in_proj),
+    restricted to the tensors the port's model of `config` holds: each
+    model's own, then its MFP, RFD or supervised head."""
+    c = config
+    name = c.model_name.lower()
+    sup = not c.pretrain
+    if name == "lr":
+        return _lr("")
+    rules = _emb(c)
+    if name == "fm":
+        return rules + _lr("lr_layer.")
+    if name == "dcnv2":
+        for i in range(c.num_cross_layers):
+            rules += [(f"cross_net.cross_layers.{i}.weight", ("cross_net", f"kernel_{i}"), "t"),
+                      (f"cross_net.cross_layers.{i}.bias", ("cross_net", f"bias_{i}"), "id")]
+        return rules + _mlp("parallel_dnn", "parallel_dnn", c.num_hidden_layers) + _heads(
+            c, "fc_out")
+    if name == "dnn":
+        return rules + _mlp("dnn", "dnn", c.num_hidden_layers) + _heads(c, "fc_out")
+    if name == "deepfm":
+        return (rules + _lr("lr_layer.") + _mlp("dnn", "dnn", c.num_hidden_layers)
+                + _heads(c, "dnn_fc_out"))
+    if name == "xdeepfm":
+        rules += _cin([int(u) for u in c.cin_layer_units.split(",")])
+        rules += _mlp("dnn", "dnn", c.num_hidden_layers) + _heads(c, "fc")
+        return rules + (_lr("lr_layer.") if sup and c.use_lr else [])
+    if name == "autoint":
+        width = c.num_attn_heads * c.attn_size
+        for i in range(c.num_attn_layers):
+            # bias-free projections; W_res only where the widths differ
+            ws = ("W_q", "W_k", "W_v") + (("W_res",) if i == 0 and c.embed_size != width
+                                          else ())
+            rules += [(f"self_attention.{i}.{w}.weight", (f"attn_{i}", w, "dense", "kernel"),
+                       "t") for w in ws]
+        rules += _heads(c, "attn_out")
+        if sup and c.use_lr:
+            rules += _lr("lr_layer.")
+        if sup and c.num_dnn_layers:
+            rules += _mlp("dnn", "dnn", c.num_dnn_layers) + _linear("dnn_out", ("dnn_out",))
+        return rules
+    if name == "trans":
+        for i in range(c.num_hidden_layers):
+            rules += _encoder_layer(f"encoder.layers.{i}", f"layer_{i}")
+        rules += _heads(c, "trans_out")
+        if sup and c.output_reduction == "attn,fc":
+            rules += (_linear("field_reduction_attn.0", ("attn_hidden",))
+                      + _linear("field_reduction_attn.2", ("attn_score",)))
+        if sup and c.use_lr:
+            rules += _lr("lr_layer.")
+        if sup and c.num_dnn_layers > 0:
+            rules += _mlp("mlp", "mlp", c.num_dnn_layers) + _linear("mlp_out", ("mlp_out",))
+        return rules
+    raise NotImplementedError(f"weight carry for {c.model_name!r} is not ported yet "
+                              "(ROADMAP.md queues fignn, then fgcnn)")
+
+
+def _transform(kind: str, node: Any, config: Config) -> np.ndarray:
+    if kind in ("in_proj_weight", "in_proj_bias"):  # node: the layer's subtree
+        leaf = "kernel" if kind == "in_proj_weight" else "bias"
+        parts = [np.asarray(node[p]["dense"][leaf], np.float32)
+                 for p in ("q_proj", "k_proj", "v_proj")]
+        return np.concatenate([a.T for a in parts] if leaf == "kernel" else parts)
+    arr = np.asarray(node, dtype=np.float32)
     if kind == "t":
         return arr.T
+    if kind == "conv1x1":
+        return arr.T[..., None]
     width = {"table": config.embed_size, "proj_table": config.proj_size,
              "bias_table": 1}.get(kind)
     if width is not None:
@@ -69,19 +180,15 @@ def _transform(kind: str, arr: np.ndarray, config: Config) -> np.ndarray:
 
 def state_dict_from_jax(variables: Dict[str, Any],
                         config: Config) -> Dict[str, torch.Tensor]:
-    if config.model_name.lower() != "dcnv2":
-        raise NotImplementedError(
-            f"weight carry for {config.model_name!r} is not ported yet "
-            "(ROADMAP.md)")
     params = variables["params"]
     out: Dict[str, torch.Tensor] = {}
-    for key, path, kind in dcnv2_rules(config):
+    for key, path, kind in model_rules(config):
         node = params
         for name in path:
             if name not in node:
                 raise KeyError(f"map_tpu variables lack {'/'.join(path)} "
                                f"(for {key})")
             node = node[name]
-        arr = _transform(kind, np.asarray(node, dtype=np.float32), config)
+        arr = _transform(kind, node, config)
         out[key] = torch.from_numpy(np.array(arr, order="C"))  # owned, writable
     return out

@@ -18,24 +18,39 @@ promotes a bf16 final_vec).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from map_tpu_torch.config import Config
-from map_tpu_torch.nn.layers import TorchDense
+from map_tpu_torch.nn.layers import TorchDense, reset_children
 from map_tpu_torch.objectives.alias import noise_log_prior, per_field_log_prior
 from map_tpu_torch.objectives.nce import IndexLinearDecoder
 
 
+PRETRAINING_HEADS = ("feat_encoder", "mfp_criterion", "pred_rfd")
+
+
 class CTRModel(nn.Module):
-    """Subclasses build their modules in __init__ and implement backbone(),
-    supervised_logits() and reset_parameters(generator); they call
-    create_pretraining_predictor / reset_pretraining_predictor for a
-    pretraining config."""
+    """Subclasses build their modules in __init__ and implement backbone()
+    and supervised_logits(); they end __init__ with `finish`, which builds
+    the pretraining head for a pretraining config. reset_parameters draws
+    every parameter from the generator, module by module in the order they
+    were registered, the pretraining head last."""
 
     def __init__(self, config: Config):
         super().__init__()
         self.config = config
+
+    def finish(self, final_dim: int, head: Optional[str] = None) -> None:
+        """The MFP or RFD head on the backbone's final_dim for a pretraining
+        config, else the supervised head `head` (if named): a TorchDense
+        from final_dim to one logit."""
+        if self.config.mfp or self.config.rfd:
+            self.create_pretraining_predictor(final_dim)
+        elif head is not None:
+            setattr(self, head, TorchDense(final_dim, 1))
 
     def create_pretraining_predictor(self, final_dim: int) -> None:
         c = self.config
@@ -131,7 +146,9 @@ class CTRModel(nn.Module):
         raise NotImplementedError
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        raise NotImplementedError
+        reset_children(self, generator, skip=PRETRAINING_HEADS)
+        if self.config.mfp or self.config.rfd:
+            self.reset_pretraining_predictor(generator)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         if self.config.rfd:

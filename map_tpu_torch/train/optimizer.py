@@ -191,7 +191,12 @@ class AdamW:
                     f"sparse table update: {self.names[i]} has a dense gradient "
                     f"beside its streams{' (pending)' if handoff.pending() else ''}")
             streams[i] = handoff.take(self.count)
-        grads = [None if g is None else g.float().contiguous() for g in grads]
+        # a dense parameter the loss does not reach (AutoInt's W_res without
+        # the residual) takes a zero gradient, as in map_tpu: its moments
+        # decay and its weight decays
+        grads = [None if i in streams else
+                 torch.zeros_like(p) if g is None else g.float().contiguous()
+                 for i, (p, g) in enumerate(zip(self.params, grads))]
         if self.max_grad_norm and self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm)
         if self._left == 0:

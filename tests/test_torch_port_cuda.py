@@ -11,6 +11,8 @@ shapes. The last cases capture each train step kind into CUDA graphs
 that move on from replay to replay.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -1026,10 +1028,12 @@ def test_hybrid_bwd_pallas_gradient_equals_flat_k3(dev, dtype, sizes):
 GRAPH_SIZES = [7, 24, 60, 300, 20_000, 5, 150, 30_000]  # 6 small fields, 2 big
 
 
-def _graph_trainer(dev, kind, dtype, resident, spc, seed=0):
-    """A narrow DCNv2 Trainer on the card for `kind`: supervised, rfd
-    (bwd_pallas), mfp (per-position, matmul) or pf_shared (per-field shared
-    noise, k = 20, the sparse table update)."""
+def _graph_trainer(dev, kind, dtype, resident, spc, seed=0, model="dcnv2", groups=1,
+                   **knobs):
+    """A narrow Trainer on the card (DCNv2 unless `model` and `knobs` say
+    otherwise) for `kind`: supervised, rfd (bwd_pallas), mfp (per-position,
+    matmul) or pf_shared (per-field shared noise, k = 20, the sparse table
+    update), on `groups` groups of 4 full batches, then a padded one."""
     import numpy as np
 
     from map_tpu_torch.config import TrainingArguments
@@ -1039,18 +1043,19 @@ def _graph_trainer(dev, kind, dtype, resident, spc, seed=0):
     hi = [a + s for a, s in zip(lo, GRAPH_SIZES)]
     vocab = hi[-1]
     rng = np.random.default_rng(seed)
-    rows = 4 * 512 + 100  # a group of 4 full batches, then a padded one
+    rows = groups * 4 * 512 + 100
     x = np.stack([rng.integers(a, b, rows) for a, b in zip(lo, hi)], 1).astype(np.int32)
     y = rng.integers(0, 2, rows).astype(np.float32)
     pretrain = kind != "supervised"
     mfp = kind in ("mfp", "pf_shared")
-    cfg = Config(model_name="dcnv2", input_size=vocab, num_fields=8, embed_size=16,
+    cfg = Config(model_name=model, input_size=vocab, num_fields=8, embed_size=16,
                  hidden_size=64, num_hidden_layers=2, num_cross_layers=2,
                  compute_dtype=dtype, pretrain=pretrain, pt_type="MFP" if mfp else "RFD",
                  proj_size=16, pt_neg_num=20, idx_low=lo, idx_high=hi,
                  pt_per_field_noise=kind == "pf_shared",
                  hybrid_mode={"rfd": "bwd_pallas", "mfp": "matmul"}.get(kind, ""),
                  feat_count=(np.arange(vocab) % 89 + 1).astype(np.float32) if mfp else None)
+    cfg = dataclasses.replace(cfg, **knobs)
     args = TrainingArguments(
         per_device_train_batch_size=512, learning_rate=1e-3, weight_decay=0.05,
         lr_sched="cosine", num_train_epochs=2, seed=seed, compute_dtype=dtype,
@@ -1182,3 +1187,98 @@ def test_capture_failure_raises(dev):
         multi(2, x)
     assert opt.count == 2
 
+
+
+# ---- the rest of the zoo through the kernels -------------------------------------------
+
+ZOO_KNOBS = {
+    "lr": {}, "fm": {}, "dnn": {}, "deepfm": {},
+    "xdeepfm": dict(cin_layer_units="12,10"),
+    "autoint": dict(attn_size=12, num_attn_heads=2, attn_probs_dropout_rate=0.1),
+    "trans": dict(hidden_size=16, num_attn_heads=2, intermediate_size=64,
+                  output_reduction="attn,fc"),
+}
+
+
+def _plain_swaps(monkeypatch):
+    """Every kernel of a supervised step swapped for its plain version, as
+    chip_smoke.py's `plain_layers` does: the gathers (the table's and LR's),
+    the table gradient's scatters."""
+    from map_tpu_torch.nn import layers
+
+    monkeypatch.setattr(layers, "embedding_lookup", embedding.embedding_lookup_plain)
+    monkeypatch.setattr(hybrid_gather, "embedding_lookup", embedding.embedding_lookup_plain)
+    monkeypatch.setattr(hybrid_gather, "scatter_add", scatter.scatter_add_plain)
+    monkeypatch.setattr(hybrid_gather, "field_block_scatter_add",
+                        field_gather.field_block_scatter_add_plain)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", list(ZOO_KNOBS))
+def test_zoo_steps_match_the_plain_versions(dev, name, dtype, monkeypatch):
+    """5 supervised steps of each model through the kernels (K4, K3 and K1;
+    K4 and K3 at E = 1 for the LR table) against the same 5 through their
+    plain versions on the card, from the same weights and dropout draws:
+    losses within 1e-5 (f32) or 2e-2 (bf16) relative, every parameter within
+    2 lr k (Adam's step is lr at most, and where a gradient is within
+    rounding of 0 its sign may differ), the updates' L1 difference a small
+    share of their own L1 norm (1e-2 f32, 0.25 bf16), as chip_smoke.py's
+    `parity_check`."""
+    from map_tpu_torch.nn.layers import set_dropout_generator
+    from map_tpu_torch.train.optimizer import build_optimizer
+    from map_tpu_torch.train.train_step import make_supervised_steps
+
+    trainer = _graph_trainer(dev, "supervised", dtype, "off", 1, model=name,
+                             **ZOO_KNOBS[name])
+    cfg, args = trainer.config, trainer.args
+    batches = list(trainer.get_batcher("train", True).epoch(0))[:5]
+    p0 = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    def run(plain):
+        m = models.from_config(cfg, torch.Generator().manual_seed(0)).to(dev)
+        set_dropout_generator(m, torch.Generator(device=dev).manual_seed(5))
+        opt, _ = build_optimizer(m, args, 10, 0, update=(
+            fused_adamw.fused_adamw_leaves_plain if plain else fused_adamw.fused_adamw_leaves))
+        step, _ = make_supervised_steps(m, opt, dev)
+        before = (embedding.launches, scatter.launches, fused_adamw.launches)
+        with monkeypatch.context() as mp:
+            if plain:
+                _plain_swaps(mp)
+            losses = torch.stack([step(b)["loss"] for b in batches])
+        torch.cuda.synchronize()
+        launched = tuple(a - b for a, b in zip(
+            (embedding.launches, scatter.launches, fused_adamw.launches), before))
+        return losses.cpu(), {n: p.detach() for n, p in m.named_parameters()}, launched
+
+    k_loss, k_params, k_launched = run(False)
+    p_loss, p_params, p_launched = run(True)
+    assert p_launched == (0, 0, 0)
+    assert k_launched[0] >= 5 and k_launched[1] >= 5 and k_launched[2] == 5, k_launched
+    rel = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
+    assert float(((k_loss - p_loss).abs() / p_loss.abs()).max()) <= rel
+    diff_l1 = update_l1 = 0.0
+    for n, ref in p_params.items():
+        d = (k_params[n] - ref).abs()
+        assert float(d.max()) <= 2 * 1e-3 * 5 * 1.01, n
+        diff_l1 += float(d.double().sum())
+        update_l1 += float((ref - p0[n]).abs().double().sum())
+    assert diff_l1 <= {"float32": 1e-2, "bfloat16": 0.25}[dtype] * update_l1
+
+
+def test_autoint_dropout_graph_is_bit_equal_to_eager_steps(dev):
+    """AutoInt with its attention dropout at 0.1: a captured graph of 8
+    steps (after the eager warm-up call of 8) against 16 eager steps, the
+    dropout drawing from the Trainer's generator: the same bits."""
+    knobs = dict(model="autoint", groups=4, attn_size=12, num_attn_heads=2,
+                 attn_probs_dropout_rate=0.1)
+    eager = _graph_trainer(dev, "supervised", "float32", "off", 1, **knobs)
+    ref = _graph_run(eager)
+    graphed = _graph_trainer(dev, "supervised", "float32", "on", 8, **knobs)
+    got = _graph_run(graphed)
+    multi = graphed.multi
+    assert sorted(multi.graphs) == [1, 8] and multi.graphs[8].replays >= 2
+    assert graphed.model.self_attention[0].dropout.rate == 0.1
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    for (name, a), b in zip(eager.model.named_parameters(), graphed.model.parameters()):
+        assert torch.equal(a, b), name

@@ -114,7 +114,7 @@ def test_from_config_is_seeded_and_torch_named():
         assert torch.equal(a[k], b[k]), k
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.from_config(Config.from_dict(
-            base_model_config(model_name="deepfm").to_dict()))
+            base_model_config(model_name="fignn").to_dict()))
 
 
 def test_init_statistics_match_reference():
@@ -154,5 +154,6 @@ def test_config_load_keeps_unknown_keys(tmp_path):
     port = Config.load(str(tmp_path))
     assert port.compute_dtype == "bfloat16" and port.idx_low == [10, 20]
     assert port.num_cross_layers == cfg.num_cross_layers
-    assert port.extra["cin_layer_units"] == cfg.cin_layer_units
+    assert port.cin_layer_units == cfg.cin_layer_units  # a field of the zoo's
+    assert port.extra["channels"] == cfg.channels  # FGCNN's, not ported
     assert Config.from_dict({"compute_dtype": None}).compute_dtype == "float32"

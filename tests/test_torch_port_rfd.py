@@ -36,7 +36,7 @@ from map_tpu.train.optimizer import build_optimizer as jax_build_optimizer
 from map_tpu_torch import models
 from map_tpu_torch.config import Config, TrainingArguments
 from map_tpu_torch.data.loader import Batcher
-from map_tpu_torch.interop.from_jax import dcnv2_rules, state_dict_from_jax
+from map_tpu_torch.interop.from_jax import model_rules, state_dict_from_jax
 from map_tpu_torch.objectives import corruption
 from map_tpu_torch.ops import hybrid_gather
 from map_tpu_torch.run import main as port_main
@@ -183,7 +183,7 @@ def test_rfd_head_carry_matches_map_tpu():
         np.testing.assert_array_equal(sd[key].numpy(), val, err_msg=key)
     port = models.from_config(port_cfg)
     assert sorted(n for n, _ in port.named_parameters()) == sorted(
-        k for k, _, _ in dcnv2_rules(port_cfg))
+        k for k, _, _ in model_rules(port_cfg))
     assert not decays("pred_rfd.0.bias") and decays("pred_rfd.2.weight")
     port.load_state_dict(sd)
     with torch.no_grad():

@@ -44,7 +44,7 @@ from map_tpu_torch.config import (
 )
 from map_tpu_torch.data.dataset import CTRDataset
 from map_tpu_torch.data.loader import Batcher
-from map_tpu_torch.interop.from_jax import dcnv2_rules, state_dict_from_jax
+from map_tpu_torch.interop.from_jax import model_rules, state_dict_from_jax
 from map_tpu_torch.nn.layers import Dropout, set_dropout_generator
 from map_tpu_torch.objectives.supervised import bce_loss
 from map_tpu_torch.run import main as port_main
@@ -107,7 +107,7 @@ def test_no_decay_mask_and_table_rule_match_map_tpu(packed):
     sd = state_dict_from_jax(variables, port_cfg)
     model = models.from_config(port_cfg)
     names = [n for n, _ in model.named_parameters()]
-    rules = dcnv2_rules(port_cfg)
+    rules = model_rules(port_cfg)
     assert sorted(names) == sorted(key for key, _, _ in rules)
     for key, path, _ in rules:
         assert decays(key) == mask[path], key
@@ -134,7 +134,7 @@ def test_no_decay_rule_matches_map_tpu_on_the_mfp_head():
     port_cfg = Config.from_dict(cfg.to_dict())
     names = [n for n, _ in models.from_config(port_cfg).named_parameters()]
     assert len(names) == 17  # 13 of the backbone + feat_encoder + the decoder
-    rules = dcnv2_rules(port_cfg)
+    rules = model_rules(port_cfg)
     assert sorted(names) == sorted(key for key, _, _ in rules)
     assert len(mask) == 17
     for key, path, _ in rules:
