@@ -96,8 +96,8 @@ each; any failure ends the run with a nonzero exit code.
    a host batch copied a step, a step a host call) and the new default (the
    train data on the card, the prefetch thread, steps_per_call=8 as
    captured CUDA graphs), a Trainer each from the same weights on the same
-   batches: the parameters after 16 steps (two calls of the graph path)
-   bit-equal across the paths (MFP on a pair drawing masked positions
+   batches: the parameters and buffers after 16 steps (two calls of the
+   graph path) bit-equal across the paths (MFP on a pair drawing masked positions
    without repeats, 'normal', since the masked-position gather's backward
    adds through atomics), then an epoch timed (wall ms a step, the graph
    path's host us a step), an epoch profiled (busy ms a step, idle share,
@@ -111,17 +111,22 @@ each; any failure ends the run with a nonzero exit code.
    default) and from the MFP one (13 tensors loaded, 4 skipped each), one
    epoch, eval AUC > 0.6, launches checked;
 9b. the rest of the zoo (`zoo_phase`): LR, FM, DNN, DeepFM, xDeepFM (CIN
-   50,50), AutoInt (2 layers of 40, 1 head, attention dropout 0.1) and the
-   Transformer (hidden = embed = 16, 3 layers, 2 heads, FFN 128, `attn,fc`)
-   at map_tpu's defaults on the widths above (MLP 3 x 1000), each: 5
-   supervised steps through the kernels against the plain versions in
-   bf16 and f32 (K1, K3, K4; LR's (V, 1) table through K4 and K3 at E = 1);
-   for the five pretrain-capable ones 5 MFP per-position steps the same way
-   and the finetune restore's counts from an MFP checkpoint; for DNN and
-   AutoInt 5 RFD steps under bwd_pallas; its supervised bf16 cell on both
-   paths (`path_time`, the 16-step bit check, the launches counted from 0
-   before it); `Predictor` rows/s at batch 10000 in bf16, the first
-   chunk's logits against the plain versions';
+   50,50), AutoInt (2 layers of 40, 1 head, attention dropout 0.1), the
+   Transformer (hidden = embed = 16, 3 layers, 2 heads, FFN 128, `attn,fc`),
+   FiGNN (3 GNN rounds) and FGCNN (channels 14,16,18,20, kernels 7, pools 2,
+   recombined 3, tanh, its own fg_embed table, BatchNorm) at map_tpu's
+   defaults on the widths above (MLP 3 x 1000), each: 5 supervised steps
+   through the kernels against the plain versions in bf16 and f32 (K1,
+   K3, K4; LR's (V, 1) table through K4 and K3 at E = 1; FGCNN's two
+   tables twice a step; FGCNN's running statistics held beside the
+   parameters); for the seven pretrain-capable ones 5 MFP per-position
+   steps the same way and the finetune restore's counts from an MFP
+   checkpoint (FGCNN's running statistics restored); for DNN, AutoInt and
+   FGCNN 5 RFD steps under bwd_pallas (K6b a table a step); its supervised
+   bf16 cell on both paths (`path_time`, the 16-step bit check over
+   parameters and buffers, the launches counted from 0 before it);
+   `Predictor` rows/s at batch 10000 in bf16 (FGCNN from its running
+   statistics), the first chunk's logits against the plain versions';
 10. times: median ms of each kernel (CUDA events, L2 flushed and a spin of
    about 1 ms queued on the card before each launch, so that the card, not
    the host's launch pace, sets the time), its bound on an H100 SXM, its
@@ -500,12 +505,23 @@ def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> Non
     """PARITY_STEPS steps through the kernels against the same through the
     plain versions: losses within TOL_PARITY_LOSS relative, parameters at
     most 2 lr k apart, and the L1 norm of their difference a share of the
-    updates' own L1 norm (see TOL_PARITY_UPDATE_L1)."""
+    updates' own L1 norm (see TOL_PARITY_UPDATE_L1). The buffers among
+    k_params / p_params (the names p0, the parameters at the start, lacks:
+    FGCNN's BatchNorm running statistics) at most 2 lr k plus
+    TOL_PARITY_LOSS of their size apart: a running mean follows its
+    convolution's bias, whose gradient is rounding only, so that bias may
+    move apart as a flat parameter does."""
     loss_rel = float(((k_loss - p_loss).abs() / p_loss.abs()).max())
-    max_d = diff_l1 = update_l1 = 0.0
+    max_d = diff_l1 = update_l1 = buffer_d = 0.0
     close = total = 0
+    buffers_ok = True
     for n, ref in p_params.items():
         d = (k_params[n] - ref).abs()
+        if n not in p0:
+            buffer_d = max(buffer_d, float(d.max()))
+            buffers_ok &= bool((d <= 2 * lr * PARITY_STEPS * 1.01
+                                + TOL_PARITY_LOSS[dname] * ref.abs()).all())
+            continue
         max_d = max(max_d, float(d.max()))
         diff_l1 += float(d.double().sum())
         update_l1 += float((ref - p0[n].detach().to(ref.device)).abs().double().sum())
@@ -513,11 +529,11 @@ def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> Non
         total += d.numel()
     check(name, loss_rel <= TOL_PARITY_LOSS[dname]
           and max_d <= 2 * lr * PARITY_STEPS * 1.01
-          and diff_l1 <= TOL_PARITY_UPDATE_L1[dname] * update_l1,
+          and diff_l1 <= TOL_PARITY_UPDATE_L1[dname] * update_l1 and buffers_ok,
           losses_kernels=k_loss.tolist(), losses_plain=p_loss.tolist(),
           loss_max_rel=loss_rel, param_max_abs=max_d,
           update_l1_share=diff_l1 / update_l1,
-          param_share_within_1e5=close / total)
+          param_share_within_1e5=close / total, buffer_max_abs=buffer_d)
 
 
 # map_tpu's steps_per_call; the first two calls of the graph path
@@ -553,7 +569,7 @@ def path_phase(name: str, make, bits_make=None, count_fold: bool = False) -> dic
     make(resident, spc), from the same weights, on the same batches (epochs
     0, 1 and 2 of the Batcher's stream):
     - the first 16 steps, the graph path's first two calls (its eager
-      warm-up, then a capture and a replay): every parameter bit-equal
+      warm-up, then a capture and a replay): every parameter and buffer bit-equal
       across the paths then (on a pair from bits_make, when given);
     - epoch 1 timed (host clock, a synchronize at its end): wall ms a step;
     - epoch 2 profiled: device-busy ms a step, idle share, host ms a step by
@@ -571,7 +587,9 @@ def path_phase(name: str, make, bits_make=None, count_fold: bool = False) -> dic
     from map_tpu_torch.train.graph import launch_counts
 
     def params(trainer):
-        return {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+        """Every parameter and buffer (FGCNN's running statistics), so that a
+        graph that froze the statistics cannot pass the bit check."""
+        return {n: t.detach().clone() for n, t in trainer.model.state_dict().items()}
 
     def epoch0(trainer, batcher, stop: bool):
         """Epoch 0 (its first BITS_STEPS steps when `stop`) -> (steps, the
@@ -670,9 +688,9 @@ def path_phase(name: str, make, bits_make=None, count_fold: bool = False) -> dic
     (done_t, p_t), (done_g, p_g) = snaps["today"], snaps["graph"]
     differ = ([n for n, p in p_t.items() if not torch.equal(p, p_g[n])]
               if p_t is not None and p_g is not None else ["(no snapshot)"])
-    check(f"{name}: parameters after {BITS_STEPS} steps (two calls), graph path bit-equal "
-          "to today's", done_t == done_g == BITS_STEPS and not differ, differ=differ,
-          on_own_pair=bits_make is not None)
+    check(f"{name}: parameters and buffers after {BITS_STEPS} steps (two calls), graph "
+          "path bit-equal to today's", done_t == done_g == BITS_STEPS and not differ,
+          differ=differ, on_own_pair=bits_make is not None, tensors=len(p_t or {}))
     if count_fold:
         out["distinct"] = torch.stack(distinct).cpu().tolist()
     return out
@@ -758,6 +776,11 @@ def seeded_model(dev, cfg, seed: int):
     return m
 
 
+def model_state(m) -> dict:
+    """{name: tensor} of every parameter and buffer of `m`, detached."""
+    return {n: t.detach() for n, t in [*m.named_parameters(), *m.named_buffers()]}
+
+
 def launched_during(read_counts, fn, plain: bool):
     """fn() -> (its result, the launches during it); a plain run (every
     kernel swapped for its plain version) must launch none."""
@@ -775,7 +798,8 @@ def supervised_steps(dev, cfg, targs, batches, read_counts, *, seed: int, steps:
                      plain: bool):
     """Supervised steps of `cfg` from the weights of `seed`, one per batch,
     through the kernels or (plain) through their plain versions, a schedule
-    of `steps` -> (losses (n,), {name: parameter}, launches during the steps)."""
+    of `steps` -> (losses (n,), {name: parameter or buffer}, launches during
+    the steps)."""
     import torch
 
     from map_tpu_torch.ops import fused_adamw
@@ -789,7 +813,7 @@ def supervised_steps(dev, cfg, targs, batches, read_counts, *, seed: int, steps:
     step, _ = make_supervised_steps(m, opt, dev)
     losses, launched = launched_during(
         read_counts, lambda: torch.stack([step(b)["loss"] for b in batches]).cpu(), plain)
-    return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
+    return losses, model_state(m), launched
 
 
 def mfp_args(output_dir: str, seed: int, **kw):
@@ -835,14 +859,15 @@ def mfp_steps(dev, cfg, targs, tables, batches, draws, read_counts, *, seed: int
     """MFP steps of `cfg`'s mode from the weights of `seed`, one per (batch,
     draws), through the kernels or (plain) through their plain versions;
     sparse: the decoder emb updated from its streams (K7 or its plain
-    version). -> (losses (n,), {name: parameter}, launches during the steps)."""
+    version). -> (losses (n,), {name: parameter or buffer}, launches during
+    the steps)."""
     import torch
 
     m, step = mfp_step_fn(dev, cfg, targs, tables, seed=seed, steps=len(batches),
                           shared=shared, sparse=sparse, plain=plain)
     losses, launched = launched_during(read_counts, lambda: torch.stack(
         [step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu(), plain)
-    return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
+    return losses, model_state(m), launched
 
 
 def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
@@ -1365,13 +1390,13 @@ def rfd_step_fn(dev, cfg, targs, seed: int, plain: bool = False):
 def rfd_steps(dev, cfg, targs, batches, draws, read_counts, *, seed: int, plain: bool):
     """RFD steps of `cfg` from the weights of `seed`, one per (batch, draws),
     through the kernels or (plain) through their plain versions -> (losses
-    (n,), {name: parameter}, launches during the steps)."""
+    (n,), {name: parameter or buffer}, launches during the steps)."""
     import torch
 
     m, step = rfd_step_fn(dev, cfg, targs, seed, plain)
     losses, launched = launched_during(read_counts, lambda: torch.stack(
         [step(b, d)["loss"] for b, d in zip(batches, draws)]).cpu(), plain)
-    return losses, {n: p.detach() for n, p in m.named_parameters()}, launched
+    return losses, model_state(m), launched
 
 
 def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
@@ -1526,24 +1551,37 @@ ZOO_KNOBS = {
     "trans": dict(hidden_size=EMBED, num_hidden_layers=3, num_attn_heads=2,
                   intermediate_size=128, output_reduction="attn,fc", norm_first=False,
                   layer_norm_eps=1e-12),
+    # 3 GNN rounds (num_hidden_layers, the canonical 3), no residual, a
+    # GraphLayer a round
+    "fignn": dict(num_hidden_layers=3, res_conn=False, reuse_graph_layer=False),
+    # the default conv stack (24 fields -> 12, 6, 3, 2 rows; 93 fields in
+    # all, final_dim 5,766) beside a table of its own, then the MLP 3 x 1000
+    "fgcnn": dict(share_embedding=False, channels="14,16,18,20", kernel_heights="7,7,7,7",
+                  pooling_sizes="2,2,2,2", recombined_channels="3,3,3,3", conv_act="tanh"),
 }
-ZOO_PRETRAIN = ("dnn", "deepfm", "xdeepfm", "autoint", "trans")
-ZOO_RFD = ("dnn", "autoint")
+ZOO_PRETRAIN = ("dnn", "deepfm", "xdeepfm", "autoint", "trans", "fignn", "fgcnn")
+ZOO_RFD = ("dnn", "autoint", "fgcnn")
+# tables a model gathers from and scatters into a step: FM's and DeepFM's
+# LR table beside the embedding, FGCNN's fg_embed beside it (K4, K3 and,
+# under bwd_pallas, K6b once a table)
+ZOO_TABLES = {"fm": 2, "deepfm": 2, "fgcnn": 2}
 
 
 def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
     """8e. The rest of the zoo (LR, FM, DNN, DeepFM, xDeepFM, AutoInt,
-    Transformer) at full width, each model in turn:
+    Transformer, FiGNN, FGCNN) at full width, each model in turn:
     - 5 supervised steps through the kernels against the plain versions
-      (`parity_check`), bf16 and f32, with K1, K3 and K4 launched;
-    - the five pretrain-capable ones: 5 MFP per-position steps the same way
-      (phase 8's noise, batches and draws), and the finetune restore's
+      (`parity_check`, FGCNN's BatchNorm running statistics among what it
+      holds), bf16 and f32, with K1, K3 and K4 launched (K3 and K4 once a
+      table a step in FiGNN and FGCNN);
+    - the seven pretrain-capable ones: 5 MFP per-position steps the same
+      way (phase 8's noise, batches and draws), and the finetune restore's
       loaded / skipped counts from an MFP checkpoint of the model;
-    - DNN and AutoInt: 5 RFD steps under bwd_pallas the same way, K6b once
-      a step;
+    - DNN, AutoInt and FGCNN: 5 RFD steps under bwd_pallas the same way,
+      K6b once a table a step;
     - the two paths of its supervised bf16 cell (`path_phase`: wall, busy
-      and idle a step, the 16-step bit check, the launches, counted from 0
-      before it);
+      and idle a step, the 16-step bit check over parameters and buffers,
+      the launches, counted from 0 before it);
     - `Predictor` over --rows rows at batch 10000 in bf16: rows/s, its first
       chunk's logits against the plain versions'.
     Returns {model: its graph path's launches} for the kernels line."""
@@ -1599,6 +1637,12 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
                   launched["fused_adamw"] == PARITY_STEPS
                   and launched["scatter_add"] >= PARITY_STEPS
                   and launched["embedding_gather"] >= PARITY_STEPS, launched=launched)
+            if name in ("fignn", "fgcnn"):
+                tables = ZOO_TABLES.get(name, 1)
+                check(f"zoo {name} {dname}: K3 and K4 {tables}x a step (a table each)",
+                      launched["scatter_add"] == tables * PARITY_STEPS
+                      and launched["embedding_gather"] == tables * PARITY_STEPS,
+                      launched=launched)
             parity_check(f"zoo {name} {dname}: {PARITY_STEPS} steps, kernels vs plain "
                          "versions", dname, LR, k_loss, p_loss, k_params, p_params, fresh(c))
             del k_params, p_params
@@ -1620,10 +1664,13 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
                 parity_check(f"zoo {name} mfp {dname}: {PARITY_STEPS} steps, kernels vs "
                              "plain versions", dname, MFP_LR, k_loss, p_loss, k_params,
                              p_params, fresh(c))
-                del k_params, p_params
-            # the finetune restore from an MFP checkpoint of the model
+                mfp_state = k_params
+                del p_params
+            # the finetune restore from an MFP checkpoint of the model: the
+            # f32 run's weights (FGCNN's running statistics moved by its steps)
             ckpt_dir = os.path.join(work, f"{name}_mfp")
-            sd = models.from_config(c, torch.Generator().manual_seed(args.seed)).state_dict()
+            sd = {n: t.cpu() for n, t in mfp_state.items()}
+            del k_params, mfp_state
             ckpt = checkpoints.save_model(sd, ckpt_dir, 1)
             c_ft = dataclasses.replace(zc, compute_dtype="bfloat16")
             ft = Trainer(models.from_config(c_ft, torch.Generator().manual_seed(args.seed + 1)),
@@ -1635,7 +1682,16 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
             check(f"zoo {name}: finetune from MFP, {expected[0]} tensors loaded, "
                   f"{expected[1]} skipped", ft.finetune_counts == expected,
                   loaded_skipped=ft.finetune_counts)
-            del ft, sd
+            restored = ft.model.state_dict()
+            stats = [n for n in sd if ".running_" in n]
+            check(f"zoo {name}: the finetuned model holds the checkpoint's backbone, "
+                  f"{len(stats)} running statistics among it",
+                  all(torch.equal(restored[n].cpu(), t) for n, t in sd.items()
+                      if n in restored)
+                  and all(not torch.equal(sd[n], torch.zeros_like(sd[n]))
+                          and not torch.equal(sd[n], torch.ones_like(sd[n]))
+                          for n in stats), running_statistics=len(stats))
+            del ft, sd, restored
             shutil.rmtree(ckpt_dir, ignore_errors=True)
 
         if name in ZOO_RFD:
@@ -1646,8 +1702,10 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
                 (k_loss, k_params, launched), (p_loss, p_params, _) = (
                     rfd_steps(dev, c, rfd_targs, rfd_batches, rfd_draws, read_counts,
                               seed=args.seed, plain=plain) for plain in (False, True))
-                check(f"zoo {name} rfd {dname}: K6b launched once a step",
-                      launched["field_block_scatter"] == PARITY_STEPS, launched=launched)
+                tables = ZOO_TABLES.get(name, 1)
+                check(f"zoo {name} rfd {dname}: K6b launched {tables}x a step (a table "
+                      "each)", launched["field_block_scatter"] == tables * PARITY_STEPS,
+                      launched=launched)
                 parity_check(f"zoo {name} rfd {dname}: {PARITY_STEPS} steps, kernels vs "
                              "plain versions", dname, MFP_LR, k_loss, p_loss, k_params,
                              p_params, fresh(c))
@@ -1672,6 +1730,12 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
               and graph["launches"]["scatter_add"] >= steps
               and graph["launches"]["embedding_gather"] >= steps,
               launches=graph["launches"], steps=steps)
+        if name in ("fignn", "fgcnn"):
+            tables = ZOO_TABLES.get(name, 1)
+            check(f"zoo {name}: the graph path launched K3 and K4 {tables}x a step",
+                  graph["launches"]["scatter_add"] == tables * steps
+                  and graph["launches"]["embedding_gather"] == tables * steps,
+                  launches=graph["launches"], steps=steps)
 
         # serving
         model_dir = os.path.join(work, f"{name}_serve")

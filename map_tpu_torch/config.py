@@ -2,7 +2,7 @@
 
 `TrainingArguments` and `ModelArguments` are the ported subset of map_tpu's
 flags (`config.py:21-245`) with map_tpu's defaults: the models of
-`models/zoo.py` (all of map_tpu's but FGCNN and FiGNN), supervised training, MFP
+`models/zoo.py` (all ten of map_tpu's), supervised training, MFP
 pretraining (per-position, shared, per-field and per-field-shared noise; the
 `nce`, `sampled` and `full` losses; the sparse table update), RFD
 pretraining (its four generators), the field-blocked hybrid lookup and its
@@ -95,6 +95,14 @@ class Config:
     num_dnn_layers: int = 0
     dnn_act: str = "relu"
     dnn_drop: float = 0.0
+    # FGCNN's feature generation and FiGNN's graph (map_tpu config.py:205-213)
+    share_embedding: bool = False
+    channels: str = "14,16,18,20"
+    kernel_heights: str = "7,7,7,7"
+    pooling_sizes: str = "2,2,2,2"
+    recombined_channels: str = "3,3,3,3"
+    conv_act: str = "tanh"
+    reuse_graph_layer: bool = False
     feat_count: Optional[np.ndarray] = field(default=None, repr=False)
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -227,6 +235,13 @@ class ModelArguments:
     num_dnn_layers: int = 0
     dnn_act: str = "relu"
     dnn_drop: float = 0.0
+    share_embedding: bool = False
+    channels: str = "14,16,18,20"  # FGCNN: conv channels, kernel heights,
+    kernel_heights: str = "7,7,7,7"  # pooling sizes and recombined channels
+    pooling_sizes: str = "2,2,2,2"  # of each stage
+    recombined_channels: str = "3,3,3,3"
+    conv_act: str = "tanh"
+    reuse_graph_layer: bool = False  # FiGNN: one GraphLayer for every round
     pt_neg_num: int = 25
     proj_size: int = 32
     nce_loss_type: str = "nce"  # nce | sampled | full

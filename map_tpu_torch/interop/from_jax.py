@@ -3,10 +3,13 @@
 `state_dict_from_jax(variables, config)` takes map_tpu's variables tree as
 numpy arrays (`train/checkpoints.load_jax_model_file` reads one from a
 `{step}.model` file) and returns the port's `state_dict`, whose keys are the
-reference torch names of `map_tpu/interop/torch_import.py:model_rules`.
+reference torch names of `map_tpu/interop/torch_import.py:model_rules`:
+the parameters from the `params` collection and, where the tree has a
+`batch_stats` collection, FGCNN's BatchNorm running statistics from it
+(`stats_rules`, map_tpu's `model_stats_rules`).
 
-The rules are the port's copy of map_tpu's, for every ported model (all of
-map_tpu's but FGCNN and FiGNN). Layout changes on the way:
+The rules are the port's copy of map_tpu's, for all ten of its models.
+Layout changes on the way:
 - lane-packed tables (map_tpu `ops/packed_table.py`, (R, p*E) with p = 128//E
   and padding rows up to a 512-row multiple) are unpacked to (V, E) with
   `reshape(-1, E)[:V]`, which drops the padding rows; a plain (V, E) table
@@ -17,7 +20,20 @@ map_tpu's but FGCNN and FiGNN). Layout changes on the way:
 - CIN's kernels (in, out) become the reference's Conv1d weights (out, in, 1);
 - the Transformer's q_proj, k_proj and v_proj (kernels and biases) stack
   into torch's packed `self_attn.in_proj_weight` (3D, D) / `in_proj_bias`;
-- LayerNorm `scale` / `bias` become `weight` / `bias`.
+- LayerNorm and BatchNorm `scale` / `bias` become `weight` / `bias`, and
+  BatchNorm's `mean` / `var` statistics `running_mean` / `running_var`;
+- FiGNN's flax GRUCell (`ir`, `iz`, `in` kernels with biases, `hr`, `hz`
+  kernels, `hn` kernel and bias) packs into torch's GRUCell (gates r | z |
+  n): `weight_ih` and `weight_hh` (3E, E), `bias_ih` = [ir; iz; in] and
+  `bias_hh` = [0; 0; hn], the inverse of map_tpu's `_gru_composite`
+  (`torch_import.py:167`), which folds torch's r and z biases into flax's
+  input-side ones;
+- FGCNN's flax Conv kernels (kh, 1, in, out) become torch's Conv2d weights
+  (out, in, kh, 1), and each recombine kernel, whose input rows map_tpu
+  takes in its NHWC flatten order (h, e, c), becomes a weight whose columns
+  are in the reference's NCHW order (c, h, e): map_tpu's `_recombine_perm`
+  (`torch_import.py:264`) in reverse, with h the pooled rows the kernel
+  has.
 The heads follow the config: the MFP head, the RFD head (`pred_rfd_hidden`
 and `pred_rfd_out` to `pred_rfd.0` and `pred_rfd.2`), or the model's
 supervised heads (with the `attn,fc` reduction's `attn_hidden` and
@@ -41,11 +57,11 @@ def _linear(tk: str, fp: Tuple[str, ...]) -> List[Rule]:
             (f"{tk}.bias", fp + ("dense", "bias"), "id")]
 
 
-def _emb(config: Config) -> List[Rule]:
-    rules: List[Rule] = [("embed.embedding.weight", ("embed", "embedding"), "table")]
+def _emb(config: Config, name: str = "embed") -> List[Rule]:
+    rules: List[Rule] = [(f"{name}.embedding.weight", (name, "embedding"), "table")]
     if config.embed_norm:
-        rules += [("embed.layer_norm.weight", ("embed", "layer_norm", "scale"), "id"),
-                  ("embed.layer_norm.bias", ("embed", "layer_norm", "bias"), "id")]
+        rules += [(f"{name}.layer_norm.weight", (name, "layer_norm", "scale"), "id"),
+                  (f"{name}.layer_norm.bias", (name, "layer_norm", "bias"), "id")]
     return rules
 
 
@@ -87,6 +103,49 @@ def _encoder_layer(tk: str, fp: str) -> List[Rule]:
     return rules
 
 
+def _fignn(config: Config) -> List[Rule]:
+    """The attention, the GraphLayers and the GRU (its four tensors read
+    the `gru` subtree: the `gru_*` transforms)."""
+    rules: List[Rule] = [("fignn.W_attn.weight", ("fignn", "W_attn", "dense", "kernel"),
+                          "t")]
+    gnn = ([("fignn.gnn", "gnn")] if config.reuse_graph_layer else
+           [(f"fignn.gnn.{i}", f"gnn_{i}") for i in range(config.num_hidden_layers)])
+    for tk, fp in gnn:
+        rules += [(f"{tk}.{w}", ("fignn", fp, w), "id") for w in ("W_in", "W_out", "bias_p")]
+    rules += [(f"fignn.gru.{t}", ("fignn", "gru"), f"gru_{t}")
+              for t in ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+    return rules
+
+
+def _fgcnn(config: Config) -> List[Rule]:
+    rules: List[Rule] = []
+    for i, ch in enumerate(config.channels.split(",")):
+        tk = f"fgcnn_layer.conv_layers.{i}"
+        rules += [(f"{tk}.0.weight", ("fgcnn_layer", f"conv_{i}", "kernel"), "conv2d"),
+                  (f"{tk}.0.bias", ("fgcnn_layer", f"conv_{i}", "bias"), "id"),
+                  (f"{tk}.1.weight", ("fgcnn_layer", f"bn_{i}", "scale"), "id"),
+                  (f"{tk}.1.bias", ("fgcnn_layer", f"bn_{i}", "bias"), "id")]
+        rules += [(f"fgcnn_layer.recombine_layers.{i}.0.weight",
+                   ("fgcnn_layer", f"recombine_{i}", "dense", "kernel"),
+                   f"recombine:{int(ch)}"),
+                  (f"fgcnn_layer.recombine_layers.{i}.0.bias",
+                   ("fgcnn_layer", f"recombine_{i}", "dense", "bias"), "id")]
+    return rules
+
+
+def stats_rules(config: Config) -> List[Rule]:
+    """The BatchNorm running statistics, from map_tpu's `batch_stats`
+    collection (`torch_import.py:_fgcnn_rules`' stats): FGCNN's only."""
+    if config.model_name.lower() != "fgcnn":
+        return []
+    rules: List[Rule] = []
+    for i in range(len(config.channels.split(","))):
+        tk = f"fgcnn_layer.conv_layers.{i}.1"
+        rules += [(f"{tk}.running_mean", ("fgcnn_layer", f"bn_{i}", "mean"), "id"),
+                  (f"{tk}.running_var", ("fgcnn_layer", f"bn_{i}", "var"), "id")]
+    return rules
+
+
 def _heads(config: Config, *supervised: str) -> List[Rule]:
     """The MFP head or the RFD head in place of the supervised heads."""
     if config.mfp:  # torch_import.py:281-289
@@ -104,7 +163,8 @@ def _heads(config: Config, *supervised: str) -> List[Rule]:
 
 def model_rules(config: Config) -> List[Rule]:
     """The port's copy of map_tpu's `model_rules` (`interop/torch_import.py:
-    292-363`, with `model_composites` :366 for the Transformer's in_proj),
+    292-363`, with `model_composites` :366 for the Transformer's in_proj and
+    FiGNN's GRU),
     restricted to the tensors the port's model of `config` holds: each
     model's own, then its MFP, RFD or supervised head."""
     c = config
@@ -144,6 +204,19 @@ def model_rules(config: Config) -> List[Rule]:
         if sup and c.num_dnn_layers:
             rules += _mlp("dnn", "dnn", c.num_dnn_layers) + _linear("dnn_out", ("dnn_out",))
         return rules
+    if name == "fignn":
+        rules += _fignn(c) + _heads(c)
+        if sup:  # the attentional prediction, bias-free
+            rules += [("fc.linear1.weight", ("fc", "linear1", "dense", "kernel"), "t"),
+                      ("fc.linear2.0.weight", ("fc", "linear2", "dense", "kernel"), "t")]
+        return rules
+    if name == "fgcnn":
+        if not c.share_embedding:
+            rules += _emb(c, "fg_embed")
+        rules += _fgcnn(c)
+        if sup:
+            rules += _mlp("dnn", "dnn", c.num_hidden_layers)
+        return rules + _heads(c, "fc_out")
     if name == "trans":
         for i in range(c.num_hidden_layers):
             rules += _encoder_layer(f"encoder.layers.{i}", f"layer_{i}")
@@ -156,8 +229,21 @@ def model_rules(config: Config) -> List[Rule]:
         if sup and c.num_dnn_layers > 0:
             rules += _mlp("mlp", "mlp", c.num_dnn_layers) + _linear("mlp_out", ("mlp_out",))
         return rules
-    raise NotImplementedError(f"weight carry for {c.model_name!r} is not ported yet "
-                              "(ROADMAP.md queues fignn, then fgcnn)")
+    raise NotImplementedError(f"no weight carry for model {c.model_name!r}")
+
+
+def _gru(kind: str, node: Any) -> np.ndarray:
+    """torch's GRUCell tensor `kind` from flax's GRUCell subtree (gates r, z, n)."""
+    def leaf(gate, name):
+        return np.asarray(node[gate][name], np.float32)
+
+    if kind in ("gru_weight_ih", "gru_weight_hh"):
+        side = "i" if kind == "gru_weight_ih" else "h"
+        return np.concatenate([leaf(side + g, "kernel").T for g in "rzn"])
+    if kind == "gru_bias_ih":
+        return np.concatenate([leaf("i" + g, "bias") for g in "rzn"])
+    zero = np.zeros_like(leaf("hn", "bias"))
+    return np.concatenate([zero, zero, leaf("hn", "bias")])
 
 
 def _transform(kind: str, node: Any, config: Config) -> np.ndarray:
@@ -166,11 +252,19 @@ def _transform(kind: str, node: Any, config: Config) -> np.ndarray:
         parts = [np.asarray(node[p]["dense"][leaf], np.float32)
                  for p in ("q_proj", "k_proj", "v_proj")]
         return np.concatenate([a.T for a in parts] if leaf == "kernel" else parts)
+    if kind.startswith("gru_"):  # node: the GRU's subtree
+        return _gru(kind, node)
     arr = np.asarray(node, dtype=np.float32)
     if kind == "t":
         return arr.T
     if kind == "conv1x1":
         return arr.T[..., None]
+    if kind == "conv2d":  # flax (kh, kw, in, out) -> torch (out, in, kh, kw)
+        return arr.transpose(3, 2, 0, 1)
+    if kind.startswith("recombine:"):  # (h * e * c, out) -> (out, c * h * e)
+        c, e = int(kind.split(":")[1]), config.embed_size
+        h = arr.shape[0] // (e * c)
+        return arr.reshape(h, e, c, -1).transpose(3, 2, 0, 1).reshape(-1, c * h * e)
     width = {"table": config.embed_size, "proj_table": config.proj_size,
              "bias_table": 1}.get(kind)
     if width is not None:
@@ -180,15 +274,18 @@ def _transform(kind: str, node: Any, config: Config) -> np.ndarray:
 
 def state_dict_from_jax(variables: Dict[str, Any],
                         config: Config) -> Dict[str, torch.Tensor]:
-    params = variables["params"]
     out: Dict[str, torch.Tensor] = {}
-    for key, path, kind in model_rules(config):
-        node = params
-        for name in path:
-            if name not in node:
-                raise KeyError(f"map_tpu variables lack {'/'.join(path)} "
-                               f"(for {key})")
-            node = node[name]
-        arr = _transform(kind, node, config)
-        out[key] = torch.from_numpy(np.array(arr, order="C"))  # owned, writable
+    collections = [("params", model_rules(config))]
+    if "batch_stats" in variables:  # a tree of parameters alone carries none
+        collections.append(("batch_stats", stats_rules(config)))
+    for collection, rules in collections:
+        for key, path, kind in rules:
+            node = variables[collection]
+            for name in path:
+                if name not in node:
+                    raise KeyError(f"map_tpu variables lack {collection}/"
+                                   f"{'/'.join(path)} (for {key})")
+                node = node[name]
+            arr = _transform(kind, node, config)
+            out[key] = torch.from_numpy(np.array(arr, order="C"))  # owned, writable
     return out

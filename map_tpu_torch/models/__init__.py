@@ -1,6 +1,5 @@
 """Model registry. Counterpart: `map_tpu/models/__init__.py`; the port
-registers all of map_tpu's models but fgcnn and fignn, which ROADMAP.md
-queues."""
+registers all ten of map_tpu's models under map_tpu's names."""
 
 from __future__ import annotations
 
@@ -13,8 +12,10 @@ from map_tpu_torch.models.base import CTRModel
 from map_tpu_torch.models.zoo import (
     DCNV2,
     DNN,
+    FGCNN,
     FM,
     LR,
+    FiGNN,
     AutoInt,
     DeepFM,
     Transformer,
@@ -28,6 +29,8 @@ MODEL_REGISTRY = {
     "deepfm": DeepFM,
     "xdeepfm": XDeepFM,
     "dcnv2": DCNV2,
+    "fgcnn": FGCNN,
+    "fignn": FiGNN,
     "autoint": AutoInt,
     "trans": Transformer,
 }
@@ -40,8 +43,8 @@ def from_config(config: Config,
     name = config.model_name.lower()
     if name not in MODEL_REGISTRY:
         raise NotImplementedError(
-            f"model {config.model_name!r} is not ported yet (map_tpu_torch has "
-            f"{sorted(MODEL_REGISTRY)}); ROADMAP.md queues fignn, then fgcnn")
+            f"model {config.model_name!r} is not one of map_tpu's "
+            f"{sorted(MODEL_REGISTRY)}")
     validate_model_config(config)
     with torch.device("meta"):  # no allocation or draw until the init below
         model = MODEL_REGISTRY[name](config)

@@ -1,18 +1,21 @@
 """Model zoo of the port. Counterpart: `map_tpu/models/zoo.py`: LR and FM
 (:98-121), DNN (:124-141), DeepFM (:144-170), xDeepFM (:173-200), DCNv2
-(:203-230), AutoInt (:316-368) and Transformer (:371-445). FGCNN and FiGNN
-are queued in ROADMAP.md.
+(:203-230), FGCNN (:233-288), FiGNN (:291-313), AutoInt (:316-368) and
+Transformer (:371-445): all ten of map_tpu's models.
 
 Each pretrain-capable model (all but LR and FM) builds the MFP or RFD head
 of `models/base.py` on its backbone's final_dim in place of its supervised
 head, as map_tpu's do. The rounding points are map_tpu's: the embeddings,
 the cross net and the `_mlp` MLPs compute in `compute_dtype`; LR, CIN's
 convolutions, the attention, the Transformer, AutoInt's and the
-Transformer's MLP towers and every head in the promotion of their input
-with their float32 parameters (float32 when the input is bf16).
+Transformer's MLP towers, FGCNN's feature generation and inner products,
+FiGNN's graph and GRU, and every head in the promotion of their input with
+their float32 parameters (float32 when the input is bf16).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -21,8 +24,11 @@ from map_tpu_torch.config import Config
 from map_tpu_torch.models.base import CTRModel
 from map_tpu_torch.nn.layers import (
     CIN,
+    AttentionalPrediction,
     CrossNetV2,
     Embeddings,
+    FGCNNBlock,
+    FiGNNBlock,
     InnerProductLayer,
     LRLayer,
     MLPBlock,
@@ -180,6 +186,86 @@ class XDeepFM(CTRModel):
         if self.lr_layer is not None:
             logits = logits + self.lr_layer(input_ids)
         return logits
+
+
+def _ints(csv: str):
+    return [int(x) for x in str(csv).split(",")]
+
+
+class FGCNN(CTRModel):
+    """Convolutional feature generation, inner products and an MLP (map_tpu
+    `zoo.py:233-288`): the (B, F, E) embeddings of `embed` beside the new
+    fields `fgcnn_layer` generates from `fg_embed`'s (`embed`'s own with
+    `share_embedding`), all of them flattened and their pairwise inner
+    products -> `_mlp` -> `fc_out`. final_dim = T (T - 1) / 2 + T * E, T the
+    fields old and new (`compute_input_dim`). The feature generation and
+    the products compute in float32 (a bf16 embedding is promoted, as flax's
+    Conv promotes it); the MLP in compute_dtype."""
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        c = config
+        channels, pooling = _ints(c.channels), _ints(c.pooling_sizes)
+        recombined = _ints(c.recombined_channels)
+        self.embed = _embeddings(c)
+        self.fg_embed = None if c.share_embedding else _embeddings(c)
+        self.fgcnn_layer = FGCNNBlock(c.num_fields, c.embed_size, channels,
+                                      _ints(c.kernel_heights), pooling, recombined,
+                                      c.conv_act)
+        final_dim, total = self.compute_input_dim(c.embed_size, c.num_fields, channels,
+                                                  pooling, recombined)
+        self.ip_layer = InnerProductLayer(total, "inner_product")
+        self.dnn = (_mlp(c, final_dim) if not c.pretrain and c.num_hidden_layers > 0
+                    else None)
+        self.finish(c.hidden_size if self.dnn is not None else final_dim, "fc_out")
+
+    @staticmethod
+    def compute_input_dim(embedding_dim, num_fields, channels, pooling_sizes,
+                          recombined_channels):
+        """-> (final_dim, total fields): map_tpu's (`zoo.py:262-274`)."""
+        total = height = num_fields
+        for p, rc in zip(pooling_sizes, recombined_channels):
+            height = int(math.ceil(height / p))
+            total += height * rc
+        return total * (total - 1) // 2 + total * embedding_dim, total
+
+    def backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
+        feat_embed = self.embed(input_ids)
+        fg_embed = feat_embed if self.fg_embed is None else self.fg_embed(input_ids)
+        new_feat_embed = self.fgcnn_layer(fg_embed.float())
+        combined = torch.cat([feat_embed, new_feat_embed], dim=1)  # float32, as jnp's
+        return torch.cat([combined.flatten(1), self.ip_layer(combined)], dim=1)
+
+    def supervised_logits(self, input_ids: torch.Tensor) -> torch.Tensor:
+        dense_input = self.backbone(input_ids)
+        if self.dnn is not None:
+            dense_input = self.dnn(dense_input)
+        return self.fc_out(dense_input)
+
+
+class FiGNN(CTRModel):
+    """The field graph (map_tpu `zoo.py:291-313`): `fignn` (attention graph,
+    num_hidden_layers rounds of GraphLayer and GRU, `res_conn`,
+    `reuse_graph_layer`) over the embeddings, then `fc`, the attentional
+    prediction. The pretraining backbone is the fields' states flattened:
+    final_dim = F * E."""
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        c = config
+        self.embed = _embeddings(c)
+        self.fignn = FiGNNBlock(c.num_fields, c.embed_size, c.num_hidden_layers,
+                                use_residual=c.res_conn,
+                                reuse_graph_layer=c.reuse_graph_layer)
+        if not c.pretrain:
+            self.fc = AttentionalPrediction(c.num_fields, c.embed_size)
+        self.finish(c.num_fields * c.embed_size)
+
+    def backbone(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.fignn(self.embed(input_ids)).flatten(1)
+
+    def supervised_logits(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.fc(self.fignn(self.embed(input_ids)))
 
 
 class AutoInt(CTRModel):

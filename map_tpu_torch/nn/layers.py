@@ -1,7 +1,8 @@
 """The model zoo's layers. Counterpart: `map_tpu/nn/layers.py:49-261`
 (TorchDense, Embeddings, MLPBlock, CrossNetV2, InnerProductLayer, CIN),
-`:466-574` (MultiHeadSelfAttention, TransformerEncoderLayer) and LR's
-`LRLayer` (`map_tpu/models/zoo.py:86-95`).
+`:264-305` (FGCNNBlock and its BatchNorm), `:358-434` (GraphLayer,
+FiGNNBlock, AttentionalPrediction), `:466-574` (MultiHeadSelfAttention,
+TransformerEncoderLayer) and LR's `LRLayer` (`map_tpu/models/zoo.py:86-95`).
 
 Attribute names follow the reference's torch modules, so `state_dict()` keys
 are the names `map_tpu/interop/torch_import.py` exchanges: an
@@ -9,10 +10,13 @@ are the names `map_tpu/interop/torch_import.py` exchanges: an
 `cross_layers.{i}`, an MLP `nn.Sequential` named `dnn` of
 [Linear, act, Dropout] per layer (Linear j at index 3j), LR's `embed_w`
 (V, 1) table and `bias`, CIN's 1x1 convolutions `cin_layer.layer_{i+1}`,
-AutoInt's bias-free `W_q` / `W_k` / `W_v` / `W_res`, and torch's
+AutoInt's bias-free `W_q` / `W_k` / `W_v` / `W_res`, torch's
 TransformerEncoderLayer names (`self_attn.in_proj_weight` /
 `in_proj_bias`, `self_attn.out_proj`, `linear1`, `linear2`, `norm1`,
-`norm2`).
+`norm2`), FiGNN's `W_attn`, `gnn` (`W_in`, `W_out`, `bias_p`) and torch's
+GRUCell names under `gru`, and FGCNN's `conv_layers.{i}.0` (convolution)
+and `.1` (BatchNorm, with `running_mean` / `running_var` buffers) and
+`recombine_layers.{i}.0`.
 
 `dtype` is the compute dtype, as in map_tpu: parameters stay float32 and are
 cast where they are used. map_tpu casts only the embeddings, the cross net
@@ -21,8 +25,9 @@ its input with its float32 parameters (TorchDense with dtype=None), and so
 do these: a bf16 input meets a float32 weight in float32. LayerNorm reduces
 in float32 and returns float32, as flax's does for a bf16 input.
 
-Train mode (`module.train()`) switches dropout on, as map_tpu's `train=True`
-does. Dropout draws from an explicit `torch.Generator` on the activations'
+Train mode (`module.train()`) switches dropout on and makes FGCNN's
+BatchNorm normalise by the batch and move its running statistics, as
+map_tpu's `train=True` does. Dropout draws from an explicit `torch.Generator` on the activations'
 device (`set_dropout_generator`); the canonical configurations have no
 dropout (rate 0.0), and then the layers are identity in both modes.
 """
@@ -33,6 +38,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from map_tpu_torch.data.dataset import NUM_RESERVED
@@ -238,11 +244,14 @@ class InnerProductLayer(nn.Module):
 
     def forward(self, feat_embed: torch.Tensor) -> torch.Tensor:
         if self.output == "inner_product":
+            f = self.num_fields
             ip = torch.matmul(feat_embed, feat_embed.transpose(1, 2))
-            # np.triu_indices' order, made on the device (no host copy)
-            iu, ju = torch.triu_indices(self.num_fields, self.num_fields, 1,
-                                        device=feat_embed.device)
-            return ip[:, iu, ju]
+            # np.triu_indices' order, made on the device (no host copy); one
+            # index_select of the flattened products, whose backward adds
+            # each pair's gradient once onto zeros (an advanced index's
+            # sorts and serialises them)
+            iu, ju = torch.triu_indices(f, f, 1, device=feat_embed.device)
+            return ip.reshape(ip.shape[0], f * f).index_select(1, iu * f + ju)
         sum_of_square = feat_embed.sum(dim=1) ** 2
         square_of_sum = (feat_embed ** 2).sum(dim=1)
         bi = 0.5 * (sum_of_square - square_of_sum)
@@ -427,9 +436,287 @@ class TransformerEncoderLayer(nn.Module):
         return self.norm2((x + self._ff_block(x)).float())
 
 
+class GraphLayer(nn.Module):
+    """FiGNN's message passing (map_tpu `nn/layers.py:358-373`): per-field
+    matrices `W_out` and `W_in` (F, E, E) around the attention graph's
+    aggregation, plus `bias_p` (E,): W_in_f (sum_g G[f, g] W_out_g h_g) + b."""
+
+    def __init__(self, num_fields: int, embed_size: int):
+        super().__init__()
+        self.W_in = nn.Parameter(torch.empty(num_fields, embed_size, embed_size))
+        self.W_out = nn.Parameter(torch.empty(num_fields, embed_size, embed_size))
+        self.bias_p = nn.Parameter(torch.empty(embed_size))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Xavier normal over the last two axes, as map_tpu's; bias zeros."""
+        for w in (self.W_in, self.W_out):
+            std = math.sqrt(2.0 / float(w.shape[-1] + w.shape[-2]))
+            w.normal_(0.0, std, generator=generator)
+        self.bias_p.zero_()
+
+    def forward(self, g: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        h_out = torch.einsum("fij,bfj->bfi", self.W_out, h)
+        aggr = torch.matmul(g, h_out)
+        return torch.einsum("fij,bfj->bfi", self.W_in, aggr) + self.bias_p
+
+
+class GRUCell(nn.Module):
+    """torch.nn.GRUCell's parameters (`weight_ih` / `weight_hh` (3H, ·) and
+    `bias_ih` / `bias_hh` (3H,), gates r | z | n) in plain tensor
+    arithmetic: r = sigmoid(x W_ir + b_ir + h W_hr + b_hr), z likewise,
+    n = tanh(x W_in + b_in + r (h W_hn + b_hn)), h' = (1 - z) n + z h,
+    which is flax's GRUCell(carry=h, inputs=x) with its input-side r and z
+    biases in `bias_ih` and zeros in `bias_hh[:2H]`. flax has one bias for
+    each of r and z, so b_hr and b_hz take no gradient here (they stay
+    where the carry or the init put them: zero); trained, each would move
+    the gate's bias a second time a step, which map_tpu's do not. Weights
+    start at U(-1/sqrt(H), 1/sqrt(H)) and biases at zero, as map_tpu's FiGNN
+    draws them."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.empty(3 * hidden_size, input_size))
+        self.weight_hh = nn.Parameter(torch.empty(3 * hidden_size, hidden_size))
+        self.bias_ih = nn.Parameter(torch.empty(3 * hidden_size))
+        self.bias_hh = nn.Parameter(torch.empty(3 * hidden_size))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight_hh.shape[1])
+        for w in (self.weight_ih, self.weight_hh):
+            w.uniform_(-bound, bound, generator=generator)
+        self.bias_ih.zero_()
+        self.bias_hh.zero_()
+
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        hidden = self.weight_hh.shape[1]
+        bias_hh = torch.cat([self.bias_hh[:2 * hidden].detach(), self.bias_hh[2 * hidden:]])
+        gi = torch.matmul(x, self.weight_ih.t()) + self.bias_ih
+        gh = torch.matmul(h, self.weight_hh.t()) + bias_hh
+        i_r, i_z, i_n = gi.chunk(3, dim=-1)
+        h_r, h_z, h_n = gh.chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        n = torch.tanh(i_n + r * h_n)
+        return (1.0 - z) * n + z * h
+
+
+class FiGNNBlock(nn.Module):
+    """FiGNN's field graph (map_tpu `nn/layers.py:376-420`): an attention
+    graph over the fields (`W_attn` on [src; dst] for every ordered pair,
+    leaky_relu 0.01, the diagonal at -inf, a softmax over the destinations),
+    then `gnn_layers` rounds of GraphLayer (`gnn` when `reuse_graph_layer`,
+    else `gnn.{i}`), each followed by the GRU cell and the optional
+    residual. A bf16 input is promoted to float32 first, as every product
+    of map_tpu's block promotes it; the pair tensor keeps map_tpu's
+    arithmetic, (B, F * F, 2E)."""
+
+    def __init__(self, num_fields: int, embed_size: int, gnn_layers: int,
+                 use_residual: bool = False, reuse_graph_layer: bool = False):
+        super().__init__()
+        self.num_fields = num_fields
+        self.gnn_layers = gnn_layers
+        self.use_residual = use_residual
+        self.reuse_graph_layer = reuse_graph_layer
+        self.gnn = (GraphLayer(num_fields, embed_size) if reuse_graph_layer else
+                    nn.ModuleList(GraphLayer(num_fields, embed_size)
+                                  for _ in range(gnn_layers)))
+        self.gru = GRUCell(embed_size, embed_size)
+        self.W_attn = TorchDense(2 * embed_size, 1, bias=False)
+
+    def build_graph_with_attention(self, feat_embed: torch.Tensor) -> torch.Tensor:
+        b, f, e = feat_embed.shape
+        src = feat_embed[:, :, None, :].expand(b, f, f, e).reshape(b, f * f, e)
+        dst = feat_embed[:, None, :, :].expand(b, f, f, e).reshape(b, f * f, e)
+        alpha = self.W_attn(torch.cat([src, dst], dim=-1))
+        alpha = F.leaky_relu(alpha, negative_slope=0.01).reshape(b, f, f)
+        eye = torch.eye(f, dtype=torch.bool, device=alpha.device)
+        return torch.softmax(alpha.masked_fill(eye, float("-inf")), dim=-1)
+
+    def forward(self, feat_embed: torch.Tensor) -> torch.Tensor:
+        feat_embed = feat_embed.float()
+        b, f, e = feat_embed.shape
+        g = self.build_graph_with_attention(feat_embed)
+        h = feat_embed
+        for i in range(self.gnn_layers):
+            gnn = self.gnn if self.reuse_graph_layer else self.gnn[i]
+            a = gnn(g, h)
+            h = self.gru(a.reshape(-1, e), h.reshape(-1, e)).reshape(b, f, e)
+            if self.use_residual:
+                h = h + feat_embed
+        return h
+
+
+class AttentionalPrediction(nn.Module):
+    """FiGNN's head (map_tpu `nn/layers.py:423-434`): a score a field
+    (`linear1`, E -> 1) times a gate a field (`linear2.0`, F * E -> F, then
+    a sigmoid), summed over the fields -> (B, 1). Both bias-free."""
+
+    def __init__(self, num_fields: int, embed_size: int):
+        super().__init__()
+        self.linear1 = TorchDense(embed_size, 1, bias=False)
+        self.linear2 = nn.Sequential(TorchDense(num_fields * embed_size, num_fields,
+                                                bias=False), nn.Sigmoid())
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        score = self.linear1(h)[..., 0]
+        weight = self.linear2(h.flatten(1))
+        return (weight * score).sum(dim=1, keepdim=True)
+
+
+class BatchNorm(nn.Module):
+    """flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over the last axis
+    (channels last, as flax's), under torch's BatchNorm2d names (`weight`,
+    `bias` and the buffers `running_mean`, `running_var`; no
+    `num_batches_tracked`, which map_tpu has no counterpart of). In train mode it normalises by the
+    batch's mean and biased variance, E[x^2] - E[x]^2 clipped at 0 (flax's
+    fast variance), and moves the running statistics in place,
+    running = 0.9 running + 0.1 batch, with the biased variance too (torch's
+    BatchNorm2d would take the unbiased one). In eval mode it normalises by
+    the running statistics. Plain tensor arithmetic, and the update is an
+    in-place write of registered buffers, so a captured CUDA graph replays
+    it. Every row counts, padding rows included: flax's BatchNorm takes no
+    mask (map_tpu `nn/layers.py:296`)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+        self.register_buffer("running_mean", torch.empty(num_features))
+        self.register_buffer("running_var", torch.empty(num_features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axes = list(range(x.dim() - 1))
+        if self.training:
+            mean = x.mean(dim=axes)
+            var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+class FieldConv(nn.Module):
+    """A (kh x 1) convolution over the field axis of a channels-last input
+    (B, H, E, C), "same" padding (kh - 1) // 2 on both sides, with bias:
+    the reference's Conv2d (`weight` (out, in, kh, 1), `bias`), computed as
+    one product of the input's kh-row windows (`unfold`, in the weight's
+    (c, t) order) with the weight, a GEMM whose bits do not depend on the
+    library's choice of algorithm -> (B, H', E, out). The weight starts at
+    U(-1/sqrt(kh * in), 1/sqrt(kh * in)) and the bias at zero (flax's Conv,
+    map_tpu `nn/init.py:conv_kernel_init`)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_height: int):
+        super().__init__()
+        self.padding = (kernel_height - 1) // 2
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_height, 1))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        bound = 1.0 / math.sqrt(self.weight[0].numel())
+        self.weight.uniform_(-bound, bound, generator=generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, e, c = x.shape
+        out_ch, _, kh, _ = self.weight.shape
+        p = self.padding
+        xp = F.pad(x, (0, 0, 0, 0, p, p)) if p else x
+        cols = xp.unfold(1, kh, 1)  # (B, H', E, C, kh)
+        h = cols.shape[1]
+        out = torch.matmul(cols.reshape(b * h * e, c * kh),
+                           self.weight.reshape(out_ch, c * kh).t()) + self.bias
+        return out.reshape(b, h, e, out_ch)
+
+
+def fgcnn_heights(num_fields: int, kernel_heights: Sequence[int],
+                  pooling_sizes: Sequence[int]):
+    """FGCNN's field-axis heights, stage by stage, as map_tpu computes them
+    (`nn/layers.py:284-300`): -> [(pooled rows, pad rows, new fields a
+    recombined channel)]. map_tpu pads the pool by h mod p rows of -inf on
+    both sides, h being its ceil(h / p) chain, which also sizes each stage's
+    new fields; the rows the pool returns (and so the recombine's input)
+    follow from the rows it is given. With p = 2 both are ceil(h / p); with
+    p >= 3 they may differ (h = 8, p = 3: 4 rows pooled, 3 new fields a
+    channel)."""
+    h = rows = num_fields
+    out = []
+    for kh, p in zip(kernel_heights, pooling_sizes):
+        rows = rows + 2 * ((kh - 1) // 2) - kh + 1  # the convolution's
+        pad = h % p
+        rows = (rows + 2 * pad - p) // p + 1
+        h = int(math.ceil(h / p))
+        out.append((rows, pad, h))
+    return out
+
+
+class FGCNNBlock(nn.Module):
+    """FGCNN's feature generation (map_tpu `nn/layers.py:264-305`): each
+    stage `conv_layers.{i}` = [FieldConv (kh x 1), BatchNorm, act] on the
+    channels-last map (B, H, E, C), as map_tpu's NHWC, a (p x 1) max-pool
+    with `fgcnn_heights`' -inf rows on both sides, then
+    `recombine_layers.{i}` = [Linear(C * H_pooled * E -> h * E * rc), act]
+    of the pooled map flattened in the reference's NCHW order (c, h, e), so
+    that the Linear's weight is the reference's, reshaped to h * rc new
+    fields of width E. Input (B, F, E) float32 -> (B, new fields, E)."""
+
+    def __init__(self, num_fields: int, embedding_dim: int, channels: Sequence[int],
+                 kernel_heights: Sequence[int], pooling_sizes: Sequence[int],
+                 recombined_channels: Sequence[int], activation: str = "tanh"):
+        super().__init__()
+        self.embedding_dim = embedding_dim
+        self.pooling_sizes = tuple(int(p) for p in pooling_sizes)
+        heights = fgcnn_heights(num_fields, kernel_heights, pooling_sizes)
+        self.pool_pads = tuple(pad for _, pad, _ in heights)
+        convs, recombines = [], []
+        in_ch = 1
+        for out_ch, kh, (rows, _, h), rc in zip(channels, kernel_heights, heights,
+                                                 recombined_channels):
+            convs.append(nn.Sequential(FieldConv(in_ch, out_ch, kh), BatchNorm(out_ch),
+                                       Activation(activation)))
+            recombines.append(nn.Sequential(
+                TorchDense(out_ch * rows * embedding_dim, h * embedding_dim * rc),
+                Activation(activation)))
+            in_ch = out_ch
+        self.conv_layers = nn.ModuleList(convs)
+        self.recombine_layers = nn.ModuleList(recombines)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        out = x[..., None]
+        new_features = []
+        for conv, pad, p, recombine in zip(self.conv_layers, self.pool_pads,
+                                           self.pooling_sizes, self.recombine_layers):
+            out = conv(out)
+            if pad:
+                out = F.pad(out, (0, 0, 0, 0, pad, pad), value=float("-inf"))
+            # an NCHW view of the channels-last map: pooled in that layout,
+            # flattened in the reference's (c, h, e) order
+            out = F.max_pool2d(out.permute(0, 3, 1, 2), (p, 1), (p, 1))
+            new_features.append(
+                recombine(out.flatten(1)).reshape(b, -1, self.embedding_dim))
+            out = out.permute(0, 2, 3, 1)
+        return torch.cat(new_features, dim=1)
+
+
 # the layers whose reset_parameters takes the init generator
 _SEEDED = (TorchDense, Embeddings, MLPBlock, CrossNetV2, LRLayer, CIN,
-           PackedSelfAttention)
+           PackedSelfAttention, GraphLayer, GRUCell, BatchNorm, FieldConv)
 
 
 def reset_children(module: nn.Module, generator: torch.Generator,

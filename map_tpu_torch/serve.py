@@ -2,11 +2,13 @@
 
 Counterpart: `map_tpu/serve.py:28-208`. `Predictor` reads the run's
 config.json and either the port's `{step}.model` (`source="torch"`) or
-map_tpu's (`source="jax"`, carried across by `interop/from_jax.py`), moves
-the weights to the device once, and scores fixed-size chunks: the last chunk
-is padded with id 0 and its padding rows are dropped. Each chunk's ids are
-checked on the host against [0, input_size) (the gather kernel does not check
-them), sent as int32, and the logits come back as float32.
+map_tpu's (`source="jax"`, carried across by `interop/from_jax.py` with its
+`batch_stats`), moves the weights to the device once, and scores
+fixed-size chunks in eval mode (FGCNN's BatchNorm from the checkpoint's
+running statistics): the last chunk is padded with id 0 and its padding
+rows are dropped. Each chunk's ids are checked on the host against
+[0, input_size) (the gather kernel does not check them), sent as int32,
+and the logits come back as float32.
 
 The loop is plain: one host-to-device copy per chunk. map_tpu's byte-packed
 transfer and three-stage pipeline are later work (ROADMAP.md).

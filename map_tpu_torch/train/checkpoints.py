@@ -2,8 +2,9 @@
 `prune_checkpoints` (:65-81) and `partial_restore` (:120-140).
 
 The port's `{step}.model` is `torch.save` of the model's state_dict (the
-reference's own format, `code/trainer.py:517-519`), written to a temporary
-file and renamed, so a crash never leaves a torn checkpoint.
+reference's own format, `code/trainer.py:517-519`), buffers included
+(FGCNN's BatchNorm running statistics), written to a temporary file and
+renamed, so a crash never leaves a torn checkpoint.
 
 `load_jax_model_file` reads map_tpu's `{step}.model`: flax's msgpack
 serialization of the variables tree, decoded here with the `msgpack` package
@@ -122,7 +123,14 @@ def partial_restore(state_dict: Dict[str, torch.Tensor],
                     ) -> Tuple[Dict[str, torch.Tensor], int, int]:
     """Copy every tensor of `target` whose name AND shape match one of
     `state_dict`; keep the rest. Returns (merged, loaded, skipped), counted
-    over `target` as map_tpu counts them."""
+    over `target` as map_tpu counts them, a tensor for each of its leaves
+    of `params` and `batch_stats` (FGCNN's BatchNorm: `running_mean` and
+    `running_var` for map_tpu's `mean` and `var`), but where torch packs
+    several of map_tpu's leaves into one tensor: the Transformer's
+    `in_proj_weight` / `in_proj_bias` (6 leaves: q, k, v kernels and
+    biases) and FiGNN's GRUCell's 4 tensors (10 leaves: 6 kernels, 4
+    biases), so a restore loads 4 fewer a Transformer layer and 6 fewer in
+    FiGNN than map_tpu counts."""
     merged = dict(state_dict)
     loaded = skipped = 0
     for name, value in target.items():

@@ -27,6 +27,9 @@ stacked the same way, each step's in row j of a (n, ...) tensor:
 - The step's generators (the MFP / RFD draws, dropout) are registered with
   each graph (`register_generator_state`), so a replay draws from where the
   generator stands and moves it on: replays do not repeat draws.
+- The model's buffers are state the graph writes in place, as it writes
+  the parameters: FGCNN's BatchNorm running statistics move on every
+  replayed step, as on every eager one.
 - A capture that fails raises; nothing runs eagerly in its place on the card.
 - With K = 1 on the card, or on the CPU, a call runs its n steps eagerly,
   one by one: the plain path, which gives the same results as n single

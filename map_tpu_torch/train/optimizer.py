@@ -58,14 +58,21 @@ SparseUpdateFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, k7.Stream,
 
 def decays(name: str) -> bool:
     """True = weight decay applies. map_tpu's rule (`no_decay_mask`: no decay
-    for leaves named bias* and for norm scales) on torch names, which is the
-    reference's own (`"bias" in name`): any name holding `bias` (a Linear's
-    `*.bias`, the NCE decoder's `mfp_criterion.bias.weight`) and a
-    LayerNorm's `weight` (`embed.layer_norm.weight`) take none."""
+    for leaves named bias* and for LayerNorm and BatchNorm scales,
+    `map_tpu/train/optimizer.py:33-38`) on torch names: any name holding
+    `bias` (a Linear's `*.bias`, the NCE decoder's
+    `mfp_criterion.bias.weight`, FiGNN's `bias_p`), a LayerNorm's `weight`
+    (`embed.layer_norm.weight`, `encoder.layers.0.norm1.weight`) and a
+    BatchNorm's `weight`, which FGCNN's stages hold as the second module of
+    each `conv_layers.{i}` (`fgcnn_layer.conv_layers.0.1.weight`), take
+    none."""
     if "bias" in name:
         return False
     parts = name.split(".")
-    return not (parts[-1] == "weight" and len(parts) > 1 and "norm" in parts[-2])
+    if parts[-1] != "weight" or len(parts) < 2:
+        return True
+    batch_norm = len(parts) >= 4 and parts[-4] == "conv_layers" and parts[-2] == "1"
+    return not ("norm" in parts[-2] or batch_norm)
 
 
 def is_table_leaf(name: str, shape: Sequence[int]) -> bool:

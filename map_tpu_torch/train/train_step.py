@@ -20,6 +20,15 @@ residuals), then one `AdamW.step` (K1 for every parameter); returns
 {loss, probs}. eval step: forward in eval mode under
 `torch.inference_mode`; returns {loss, logits, probs}.
 
+Train mode is map_tpu's `train=True` in every step (supervised, MFP, RFD):
+FGCNN's BatchNorm normalises by the batch and moves its running
+statistics in place (map_tpu threads `batch_stats` through the step,
+`train_step.py:149-199`); eval steps read the running statistics. The
+batch is the padded one, so the statistics count the weight-0 padding
+rows of an epoch's last batch, as map_tpu's do (flax's BatchNorm takes no
+mask); the reference emits a short last batch instead. The port keeps
+map_tpu's departure.
+
 MFP train step: masked positions and noise drawn on the device from the
 step's generator (or handed in as `draws`), the corruption, the scores
 through the MFP head, the per-position loss weighted by the example weights

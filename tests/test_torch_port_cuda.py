@@ -1197,6 +1197,9 @@ ZOO_KNOBS = {
     "autoint": dict(attn_size=12, num_attn_heads=2, attn_probs_dropout_rate=0.1),
     "trans": dict(hidden_size=16, num_attn_heads=2, intermediate_size=64,
                   output_reduction="attn,fc"),
+    "fignn": dict(num_hidden_layers=2),
+    "fgcnn": dict(channels="6,8", kernel_heights="3,3", pooling_sizes="2,2",
+                  recombined_channels="2,2", share_embedding=False),
 }
 
 
@@ -1223,7 +1226,9 @@ def test_zoo_steps_match_the_plain_versions(dev, name, dtype, monkeypatch):
     2 lr k (Adam's step is lr at most, and where a gradient is within
     rounding of 0 its sign may differ), the updates' L1 difference a small
     share of their own L1 norm (1e-2 f32, 0.25 bf16), as chip_smoke.py's
-    `parity_check`."""
+    `parity_check`; FGCNN's BatchNorm running statistics within 2 lr k plus
+    1e-5 (f32) or 2e-2 (bf16) of their size (a running mean follows its
+    convolution's bias, whose gradient is rounding only)."""
     from map_tpu_torch.nn.layers import set_dropout_generator
     from map_tpu_torch.train.optimizer import build_optimizer
     from map_tpu_torch.train.train_step import make_supervised_steps
@@ -1248,10 +1253,11 @@ def test_zoo_steps_match_the_plain_versions(dev, name, dtype, monkeypatch):
         torch.cuda.synchronize()
         launched = tuple(a - b for a, b in zip(
             (embedding.launches, scatter.launches, fused_adamw.launches), before))
-        return losses.cpu(), {n: p.detach() for n, p in m.named_parameters()}, launched
+        return (losses.cpu(), {n: p.detach() for n, p in m.named_parameters()}, launched,
+                dict(m.named_buffers()))
 
-    k_loss, k_params, k_launched = run(False)
-    p_loss, p_params, p_launched = run(True)
+    k_loss, k_params, k_launched, k_bufs = run(False)
+    p_loss, p_params, p_launched, p_bufs = run(True)
     assert p_launched == (0, 0, 0)
     assert k_launched[0] >= 5 and k_launched[1] >= 5 and k_launched[2] == 5, k_launched
     rel = {"float32": 1e-5, "bfloat16": 2e-2}[dtype]
@@ -1263,6 +1269,9 @@ def test_zoo_steps_match_the_plain_versions(dev, name, dtype, monkeypatch):
         diff_l1 += float(d.double().sum())
         update_l1 += float((ref - p0[n]).abs().double().sum())
     assert diff_l1 <= {"float32": 1e-2, "bfloat16": 0.25}[dtype] * update_l1
+    assert len(p_bufs) == (4 if name == "fgcnn" else 0)
+    for n, ref in p_bufs.items():
+        assert ((k_bufs[n] - ref).abs() <= 2 * 1e-3 * 5 * 1.01 + rel * ref.abs()).all(), n
 
 
 def test_autoint_dropout_graph_is_bit_equal_to_eager_steps(dev):
@@ -1282,3 +1291,28 @@ def test_autoint_dropout_graph_is_bit_equal_to_eager_steps(dev):
         assert torch.equal(got[k], ref[k]), k
     for (name, a), b in zip(eager.model.named_parameters(), graphed.model.parameters()):
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("name,kind", [("fignn", "supervised"), ("fgcnn", "supervised"),
+                                       ("fgcnn", "rfd"), ("fgcnn", "mfp")])
+def test_graph_models_graph_is_bit_equal_to_eager_steps(dev, name, kind):
+    """FiGNN and FGCNN (bf16): a captured graph of 8 steps (after the eager
+    warm-up call of 8) against 16 eager steps: the same bits in every
+    parameter and buffer, FGCNN's running statistics moved on every
+    replayed step as on every eager one."""
+    knobs = dict(model=name, groups=4, **ZOO_KNOBS[name])
+    eager = _graph_trainer(dev, kind, "bfloat16", "off", 1, **knobs)
+    ref = _graph_run(eager)
+    graphed = _graph_trainer(dev, kind, "bfloat16", "on", 8, **knobs)
+    start = {n: b.clone() for n, b in graphed.model.named_buffers()}
+    got = _graph_run(graphed)
+    multi = graphed.multi
+    assert sorted(multi.graphs) == [1, 8] and multi.graphs[8].replays >= 2
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+    state = graphed.model.state_dict()
+    for name_, a in eager.model.state_dict().items():
+        assert torch.equal(a, state[name_]), name_
+    assert len(start) == (4 if name == "fgcnn" else 0)
+    for n, b in start.items():
+        assert not torch.equal(state[n], b), n

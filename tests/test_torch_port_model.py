@@ -112,9 +112,9 @@ def test_from_config_is_seeded_and_torch_named():
                        "fc_out.weight", "fc_out.bias"]
     for k in a:
         assert torch.equal(a[k], b[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="not one of map_tpu's"):
         models.from_config(Config.from_dict(
-            base_model_config(model_name="fignn").to_dict()))
+            base_model_config(model_name="fibinet").to_dict()))
 
 
 def test_init_statistics_match_reference():
@@ -155,5 +155,6 @@ def test_config_load_keeps_unknown_keys(tmp_path):
     assert port.compute_dtype == "bfloat16" and port.idx_low == [10, 20]
     assert port.num_cross_layers == cfg.num_cross_layers
     assert port.cin_layer_units == cfg.cin_layer_units  # a field of the zoo's
-    assert port.extra["channels"] == cfg.channels  # FGCNN's, not ported
+    assert port.channels == cfg.channels  # FGCNN's
+    assert port.extra["use_pallas"] == cfg.use_pallas  # a key the port does not read
     assert Config.from_dict({"compute_dtype": None}).compute_dtype == "float32"

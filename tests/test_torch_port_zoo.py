@@ -1,14 +1,18 @@
-"""map_tpu_torch's model zoo (LR, FM, DNN, DeepFM, xDeepFM, AutoInt,
-Transformer) against map_tpu's on the CPU.
+"""map_tpu_torch's model zoo (LR, FM, DNN, DeepFM, xDeepFM, FGCNN, FiGNN,
+AutoInt, Transformer) against map_tpu's on the CPU.
 
 The same numpy-made inputs go through map_tpu and the port, with the weights
 map_tpu draws carried by `state_dict_from_jax`: the carried keys against
-map_tpu's `export_state_dict` (flat and lane-packed tables), the forward
-logits (1e-5 in f32, a recorded bf16 band), 5 supervised steps for every
-model, 5 MFP steps for the five pretrain-capable ones and 5 RFD steps for
-DNN and AutoInt (losses, parameters and Adam moments at 1e-5 in f32), the
-finetune restore's counts, the weight-decay rule, the refusals, and K
-steps a call against K single steps with AutoInt's attention dropout on.
+map_tpu's `export_state_dict` (flat and lane-packed tables) and FGCNN's
+running statistics against its `batch_stats`, the forward logits (1e-5 in
+f32, in eval mode and, for FGCNN and FiGNN, in train mode; a recorded bf16
+band), 5 supervised steps for every model, 5 MFP steps for the seven
+pretrain-capable ones and 5 RFD steps for DNN, AutoInt, FGCNN and FiGNN
+(losses, parameters, Adam moments and BatchNorm running statistics at 1e-5
+in f32), the finetune restore's counts, the weight-decay rule, the
+registry, the refusals, the port's BatchNorm against flax's, and K steps a
+call against K single steps with AutoInt's attention dropout on and with
+FGCNN's running statistics.
 Dropout is 0 wherever map_tpu is compared: randomness is injected, never
 compared. On the CPU every port op takes its plain PyTorch version; the
 kernels are held against those on the card by `chip_smoke.py` and
@@ -36,6 +40,7 @@ from map_tpu_torch import models
 from map_tpu_torch.config import Config, ModelArguments, TrainingArguments, parse_args
 from map_tpu_torch.interop.from_jax import model_rules, state_dict_from_jax
 from map_tpu_torch.train import checkpoints
+from map_tpu_torch.nn.layers import BatchNorm
 from map_tpu_torch.train.optimizer import build_optimizer, decays
 from map_tpu_torch.train.train_step import (
     MFPDraws,
@@ -71,8 +76,14 @@ ZOO = {
     "trans": dict(hidden_size=16, num_hidden_layers=2, num_attn_heads=2,
                   intermediate_size=32, output_reduction="attn,fc", use_lr=True,
                   num_dnn_layers=1, dnn_size=16),
+    # 2 GNN rounds; FGCNN's two stages of base_model_config (channels 3,4,
+    # kernel heights 3,3, pools 2,2, recombined 2,2) from a table of its own
+    # (map_tpu's default, share_embedding off)
+    "fignn": dict(num_hidden_layers=2),
+    "fgcnn": dict(hidden_size=32, num_hidden_layers=2, share_embedding=False),
 }
-PRETRAIN = ["dnn", "deepfm", "xdeepfm", "autoint", "trans"]
+PRETRAIN = ["dnn", "deepfm", "xdeepfm", "autoint", "trans", "fignn", "fgcnn"]
+GRAPH_MODELS = ["fignn", "fgcnn"]
 # further cases of the forward: the residual, the scale, the other
 # reductions, pre-norm
 VARIANTS = {
@@ -87,6 +98,16 @@ VARIANTS = {
                                               intermediate_size=32, norm_first=True,
                                               output_reduction="sum,fc")),
     "xdeepfm cin only": ("xdeepfm", dict(num_hidden_layers=0, cin_layer_units="4,3,2")),
+    "fignn reuse res": ("fignn", dict(num_hidden_layers=2, reuse_graph_layer=True,
+                                      res_conn=True)),
+    "fignn res": ("fignn", dict(num_hidden_layers=3, res_conn=True)),
+    "fgcnn shared": ("fgcnn", dict(hidden_size=32, num_hidden_layers=1,
+                                   share_embedding=True)),
+    # pools of 3 after an even kernel: map_tpu pads the first pool by
+    # 8 mod 3 = 2 rows a side, so 4 rows come out of 7 where its ceil chain
+    # says 3 (the new fields), and the second stage starts from those 4
+    "fgcnn pool 3": ("fgcnn", dict(num_hidden_layers=0, share_embedding=False,
+                                   kernel_heights="2,3", pooling_sizes="3,2")),
 }
 
 # bf16 band of the logits (map_tpu with lane-packed tables, the port with
@@ -120,14 +141,65 @@ def _pretrain_cfg(name, pt_type, **overrides):
 
 
 def _init(cfg, seed=0):
-    """map_tpu's variables of `cfg`, drawn from `seed`, as numpy."""
+    """map_tpu's variables of `cfg`, drawn from `seed`, as numpy. FGCNN's
+    running statistics are moved off their start (0 and 1) by one train-mode
+    forward on random ids, so that eval mode reads statistics of a batch."""
     kwargs = {}
     if cfg.pretrain and cfg.pt_type == "MFP":
         kwargs = dict(masked_index=jnp.zeros((2, 2), jnp.int32),
                       candidates=jnp.zeros((2, 2, 6), jnp.int32))
     model = jax_models.from_config(cfg)
-    return model, _np(model.init(jax.random.PRNGKey(seed),
-                                 jnp.zeros((2, cfg.num_fields), jnp.int32), **kwargs))
+    variables = _np(model.init(jax.random.PRNGKey(seed),
+                               jnp.zeros((2, cfg.num_fields), jnp.int32), **kwargs))
+    if "batch_stats" in variables:
+        ids = jnp.asarray(_ids8(16, cfg.input_size, seed + 100))
+        if cfg.pretrain and cfg.pt_type == "MFP":
+            kwargs = dict(masked_index=jnp.zeros((16, 2), jnp.int32),
+                          candidates=jnp.zeros((16, 2, 6), jnp.int32))
+        _, mutated = model.apply(variables, ids, train=True, mutable=["batch_stats"],
+                                 **kwargs)
+        variables["batch_stats"] = _np(mutated["batch_stats"])
+    return model, variables
+
+
+def _variables(state):
+    """A map_tpu TrainState's variables as numpy: params, and batch_stats
+    where the model has them."""
+    out = {"params": _np(state.params)}
+    if state.batch_stats:
+        out["batch_stats"] = _np(state.batch_stats)
+    return out
+
+
+def _is_stat(key):
+    return ".running_" in key
+
+
+def _running_stats_agree(ref, got, ref_mom=None):
+    """Split BatchNorm's running statistics off both state_dicts, hold them
+    at 1e-5 and return the parameters alone. After steps (map_tpu's Adam
+    moments `ref_mom` given), one exception with its own bound: a running
+    mean follows its convolution's channel bias, whose gradient is zero by
+    construction (the BatchNorm after it takes away every shift of a
+    channel), so only rounding is left, which Adam normalises in both
+    packages, as for the attention's k bias (`_assert_close_steps`). Where
+    map_tpu's moments of that bias are at rounding level (sqrt(nu) < 1e-7),
+    the bias may move up to lr a step in each package, 2 lr k apart, and
+    the running mean, 0.1 of each step's batch mean (the bias among it),
+    no farther; the running variance does not see the shift."""
+    assert {k for k in ref if _is_stat(k)} == {k for k in got if _is_stat(k)}
+    for key in (k for k in ref if _is_stat(k)):
+        r, g = ref[key].numpy(), got[key].numpy()
+        flat = np.zeros(r.shape, bool)
+        if ref_mom is not None and key.endswith("running_mean"):
+            bias = key.replace(".1.running_mean", ".0.bias")
+            flat = np.sqrt(ref_mom[bias][1].numpy()) < 1e-7
+        diff = np.abs(g - r)
+        np.testing.assert_array_less(diff[~flat], 1e-5 + 1e-5 * np.abs(r[~flat]),
+                                     err_msg=key)
+        assert (diff[flat] <= 2 * LR * K_STEPS).all(), key
+    return ({k: v for k, v in ref.items() if not _is_stat(k)},
+            {k: v for k, v in got.items() if not _is_stat(k)})
 
 
 def _port(cfg, variables):
@@ -154,20 +226,30 @@ def test_weight_carry_matches_export_state_dict(name, packed):
     port_cfg = Config.from_dict(cfg.to_dict())
     sd = state_dict_from_jax(variables, port_cfg)
     ref = export_state_dict(variables["params"], name, cfg)
-    assert set(sd) == set(ref)
+    assert {k for k in sd if not _is_stat(k)} == set(ref)
     params = variables["params"]
     for key, val in ref.items():
-        if key == "embed.embedding.weight" and packed:
+        table = key.split(".")[0]
+        if key in ("embed.embedding.weight", "fg_embed.embedding.weight") and packed:
             # export_state_dict passes the packed array through unchanged
-            assert params["embed"]["embedding"].shape == (1024, 128)
-            val = np.asarray(unpack_table(jnp.asarray(params["embed"]["embedding"]),
+            assert params[table]["embedding"].shape == (1024, 128)
+            val = np.asarray(unpack_table(jnp.asarray(params[table]["embedding"]),
                                           4100, 16))
         assert sd[key].shape == val.shape, key
         np.testing.assert_array_equal(sd[key].numpy(), val, err_msg=key)
-    # the carried state_dict loads strictly, and holds every parameter
+    # FGCNN's running statistics, from map_tpu's batch_stats (two a stage)
+    stats = variables.get("batch_stats", {}).get("fgcnn_layer", {})
+    assert len([k for k in sd if _is_stat(k)]) == 2 * len(stats)
+    for key in (k for k in sd if _is_stat(k)):
+        stage = stats[f"bn_{key.split('.')[2]}"]
+        mean = key.endswith("running_mean")
+        val = stage["mean" if mean else "var"]
+        assert not np.allclose(val, 0.0 if mean else 1.0), key  # moved by _init
+        np.testing.assert_array_equal(sd[key].numpy(), val, err_msg=key)
+    # the carried state_dict loads strictly, and holds every parameter and buffer
     model = models.from_config(port_cfg)
     model.load_state_dict(sd)
-    assert set(sd) == {n for n, _ in model.named_parameters()}
+    assert set(sd) == set(model.state_dict())
 
 
 @pytest.mark.parametrize("pt_type", ["MFP", "RFD"])
@@ -178,7 +260,7 @@ def test_pretraining_carry_matches_export_state_dict(name, pt_type):
     port_cfg = Config.from_dict(cfg.to_dict())
     sd = state_dict_from_jax(variables, port_cfg)
     ref = export_state_dict(variables["params"], name, cfg)
-    assert set(sd) == set(ref)
+    assert {k for k in sd if not _is_stat(k)} == set(ref)
     heads = ({"feat_encoder.weight", "feat_encoder.bias", "mfp_criterion.emb.weight",
               "mfp_criterion.bias.weight"} if pt_type == "MFP" else
              {"pred_rfd.0.weight", "pred_rfd.0.bias", "pred_rfd.2.weight",
@@ -216,6 +298,29 @@ def test_logits_match_map_tpu_f32(case, packed):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("case", [c for c in CASES if CASES[c][0] in GRAPH_MODELS])
+def test_train_mode_logits_and_running_stats_match_map_tpu_f32(case):
+    """Train mode: FGCNN's BatchNorm normalises by the batch (all 33 rows)
+    and moves its running statistics; FiGNN has no state of the kind."""
+    name, overrides = CASES[case]
+    kw = dict(ZOO[name]) if case == name else {}
+    kw.update(overrides)
+    cfg = _cfg(name, **kw)
+    model, variables = _init(cfg, seed=5)
+    ids = _ids8(33, cfg.input_size, 5)
+    ref, mutated = model.apply(variables, jnp.asarray(ids), train=True,
+                               mutable=["batch_stats"])
+    port_cfg, port = _port(cfg, variables)
+    port.train()
+    with torch.no_grad():
+        got = port(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    moved = state_dict_from_jax({**variables, "batch_stats": _np(mutated["batch_stats"])},
+                                port_cfg) if "batch_stats" in variables else {}
+    _running_stats_agree(moved, port.state_dict())
+    assert (name == "fgcnn") == bool(moved)
+
+
 @pytest.mark.parametrize("name", list(ZOO))
 def test_logits_match_map_tpu_bf16_band(name):
     got, ref = _logits(_cfg(name, packed_tables=True, compute_dtype="bfloat16"), seed=2)
@@ -246,8 +351,9 @@ def test_backbone_matches_map_tpu_f32(name):
     _, port = _port(cfg, variables)
     with torch.no_grad():
         got = port.backbone(torch.from_numpy(ids))
+    # FGCNN: 8 + 4 * 2 + 2 * 2 = 20 fields, 20 * 19 / 2 products + 20 * 16
     width = {"dnn": 32, "deepfm": 33, "xdeepfm": 6 + 5 + 32, "autoint": 8 * 12,
-             "trans": 8 * 16}[name]
+             "trans": 8 * 16, "fignn": 8 * 16, "fgcnn": 190 + 320}[name]
     assert tuple(got.shape) == ref.shape == (17, width)
     assert port.pred_rfd[0].in_features == width
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
@@ -273,7 +379,7 @@ def _supervised_runs(cfg):
     model = jax_models.from_config(cfg)
     state = jax_ts.create_train_state(model, cfg, jargs, tx, jax.random.PRNGKey(4),
                                       {"input_ids": batches[0]["input_ids"]})
-    port_cfg, port_model = _port(cfg, {"params": _np(state.params)})
+    port_cfg, port_model = _port(cfg, _variables(state))
     opt, _ = build_optimizer(port_model, TrainingArguments(
         learning_rate=LR, weight_decay=0.1, lr_sched="cosine"), 10, 2)
     port_step, _ = make_supervised_steps(port_model, opt, torch.device("cpu"))
@@ -284,7 +390,7 @@ def _supervised_runs(cfg):
         state, m = jax_step(state, {k: jnp.asarray(v) for k, v in batch.items()})
         jax_losses.append(float(m["loss"]))
         port_losses.append(port_step(batch)["loss"].item())
-    ref = state_dict_from_jax({"params": _np(state.params)}, port_cfg)
+    ref = state_dict_from_jax(_variables(state), port_cfg)
     return (np.array(jax_losses), np.array(port_losses), ref, port_model.state_dict(),
             _jax_moments(tx, state.opt_state, cfg), opt)
 
@@ -301,7 +407,9 @@ def _assert_close_steps(jax_m, port_m, ref, got, ref_mom, opt):
     score bias, under a softmax that ignores it. There Adam's step lr mu /
     (sqrt(nu) + eps) is set by rounding, in both packages: such an element
     may move by up to lr a step, 2 lr k apart at most, and its moments stay
-    at rounding level on both sides."""
+    at rounding level on both sides. BatchNorm's running statistics, which
+    have no moments, at 1e-5."""
+    ref, got = _running_stats_agree(ref, got, ref_mom)
     assert opt.count == K_STEPS
     np.testing.assert_allclose(port_m, jax_m, rtol=1e-5, atol=1e-5)
     assert set(got) == set(ref)
@@ -360,7 +468,7 @@ def _mfp_runs(cfg):
     base_rng = jax.random.PRNGKey(5)
     jax_step, _ = jax_ts.make_mfp_steps(model, cfg, jargs, tx, base_rng, prob_t, alias_t,
                                         cfg.logprob_noise)
-    port_cfg, port_model = _port(cfg, {"params": _np(state.params)})
+    port_cfg, port_model = _port(cfg, _variables(state))
     opt, _ = build_optimizer(port_model, TrainingArguments(
         learning_rate=LR, weight_decay=0.05, lr_sched="cosine"), 10, 2)
     tables = NoiseTables(torch.from_numpy(fused), torch.from_numpy(cfg.logprob_noise),
@@ -383,14 +491,24 @@ def _mfp_runs(cfg):
         jax_m.append([float(m[k]) for k in ("loss", "count", "acc_count")])
         pm = port_step(batch, draws)
         port_m.append([pm[k].item() for k in ("loss", "count", "acc_count")])
-    ref = state_dict_from_jax({"params": _np(state.params)}, port_cfg)
+    ref = state_dict_from_jax(_variables(state), port_cfg)
     return (np.array(jax_m), np.array(port_m), ref, port_model.state_dict(),
             _jax_moments(tx, state.opt_state, cfg), opt)
 
 
 @pytest.mark.parametrize("name", PRETRAIN)
 def test_mfp_steps_match_map_tpu_f32(name):
-    _assert_steps_agree(*_mfp_runs(_pretrain_cfg(name, "MFP", compute_dtype="float32")))
+    runs = _mfp_runs(_pretrain_cfg(name, "MFP", compute_dtype="float32"))
+    if name != "fgcnn":
+        _assert_steps_agree(*runs)
+        return
+    # FGCNN's convolution biases take gradients of rounding only (the
+    # BatchNorm after each takes away its shift), whose Adam moments are
+    # rounding too: held as its supervised and RFD steps are, with the MFP
+    # counts exact
+    jax_m, port_m = runs[:2]
+    np.testing.assert_array_equal(port_m[:, 1:], jax_m[:, 1:])  # count, acc_count
+    _assert_close_steps(*runs)
 
 
 def _rfd_runs(cfg):
@@ -414,7 +532,7 @@ def _rfd_runs(cfg):
                                       {"input_ids": batches[0]["input_ids"]})
     base_rng = jax.random.PRNGKey(5)
     jax_step, _ = jax_ts.make_rfd_steps(model, cfg, jargs, tx, base_rng)
-    port_cfg, port_model = _port(cfg, {"params": _np(state.params)})
+    port_cfg, port_model = _port(cfg, _variables(state))
     opt, _ = build_optimizer(port_model, TrainingArguments(
         learning_rate=LR, weight_decay=0.05, lr_sched="cosine"), 10, 2)
     port_step, _ = make_rfd_steps(port_model, opt, port_cfg, MASK_RATIO, "randint",
@@ -428,13 +546,13 @@ def _rfd_runs(cfg):
         state, m = jax_step(state, {k: jnp.asarray(v) for k, v in batch.items()})
         jax_m.append([float(m[k]) for k in keys])
         port_m.append([pm[k].item() for k in keys])
-    ref = state_dict_from_jax({"params": _np(state.params)}, port_cfg)
+    ref = state_dict_from_jax(_variables(state), port_cfg)
     return (np.array(jax_m), np.array(port_m), ref, port_model.state_dict(),
             _jax_moments(tx, state.opt_state, cfg), opt)
 
 
 @pytest.mark.parametrize("mode", ["fwd", "bwd_pallas"])
-@pytest.mark.parametrize("name", ["dnn", "autoint"])
+@pytest.mark.parametrize("name", ["dnn", "autoint", "fignn", "fgcnn"])
 def test_rfd_steps_match_map_tpu_f32(name, mode, monkeypatch):
     from map_tpu.ops import hybrid_gather as jax_hg
     from map_tpu_torch.ops import hybrid_gather
@@ -462,15 +580,83 @@ def test_partial_restore_counts_match_map_tpu(name, pt_type, tmp_path):
     target = checkpoints.load_any_model_file(str(tmp_path / "5.model"), Config())
     port_ft = models.from_config(Config.from_dict(ft_cfg.to_dict()))
     got, loaded, skipped = checkpoints.partial_restore(port_ft.state_dict(), target)
-    # torch's packed in_proj (weight, bias) holds map_tpu's q/k/v kernels and
-    # biases: 2 tensors for 6 leaves in each encoder layer
-    packed = 4 * ft_cfg.num_hidden_layers if name == "trans" else 0
-    assert (loaded + packed, skipped) == (jax_loaded, jax_skipped) and skipped == 4
+    assert (loaded + _packed_leaves(ft_cfg), skipped) == (jax_loaded, jax_skipped)
+    assert skipped == 4
     port_ft.load_state_dict(got)
     ref = state_dict_from_jax(merged, Config.from_dict(ft_cfg.to_dict()))
     for key in set(ref) & set(target):
         np.testing.assert_array_equal(port_ft.state_dict()[key].numpy(),
                                       ref[key].numpy(), err_msg=key)
+
+
+def _packed_leaves(cfg):
+    """map_tpu's leaves a restore counts beyond the port's tensors: torch's
+    packed in_proj (weight, bias) holds map_tpu's q/k/v kernels and biases,
+    2 tensors for 6 leaves in each encoder layer; torch's GRUCell (weight_ih,
+    weight_hh, bias_ih, bias_hh) holds flax's 10 (ir, iz, in, hr, hz, hn
+    kernels; ir, iz, in, hn biases), 4 tensors for 10. FGCNN's BatchNorm
+    counts 2 statistics a stage in both (running_mean / running_var, mean /
+    var), its other tensors one for one."""
+    return {"trans": 4 * cfg.num_hidden_layers, "fignn": 6}.get(cfg.model_name, 0)
+
+
+PRETRAIN_HEAD_KEYS = {
+    "MFP": ("feat_encoder.weight", "feat_encoder.bias", "mfp_criterion.emb.weight",
+            "mfp_criterion.bias.weight"),
+    "RFD": ("pred_rfd.0.weight", "pred_rfd.0.bias", "pred_rfd.2.weight",
+            "pred_rfd.2.bias")}
+
+
+@pytest.mark.parametrize("pt_type", ["MFP", "RFD"])
+@pytest.mark.parametrize("name", GRAPH_MODELS)
+def test_partial_restore_counts_from_a_port_checkpoint(name, pt_type, tmp_path):
+    """The same counts from the port's own `{step}.model` (its state_dict,
+    buffers included), as a finetune from a port pretraining run gets."""
+    pt_cfg = _pretrain_cfg(name, pt_type)
+    _, pt_vars = _init(pt_cfg, seed=0)
+    ft_cfg = _cfg(name, input_size=pt_cfg.input_size)
+    _, ft_vars = _init(ft_cfg, seed=1)
+    _, jax_loaded, jax_skipped = jax_checkpoints.partial_restore(ft_vars, pt_vars)
+    _, port_pt = _port(pt_cfg, pt_vars)
+    path = checkpoints.save_model(port_pt.state_dict(), str(tmp_path), 5)
+    target = checkpoints.load_any_model_file(path, Config())
+    assert set(target) == set(port_pt.state_dict())
+    port_ft = models.from_config(Config.from_dict(ft_cfg.to_dict()))
+    got, loaded, skipped = checkpoints.partial_restore(port_ft.state_dict(), target)
+    assert (loaded + _packed_leaves(ft_cfg), skipped) == (jax_loaded, jax_skipped)
+    assert skipped == 4 and loaded == len(target) - 4
+    port_ft.load_state_dict(got)
+    for key in set(target) - set(PRETRAIN_HEAD_KEYS[pt_type]):
+        assert torch.equal(port_ft.state_dict()[key], target[key]), key
+
+
+
+@pytest.mark.parametrize("source", ["jax", "torch"])
+@pytest.mark.parametrize("name", GRAPH_MODELS)
+def test_predictor_serves_in_eval_mode_from_the_running_stats(name, source, tmp_path):
+    """`Predictor` over map_tpu's msgpack checkpoint (its batch_stats carried)
+    or the port's `{step}.model`: the logits of map_tpu's eval-mode forward,
+    FGCNN's BatchNorm normalising by the checkpoint's running statistics,
+    with the last chunk padded."""
+    from map_tpu_torch.serve import Predictor
+
+    cfg = _cfg(name)
+    model, variables = _init(cfg, seed=7)
+    ids = _ids8(70, cfg.input_size, 7)
+    ref = np.asarray(model.apply(variables, jnp.asarray(ids))).reshape(-1)
+    cfg.save(str(tmp_path))
+    if source == "jax":
+        jax_checkpoints.save_model_file(variables, str(tmp_path / "3.model"))
+    else:
+        checkpoints.save_model(_port(cfg, variables)[1].state_dict(), str(tmp_path), 3)
+    pred = Predictor(str(tmp_path), 3, batch_size=32, device="cpu", source=source)
+    assert not pred.model.training
+    np.testing.assert_allclose(pred.predict_logits(ids), ref, rtol=1e-5, atol=1e-5)
+    if name == "fgcnn":  # the statistics of a batch, not BatchNorm's start
+        bn = pred.model.fgcnn_layer.conv_layers[0][1]
+        stats = variables["batch_stats"]["fgcnn_layer"]["bn_0"]
+        np.testing.assert_array_equal(bn.running_var.numpy(), stats["var"])
+        assert not np.allclose(stats["var"], 1.0)
 
 
 # ---- (f) the weight-decay rule ---------------------------------------------------------------
@@ -491,6 +677,12 @@ def test_decay_rule_matches_no_decay_mask(name, head):
         if kind.startswith("in_proj"):
             leaf = "kernel" if kind == "in_proj_weight" else "bias"
             paths = [path + (p, "dense", leaf) for p in ("q_proj", "k_proj", "v_proj")]
+        elif kind.startswith("gru_"):
+            paths = [path + leaf for leaf in {
+                "gru_weight_ih": [("i" + g, "kernel") for g in "rzn"],
+                "gru_weight_hh": [("h" + g, "kernel") for g in "rzn"],
+                "gru_bias_ih": [("i" + g, "bias") for g in "rzn"],
+                "gru_bias_hh": [("hn", "bias")]}[kind]]
         else:
             paths = [path]
         for p in paths:
@@ -524,12 +716,11 @@ def test_trans_refuses_embed_other_than_hidden():
     assert model_args.output_reduction == "attn,fc"
 
 
-def test_unported_models_name_the_roadmap():
-    for name in ("fignn", "fgcnn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            models.from_config(Config.from_dict(_cfg(name).to_dict()))
-    assert sorted(models.MODEL_REGISTRY) == sorted(
-        ["lr", "fm", "dnn", "deepfm", "xdeepfm", "dcnv2", "autoint", "trans"])
+def test_registry_names_map_tpus_ten_models():
+    assert sorted(models.MODEL_REGISTRY) == sorted(jax_models.MODEL_REGISTRY)
+    assert len(models.MODEL_REGISTRY) == 10
+    with pytest.raises(NotImplementedError, match="not one of map_tpu's"):
+        models.from_config(Config.from_dict(_cfg("fibinet").to_dict()))
 
 
 def test_model_flags_take_map_tpus_defaults():
@@ -538,7 +729,9 @@ def test_model_flags_take_map_tpus_defaults():
     for f in ("num_attn_heads", "attn_probs_dropout_rate", "intermediate_size",
               "norm_first", "layer_norm_eps", "res_conn", "output_reduction",
               "attn_scale", "use_lr", "attn_size", "num_attn_layers", "cin_layer_units",
-              "dnn_size", "num_dnn_layers", "dnn_act", "dnn_drop"):
+              "dnn_size", "num_dnn_layers", "dnn_act", "dnn_drop", "share_embedding",
+              "channels", "kernel_heights", "pooling_sizes", "recombined_channels",
+              "conv_act", "reuse_graph_layer"):
         assert getattr(ours, f) == getattr(ref, f), f
         assert getattr(Config(), f) == getattr(ref, f), f
 
@@ -573,3 +766,92 @@ def test_autoint_dropout_k_steps_a_call_equal_k_single_steps():
     t0.model.self_attention[1].dropout.rate = 0.0
     _run_epochs(t0)
     assert not torch.equal(t0.model.attn_out.weight, t1.model.attn_out.weight)
+
+
+# ---- (i) FGCNN's BatchNorm: the layer, and its state under the multi-step dispatch -----------
+
+def test_batch_norm_matches_flax():
+    """The port's BatchNorm against flax's nn.BatchNorm(momentum=0.9,
+    epsilon=1e-5) on a channels-last (NHWC) input: train mode
+    normalises by the batch, every row counted (the last two are zero, as
+    padding rows may be), and moves the running statistics by 0.1 of the
+    batch's mean and biased variance (torch's BatchNorm2d would take the
+    unbiased one); eval mode normalises by the running statistics."""
+    from flax import linen as flax_nn
+
+    rng = np.random.default_rng(41)
+    x = (rng.normal(size=(6, 5, 4, 3)) * 2.0 + 1.0).astype(np.float32)
+    x[4:] = 0.0
+    scale, bias = rng.normal(size=(2, 3)).astype(np.float32)
+    mean0, var0 = rng.normal(size=3).astype(np.float32), rng.uniform(0.5, 2, 3).astype(
+        np.float32)
+    variables = {"params": {"scale": scale, "bias": bias},
+                 "batch_stats": {"mean": mean0, "var": var0}}
+    nhwc = jnp.asarray(x)
+    train_bn = flax_nn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    ref, mutated = train_bn.apply(variables, nhwc, mutable=["batch_stats"])
+    port = BatchNorm(3)
+    port.load_state_dict({"weight": torch.from_numpy(scale), "bias": torch.from_numpy(bias),
+                          "running_mean": torch.from_numpy(mean0),
+                          "running_var": torch.from_numpy(var0)})
+    assert set(port.state_dict()) == {"weight", "bias", "running_mean", "running_var"}
+    port.train()
+    got = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    stats = _np(mutated["batch_stats"])
+    np.testing.assert_allclose(port.running_mean.numpy(), stats["mean"], rtol=1e-6,
+                               atol=1e-7)
+    np.testing.assert_allclose(port.running_var.numpy(), stats["var"], rtol=1e-6, atol=1e-7)
+    x64 = x.astype(np.float64)
+    np.testing.assert_allclose(port.running_mean.numpy(),
+                               0.9 * mean0 + 0.1 * x64.mean(axis=(0, 1, 2)), rtol=1e-5)
+    biased = 0.9 * var0 + 0.1 * x64.var(axis=(0, 1, 2))
+    unbiased = 0.9 * var0 + 0.1 * x64.var(axis=(0, 1, 2), ddof=1)
+    np.testing.assert_allclose(port.running_var.numpy(), biased, rtol=1e-5)
+    assert not np.allclose(port.running_var.numpy(), unbiased, rtol=1e-3)
+    # without the two zero rows the statistics would differ
+    assert not np.allclose(x64[:4].mean(axis=(0, 1, 2)), x64.mean(axis=(0, 1, 2)))
+    # eval mode: the running statistics, unchanged by the pass
+    port.eval()
+    eval_bn = flax_nn.BatchNorm(use_running_average=True, momentum=0.9, epsilon=1e-5)
+    ref = eval_bn.apply({"params": variables["params"], "batch_stats": stats}, nhwc)
+    before = port.running_var.clone()
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert torch.equal(port.running_var, before)
+
+
+@pytest.mark.parametrize("kind", ["supervised", "rfd"])
+def test_fgcnn_k_steps_a_call_equal_k_single_steps(kind):
+    """FGCNN through the Trainer's pipeline, 4 steps a call on the resident
+    data against a step a call on host batches: the losses, the parameters
+    and the running statistics, bit for bit, and the statistics moved."""
+    rng = np.random.default_rng(37)
+    rows = 4 * BATCH + 40
+    x = _ids(rng, rows)
+    y = rng.integers(0, 2, rows).astype(np.float32)
+    if kind == "rfd":
+        cfg = _pretrain_cfg("fgcnn", "RFD", compute_dtype="float32")
+    else:
+        cfg = _cfg("fgcnn", input_size=VOCAB, compute_dtype="float32", idx_low=IDX_LOW,
+                   idx_high=IDX_HIGH)
+    args = dict(per_device_train_batch_size=BATCH, learning_rate=LR, weight_decay=0.05,
+                lr_sched="cosine", num_train_epochs=2, seed=11, compute_dtype="float32",
+                device="cpu", data_dir="", mask_ratio=MASK_RATIO,
+                sampling_method="randint", pretrain=kind == "rfd", pt_type="RFD")
+    runs = []
+    for resident, spc in (("off", 1), ("on", 4)):
+        trainer = _port_trainer(cfg, dict(args, device_resident_data=resident,
+                                          steps_per_call=spc), x, y)
+        runs.append((_run_epochs(trainer), trainer))
+    (m1, t1), (m4, t4) = runs
+    assert t4._data is not None and t1._data is None and t4.global_step == 10
+    for k in m1:
+        assert torch.equal(m1[k], m4[k]), k
+    start = models.from_config(t1.config, torch.Generator().manual_seed(0)).state_dict()
+    moved = 0
+    for (name, a), b in zip(t1.model.state_dict().items(), t4.model.state_dict().values()):
+        assert torch.equal(a, b), name
+        moved += _is_stat(name) and not torch.equal(a, start[name])
+    assert moved == 4  # both stages' mean and var

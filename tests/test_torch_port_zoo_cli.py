@@ -1,9 +1,10 @@
 """The port's CLI over its model zoo on the CPU (`python -m map_tpu_torch.run
 --device cpu`), on the synthetic data of `tests/conftest.py:synth_dir`:
-each of LR, FM, DNN, DeepFM, xDeepFM, AutoInt and Transformer trains and
-tests; each pretrain-capable one pretrains with MFP and with RFD and
-finetunes from that checkpoint, the backbone loaded and the pretraining
-head's 4 tensors skipped. The numbers are held to map_tpu's by
+each of LR, FM, DNN, DeepFM, xDeepFM, AutoInt, Transformer, FiGNN and
+FGCNN trains and tests; each pretrain-capable one pretrains with MFP and
+with RFD and finetunes from that checkpoint, the backbone (FGCNN's
+BatchNorm running statistics among it) loaded and the pretraining head's 4
+tensors skipped. The numbers are held to map_tpu's by
 `tests/test_torch_port_zoo.py`; here the whole path runs end to end.
 """
 
@@ -20,7 +21,8 @@ _COMMON = ["--dataset_name=synth", "--embed_size=8", "--compute_dtype", "float32
            "--logging_steps=5", "--device", "cpu", "--per_device_train_batch_size=256",
            "--per_device_eval_batch_size=200"]
 # small widths: one MLP layer of 32, CIN 8,8, AutoInt 2 x 8, a Transformer
-# layer of width 8 (= embed_size) with 2 heads and the attention pooling
+# layer of width 8 (= embed_size) with 2 heads and the attention pooling,
+# FiGNN's 2 GNN rounds, FGCNN's two stages of 3 and 4 channels
 MODEL_FLAGS = {
     "lr": [],
     "fm": [],
@@ -30,6 +32,9 @@ MODEL_FLAGS = {
     "autoint": ["--attn_size=8", "--num_attn_layers=2"],
     "trans": ["--hidden_size=8", "--num_hidden_layers=1", "--num_attn_heads=2",
               "--intermediate_size=16", "--output_reduction=attn,fc"],
+    "fignn": ["--num_hidden_layers=2"],
+    "fgcnn": ["--hidden_size=32", "--num_hidden_layers=1", "--channels=3,4",
+              "--kernel_heights=3,3", "--pooling_sizes=2,2", "--recombined_channels=2,2"],
 }
 _SUPERVISED = ["--learning_rate=1e-2", "--lr_sched=const", "--weight_decay=1e-1"]
 # LR's table starts at N(0, 1), eight of its rows a logit: it needs the
@@ -57,10 +62,11 @@ def test_cli_trains_each_model(name, synth_dir, tmp_path):
     log = open(out / "train.log").read()
     aucs = [float(x) for x in re.findall(r"'eval_auc': ([\d.]+)", log)]
     assert len(aucs) == 3 and max(aucs[:2]) > 0.6, aucs  # 2 evals + TEST
-    # the best step's checkpoint (each better eval saves one)
+    # the best step's checkpoint (each better eval saves one): every
+    # parameter and buffer (FGCNN's running statistics)
     ckpt = max(glob.glob(str(out / "*.model")), key=os.path.getmtime)
     assert sorted(torch.load(ckpt, weights_only=True)) == sorted(
-        n for n, _ in _model_of(out).named_parameters())
+        _model_of(out).state_dict())
 
 
 def _model_of(run_dir):
@@ -71,7 +77,8 @@ def _model_of(run_dir):
 
 
 @pytest.mark.parametrize("pt_type", ["MFP", "RFD"])
-@pytest.mark.parametrize("name", ["dnn", "deepfm", "xdeepfm", "autoint", "trans"])
+@pytest.mark.parametrize("name", ["dnn", "deepfm", "xdeepfm", "autoint", "trans",
+                                  "fignn", "fgcnn"])
 def test_cli_pretrains_and_finetunes_each_model(name, pt_type, synth_dir, tmp_path):
     pt_dir = tmp_path / "pt"
     assert port_main(_flags(name, synth_dir, pt_dir) + _PRETRAIN[pt_type] + [
