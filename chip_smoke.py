@@ -154,10 +154,30 @@ each; any failure ends the run with a nonzero exit code.
    (bit-equal to its plain version), K6a beside F.embedding and a mask (and
    its plan's rows of b a block); the
    MFP step's matmul backward in its parts;
+10b. same-data validation (`validation_phase`): synthazu in memory (400,000
+   rows from data seed 7, 101,178 ids, 24 fields), the five stages of
+   validation/run_tpu.sh at seed 42 through `map_tpu_torch.validate`
+   (scratch, MFP 3 epochs, RFD 3 epochs, the finetunes from the newest MFP
+   and RFD checkpoints; bf16, the graph path): each stage's metric and loss
+   beside map_tpu's mean, failing only outside twice the single-run band
+   2 sqrt(s² + s²/n) + eps (s map_tpu's std); each stage's launches, from 0
+   before it; the finetune counts (13, 4); 5 steps of each stage's mode on
+   this data (supervised, MFP under `matmul` and `bwd_pallas`, K6b among
+   its kernels, RFD) through the kernels against the plain versions;
+10c. resume (`resume_phase`), on the graph path in bf16, supervised DCNv2
+   and MFP per-position (the stages' flags, 2 epochs): a straight run, and
+   a run stopped after its first epoch with save_steps 20 (async
+   checkpoints; MFP's fetched from a snapshot on the card) resumed with
+   --resume: parameters, buffers, moments, count and generator states
+   bit-equal;
+10d. the streaming eval (`streaming_phase`): `--streaming_auc` on the
+   scratch stage's weights against the exact eval, within its error bound;
+   metrics.jsonl's seven kinds among the runs; a `--profile_steps 2` run's
+   trace, with the card's kernels in it;
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
    from the per-field shared run of 8b for K5, K7 and K8, plus each zoo
-   model's graph path; `launches_by_path` gives each), nvidia-smi's line,
-   and last
+   model's graph path and the validation's five stages; `launches_by_path`
+   gives each), nvidia-smi's line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -1765,6 +1785,294 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
     return graph_launches
 
 
+# same-data validation (map_tpu_torch/validate.py): validation/run_tpu.sh's
+# five stages on the 400,000-row synthazu set, one seed
+VALIDATION_SEED = 42
+VALIDATION_ROWS = 400_000
+RESUME_SAVE_STEPS = 20  # crossed inside an 8-step call (the call ending at 24)
+
+
+def validation_launches(kind: str, steps: int, evals: int, k1_per_step: int) -> dict:
+    """The launches of a validation stage of `steps` train steps and `evals`
+    eval batches: K4 and K2 on every batch (K4 twice in MFP: the input and
+    the decoder's candidates), K3 and K1 once a step (the default `fwd`
+    lookup, or MFP's `matmul` with K3 on the big fields), K5 and K8 once an
+    MFP step."""
+    mfp = kind == "mfp"
+    return {"embedding_gather": (2 if mfp else 1) * (steps + evals),
+            "cross_net": steps + evals, "scatter_add": steps,
+            "fused_adamw": steps * k1_per_step,
+            "scatter_unique_sorted": steps if mfp else 0,
+            "block_cumsum": steps if mfp else 0, "sparse_adamw": 0,
+            "field_block_gather": 0, "field_block_scatter": 0}
+
+
+def validation_phase(args, dev, reset_counts, read_counts) -> dict:
+    """10b. The five stages of validation/run_tpu.sh (scratch, MFP, RFD, and
+    the finetunes from MFP and RFD) at seed 42 on synthazu, through
+    `validate.run_stage` (the Trainer, bf16, the graph path): each stage's
+    metric and loss beside map_tpu's mean and its single-run band
+    2 sqrt(s² + s²/n) + eps, failing only outside twice that band; the
+    launches of each stage (from 0 before it); the finetune counts; then 5
+    steps of each stage's mode (supervised `fwd`, MFP `matmul` and
+    `bwd_pallas`, RFD `fwd`) on this data through the kernels against the
+    plain versions. Returns the path's launches, the data and the stages'
+    Trainers."""
+    import torch
+
+    from map_tpu_torch import validate
+    from map_tpu_torch.data import synth
+    from map_tpu_torch.data.loader import Batcher
+    from map_tpu_torch.objectives.corruption import draw_rfd, mask_num_of
+    from map_tpu_torch.train.train_step import draw_mfp
+
+    t0 = time.perf_counter()
+    data = synth.in_memory(synth.generate_realistic_arrays(
+        num_rows=VALIDATION_ROWS, seed=validate.DATA_SEED), pretrain=True)
+    emit("validation_data", rows=VALIDATION_ROWS, seed=validate.DATA_SEED,
+         input_size=data.input_size, num_fields=data.num_fields,
+         train_rows=len(data.Y["train"]), seconds=time.perf_counter() - t0)
+    check("validation: synthazu has 101,178 ids in 24 fields",
+          (data.input_size, data.num_fields) == (101_178, 24))
+    work = tempfile.mkdtemp(prefix="chip_smoke_validation_")
+    total = {}
+    trainers = {}
+    for stage in validate.plan(validate.BASE_STAGES):
+        reset_counts()
+        line, trainer = validate.run_stage(stage, VALIDATION_SEED, data, work, None, {})
+        launches = trainer.multi.launches_run(read_counts())
+        epochs = trainer.args.num_train_epochs
+        evals = sum(-(-len(data.Y[s]) // trainer.args.eval_batch_size)
+                    for s in (["valid"] * epochs + (["test"] if stage.kind == "supervised"
+                                                    else [])))
+        expected = validation_launches(stage.kind, line["steps"], evals,
+                                       k1_launches_a_step(trainer.optimizer))
+        bands = []
+        for name, value, (mean, std, n, eps) in zip(
+                validate.METRICS[stage.kind], (line["metric"], line["loss"]),
+                validate.reference_rows(stage)):
+            band = validate.single_run_band(std, n, eps)
+            bands.append(dict(metric=name, port=value, map_tpu_mean=mean, map_tpu_std=std,
+                              delta=value - mean, band=band,
+                              within_band=abs(value - mean) <= band))
+        emit("validation", card=smi_line(), **line, bands=bands, launches=launches,
+             expected_launches=expected, graphs=graph_replays(trainer))
+        for b in bands:
+            check(f"validation {stage.name}: {b['metric']} within twice the single-run "
+                  f"band of map_tpu's mean", abs(b["delta"]) <= 2 * b["band"], **b)
+        check(f"validation {stage.name}: launches", launches == expected)
+        if stage.source:
+            check(f"validation {stage.name}: 13 tensors loaded, 4 skipped",
+                  tuple(trainer.finetune_counts) == (13, 4),
+                  loaded_skipped=trainer.finetune_counts)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if stage.name in ("scratch", "mfp", "rfd"):  # what the later checks read
+            trainers[stage.name] = trainer
+        del trainer
+
+    # 5 steps of each stage's mode on this data, kernels vs plain versions
+    num_fields, vocab = data.num_fields, data.input_size
+    mask_num = mask_num_of(num_fields, MFP_MASK_RATIO)
+    batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH, shuffle=True,
+                           seed=VALIDATION_SEED, noise_source=data.X["train"],
+                           noise_rows_per_example=mask_num).epoch(0))[:PARITY_STEPS]
+    seed = VALIDATION_SEED
+
+    def p0(cfg_):
+        return dict(seeded_model(dev, cfg_, seed).named_parameters())
+
+    sup = trainers["scratch"]
+    (k_loss, k_params, _), (p_loss, p_params, _) = (
+        supervised_steps(dev, sup.config, sup.args, batches, read_counts, seed=seed,
+                         steps=PARITY_STEPS, plain=plain) for plain in (False, True))
+    parity_check(f"validation scratch: {PARITY_STEPS} steps on synthazu, kernels vs plain",
+                 "bfloat16", LR, k_loss, p_loss, k_params, p_params, p0(sup.config))
+    mfp = trainers["mfp"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    draws = [draw_mfp(gen, mfp.noise, TRAIN_BATCH, num_fields, mask_num, MFP_NEG, "randint")
+             for _ in batches]
+    for mode in ("matmul", "bwd_pallas"):
+        cfg_m = dataclasses.replace(mfp.config, hybrid_mode=mode)
+        (k_loss, k_params, launched), (p_loss, p_params, _) = (
+            mfp_steps(dev, cfg_m, mfp.args, mfp.noise, batches, draws, read_counts,
+                      seed=seed, shared=False, sparse=False, plain=plain)
+            for plain in (False, True))
+        check(f"validation mfp {mode}: K5 and K8 once a step"
+              + (", K6b once a step" if mode == "bwd_pallas" else ""),
+              launched["scatter_unique_sorted"] == PARITY_STEPS
+              and launched["block_cumsum"] == PARITY_STEPS
+              and launched["field_block_scatter"] == (PARITY_STEPS if mode == "bwd_pallas"
+                                                       else 0), launched=launched)
+        parity_check(f"validation mfp {mode}: {PARITY_STEPS} steps on synthazu, kernels "
+                     "vs plain", "bfloat16", MFP_LR, k_loss, p_loss, k_params, p_params,
+                     p0(cfg_m))
+        del k_params, p_params
+    rfd = trainers["rfd"]
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    draws = [draw_rfd(gen, TRAIN_BATCH, num_fields, mask_num, "randint", "Unigram", vocab,
+                      dev) for _ in batches]
+    (k_loss, k_params, _), (p_loss, p_params, _) = (
+        rfd_steps(dev, rfd.config, rfd.args, batches, draws, read_counts, seed=seed,
+                  plain=plain) for plain in (False, True))
+    parity_check(f"validation rfd: {PARITY_STEPS} steps on synthazu, kernels vs plain",
+                 "bfloat16", MFP_LR, k_loss, p_loss, k_params, p_params, p0(rfd.config))
+    return {"launches": total, "data": data, "trainers": trainers, "work": work}
+
+
+class FirstEpochOnly:
+    """Mixed into a Trainer: the run stops after its first epoch, as if
+    killed there (its schedule still spans all its epochs)."""
+
+    def _epochs_with_skip(self, batcher):
+        yield next(super()._epochs_with_skip(batcher))
+
+
+def train_state(trainer) -> dict:
+    """A Trainer's parameters, buffers, moments, count and generator states."""
+    return {"model": {k: v.detach().clone() for k, v in trainer.model.state_dict().items()},
+            "mu": [m.clone() for m in trainer.optimizer.mu],
+            "nu": [v.clone() for v in trainer.optimizer.nu],
+            "count": trainer.optimizer.count, "step": trainer.global_step,
+            "generators": [g.get_state() for g in (trainer._dropout_generator,
+                                                  trainer._step_generator)
+                           if g is not None]}
+
+
+def resume_phase(args, dev, val) -> None:
+    """10c. Resume on the graph path in bf16 (steps_per_call 8), supervised
+    DCNv2 (validation/run_tpu.sh's scratch flags) and MFP per-position (its
+    mfp flags, but masked positions drawn without repeats in a row,
+    'normal': with 'randint' a row's repeated positions add three or more
+    gradients through atomics in the masked-position gather's backward, so
+    two MFP runs from one seed differ on the card in the last bits), 2
+    epochs on synthazu: a straight run, and a run stopped after its first
+    epoch with save_steps 20 (first crossed inside the call that ends at
+    step 24; async checkpoints, the MFP run's fetched from a snapshot on the
+    card) then resumed with --resume to 2 epochs: the parameters, buffers,
+    moments, count and generator states bit-equal."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.config import build_config
+    from map_tpu_torch.train import checkpoints
+    from map_tpu_torch.train.trainer import Trainer
+
+    from map_tpu_torch import validate
+
+    data = val["data"]
+
+    class Killed(FirstEpochOnly, Trainer):
+        pass
+
+    for name, stage_name, extra in (("supervised", "scratch", {}),
+                                    ("mfp per-position", "mfp",
+                                     dict(async_checkpoint_fetch=True,
+                                          sampling_method="normal"))):
+        stage = validate.STAGES[stage_name]
+        out = os.path.join(val["work"], "resume", stage_name)
+
+        def make(cls, sub, **kw):
+            margs, targs = validate.stage_args(stage, VALIDATION_SEED, out)
+            targs = dataclasses.replace(targs, output_dir=os.path.join(out, sub),
+                                        num_train_epochs=2, save_steps=RESUME_SAVE_STEPS,
+                                        **extra, **kw)
+            cfg_ = build_config(margs, targs, data)
+            return cls(models.from_config(cfg_, torch.Generator().manual_seed(
+                VALIDATION_SEED)), cfg_, targs, data)
+
+        def run(t):
+            if t.config.mfp:
+                t.MFP_pretrain()
+            else:
+                t.train()
+            torch.cuda.synchronize()
+            return t
+
+        t0 = time.perf_counter()
+        straight = run(make(Trainer, "straight"))
+        killed = run(make(Killed, "part"))
+        saved = checkpoints.load_train_state(os.path.join(out, "part"))[1]["global_step"]
+        resumed = run(make(Trainer, "part", resume=True))
+        wall = time.perf_counter() - t0
+        ref, got = train_state(straight), train_state(resumed)
+        differ = [k for k in ref["model"] if not torch.equal(got["model"][k], ref["model"][k])]
+        differ += [f"{part} {i}" for part in ("mu", "nu", "generators")
+                   for i, (a, b) in enumerate(zip(got[part], ref[part]))
+                   if not torch.equal(a, b)]
+        emit("resume", model=name, steps=straight.global_step,
+             stopped_at=killed.global_step, saved_at=saved, resumed_from=saved,
+             graphs_straight=graph_replays(straight), graphs_resumed=graph_replays(resumed),
+             flags=extra, wall_s=wall, differ=differ)
+        check(f"resume {name}: saved at the end of a call of {GRAPH_SPC} that crossed a "
+              f"multiple of {RESUME_SAVE_STEPS}, before the stop",
+              saved % GRAPH_SPC == 0 and saved < killed.global_step
+              and (saved - GRAPH_SPC) // RESUME_SAVE_STEPS != saved // RESUME_SAVE_STEPS,
+              saved_at=saved)
+        check(f"resume {name}: graph path, captured after the restore",
+              resumed.multi.graphed and GRAPH_SPC in resumed.multi.graphs)
+        check(f"resume {name}: parameters, buffers, moments, count and generator states "
+              "bit-equal to the straight run", not differ and got["count"] == ref["count"]
+              and got["step"] == ref["step"], differ=differ)
+        del straight, killed, resumed
+
+
+def streaming_phase(args, dev, val) -> None:
+    """10d. `--streaming_auc` against the exact eval on the same weights (the
+    scratch stage's), within the streaming AUC's error bound; the seven
+    kinds of metrics.jsonl among the validation and resume runs; a
+    `--profile_steps 2` run's trace under {output_dir}/profile."""
+    import glob as glob_
+
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.train.trainer import Trainer
+
+    data = val["data"]
+    scratch = val["trainers"]["scratch"]
+    targs = dataclasses.replace(scratch.args, streaming_auc=True, finetune=False,
+                                output_dir=os.path.join(val["work"], "streaming"))
+    stream = Trainer(models.from_config(scratch.config), scratch.config, targs, data)
+    stream.model.load_state_dict(scratch.model.state_dict())
+    for split in ("valid", "test"):
+        exact = scratch.eval(split, test_eval=True)
+        t0 = time.perf_counter()
+        got = stream.eval(split, test_eval=True)
+        torch.cuda.synchronize()
+        bound = stream.streaming_auc_bound
+        emit("streaming", split=split, bins=stream._streaming_bins, exact=exact,
+             streaming=got, bound=bound, seconds=time.perf_counter() - t0)
+        check(f"streaming {split}: AUC within its error bound of the exact eval's",
+              abs(got["eval_auc"] - exact["eval_auc"]) <= bound + 1e-12 and bound <= 5e-5,
+              streaming=got["eval_auc"], exact=exact["eval_auc"], bound=bound)
+        check(f"streaming {split}: log loss, mean logit and probability within 1e-5",
+              all(abs(got[k] - exact[k]) <= 1e-5 for k in ("eval_loss", "avg_logits",
+                                                           "avg_probs")))
+    kinds = set()
+    for path in glob_.glob(os.path.join(val["work"], "**", "metrics.jsonl"), recursive=True):
+        with open(path) as f:
+            kinds |= {json.loads(line)["kind"] for line in f}
+    want = {"train_window", "eval", "test", "mfp_window", "mfp_eval", "rfd_window", "rfd_eval"}
+    check("metrics.jsonl: the seven kinds", want <= kinds, kinds=sorted(kinds))
+    targs = dataclasses.replace(scratch.args, profile_steps=2, steps_per_call=1,
+                                output_dir=os.path.join(val["work"], "profiled"))
+    t = Trainer(models.from_config(scratch.config, torch.Generator().manual_seed(
+        VALIDATION_SEED)), scratch.config, targs, data)
+    t.train()
+    traces = sorted(glob_.glob(os.path.join(targs.output_dir, "profile", "*.json")))
+    events = []
+    if traces:
+        with open(traces[0]) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    emit("profile_steps", traces=[os.path.basename(p) for p in traces], events=len(events),
+         kernel_events=kernels)
+    check("profile_steps 2: a trace under {output_dir}/profile with the card's kernels",
+          traces == [os.path.join(targs.output_dir, "profile", "trace_4.json")]
+          and kernels > 0, events=len(events), kernel_events=kernels)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2600,20 +2908,28 @@ def main(argv=None) -> int:
         del dense
     emit("times", card=smi, kernels=times)
 
+    # 10b-10d. same-data validation, resume, the streaming eval and profile_steps
+    val = validation_phase(args, dev, reset_counts, read_counts)
+    resume_phase(args, dev, val)
+    streaming_phase(args, dev, val)
+    shutil.rmtree(val["work"], ignore_errors=True)
+
     # 11. summary; each kernel's launches are those of the path that runs
     # it, counted from 0 over that path's run: the RFD run under the K6b
     # backward (this slice's main path: K1-K4, K6b) and the per-field shared
     # MFP run (K5, K7, K8). K6a has no caller in the package (nor in
     # map_tpu's): 0.
     # The zoo's paths (each model's supervised bf16 graph path, counted from
-    # 0 before it) add theirs: `launches` sums the paths, `launches_by_path`
+    # 0 before it) and the validation's five stages (each counted from 0
+    # before it) add theirs: `launches` sums the paths, `launches_by_path`
     # gives each.
     src = "map_tpu_torch/csrc"
     main_path = {**pfs["launches"], **{k: v for k, v in rfd["launches"].items()
                                        if k not in ("scatter_unique_sorted",
                                                     "block_cumsum", "sparse_adamw")}}
     by_path = {name: {"dcnv2 rfd bwd_pallas / mfp pf-shared": n,
-                      **{f"zoo {m} graph": zoo[m][name] for m in zoo}}
+                      **{f"zoo {m} graph": zoo[m][name] for m in zoo},
+                      "validation synthazu, five stages": val["launches"][name]}
                for name, n in main_path.items()}
 
     def entry(name, source, replaces, err, timing):

@@ -13,7 +13,11 @@ can turn it off (map_tpu registers every bool as store_true, which cannot).
 `build_config` assembles the model `Config` from the flags and the dataset,
 as `config.py:330-373` does. `steps_per_call`, `prefetch_batches`,
 `device_resident_data` and `device_data_budget_gb` are map_tpu's input
-pipeline and multi-step dispatch, with its defaults (`train/trainer.py`).
+pipeline and multi-step dispatch, with its defaults (`train/trainer.py`);
+`save_steps`, `async_checkpoint`, `async_checkpoint_fetch`, `resume`,
+`profile_steps`, `streaming_auc` and `auc_bins` its run management, with
+its defaults. `exact_eval_allgather` is multi-host only: it comes with the
+parallel layer (ROADMAP.md).
 
 The field-blocked hybrid lookup (`ops/hybrid_gather.py`) engages where
 map_tpu's does with its default packed tables (`packed_tables=True`, which
@@ -162,6 +166,20 @@ class TrainingArguments:
     warmup_ratio: float = 0.0
     logging_first_step: bool = False
     logging_steps: int = 1000
+    # run management (map_tpu config.py:41-56, :79-80, :137-138): the resume
+    # state written when a call crosses a multiple of save_steps; checkpoint
+    # writes on a worker thread, with the device-to-host copy there too under
+    # async_checkpoint_fetch; --resume restores {output_dir}/resume.state;
+    # torch.profiler over steps [2, 2 + profile_steps) into
+    # {output_dir}/profile; the streaming eval's histogram AUC on auc_bins
+    # buckets (doubled while its error bound exceeds 5e-5)
+    save_steps: int = 1000
+    async_checkpoint: bool = True
+    async_checkpoint_fetch: bool = False
+    resume: bool = False
+    profile_steps: int = 0
+    streaming_auc: bool = False
+    auc_bins: int = 32768
     save_total_limit: Optional[int] = 20
     seed: int = 42
     # the MFP decoder table's AdamW from its sorted gradient streams (K7,

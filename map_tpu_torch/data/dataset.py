@@ -1,10 +1,8 @@
 """Preprocessed CTR artifacts, loaded into host RAM.
 
-The port's copy of the in-RAM path of `map_tpu/data/dataset.py` and the
-readers of `map_tpu/data/artifacts.py` it uses: `{name}-meta.json`
-(field_names, feat_map, field_map with the `<rsv>` field first), `split.pkl`
-({train,valid,test}_index arrays) and `{name}.h5` (feat_ids, labels). The
->RAM memmap mode is not ported yet (ROADMAP.md).
+The port's copy of the in-RAM path of `map_tpu/data/dataset.py`, reading
+`{name}-meta.json`, `split.pkl` and `{name}.h5` through `data/artifacts.py`.
+The >RAM memmap mode is not ported yet (ROADMAP.md).
 
 Pretraining statistics, as map_tpu derives them (`dataset.py:101-124`):
 `feat_count`, the unigram of the train split (a float32 bincount over the
@@ -18,18 +16,13 @@ and disjoint in field order (map_tpu `dataset.py:126-143`).
 
 from __future__ import annotations
 
-import json
 import os
-import pickle
 from typing import Dict, Optional
 
 import numpy as np
 
-NUM_RESERVED = 10  # ids 0-9: <pad>, <cls>, <sep>, <mask>, ... (map_tpu dataset.py)
-
-
-def feat_count_path(data_dir: str) -> str:
-    return os.path.join(data_dir, "feat-count.npy")
+from map_tpu_torch.data import artifacts
+from map_tpu_torch.data.artifacts import NUM_RESERVED, compute_feat_count
 
 
 def field_blocked_ok(idx_low: np.ndarray, idx_high: np.ndarray) -> bool:
@@ -40,12 +33,6 @@ def field_blocked_ok(idx_low: np.ndarray, idx_high: np.ndarray) -> bool:
                 and np.all(idx_low[1:] >= idx_high[:-1]))
 
 
-def compute_feat_count(train_feat_ids: np.ndarray, vocab_size: int) -> np.ndarray:
-    """Global per-feature frequency over the train split (map_tpu
-    `artifacts.py:225`)."""
-    return np.bincount(train_feat_ids.ravel(), minlength=vocab_size).astype(np.float32)
-
-
 class CTRDataset:
     """`X[split]` int32 (N, F) field-blocked ids and `Y[split]` float32 (N,)
     labels for the train / valid / test splits; `feat_count` (None unless
@@ -54,31 +41,20 @@ class CTRDataset:
     split_names = ("train", "valid", "test")
 
     def __init__(self, data_dir: str, dataset_name: str, pretrain: bool = False):
-        import h5py
-
-        with open(os.path.join(data_dir, f"{dataset_name}-meta.json"), "r") as f:
-            meta = json.load(f)
-        self.feat_map = meta["feat_map"]
-        self.field_map = meta["field_map"]
-        # split.pkl is written by the repo's own preprocessing
-        with open(os.path.join(data_dir, "split.pkl"), "rb") as f:
-            split_index = pickle.load(f)
-        with h5py.File(os.path.join(data_dir, f"{dataset_name}.h5"), "r") as f:
-            feat_ids = np.ascontiguousarray(f["feat_ids"][:].astype(np.int32))
-            labels = np.ascontiguousarray(f["labels"][:].astype(np.float32))
-        self.X: Dict[str, np.ndarray] = {}
-        self.Y: Dict[str, np.ndarray] = {}
-        for s in self.split_names:
-            idx = np.asarray(split_index[f"{s}_index"])
-            self.X[s] = feat_ids[idx]
-            self.Y[s] = labels[idx]
+        _, self.feat_map, self.field_map = artifacts.read_meta(data_dir, dataset_name)
+        split_index = artifacts.read_split(data_dir, self.split_names)
+        feat_ids, labels = artifacts.read_ctr_h5(data_dir, dataset_name)
+        feat_ids = np.ascontiguousarray(feat_ids.astype(np.int32))
+        labels = np.ascontiguousarray(labels.astype(np.float32))
+        self.X: Dict[str, np.ndarray] = {s: feat_ids[split_index[s]] for s in self.split_names}
+        self.Y: Dict[str, np.ndarray] = {s: labels[split_index[s]] for s in self.split_names}
         # over all rows: valid / test ids may be unseen in train
         self.idx_low = feat_ids.min(axis=0).astype(np.int32)
         self.idx_high = (feat_ids.max(axis=0) + 1).astype(np.int32)
         self.field_blocked_ok = field_blocked_ok(self.idx_low, self.idx_high)
         self.feat_count: Optional[np.ndarray] = None
         if pretrain:
-            path = feat_count_path(data_dir)
+            path = artifacts.feat_count_path(data_dir)
             if os.path.exists(path):
                 self.feat_count = np.load(path)
             else:

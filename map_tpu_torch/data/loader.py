@@ -22,6 +22,13 @@ and `noise_index` (B * M,) int32 in place of `noise_rows`; with
 `index` (the step reads the rows from the epoch's order on the device).
 Both keep `labels` and `weight` for the host's window AUC; nothing sends
 them to the card. The draws are the same, so the stream is the same.
+
+`start_batch` (resume, map_tpu `loader.py:90-132`, `:178-266`) skips an
+epoch's first batches without making them: the order is the epoch's, and
+the noise draws of the skipped batches are burnt in one call of
+start_batch * B * M (numpy's bounded integers take the bit stream value by
+value, so one call of n * k draws what n calls of k draw), so the stream
+from there is the tail of the unskipped one.
 """
 
 from __future__ import annotations
@@ -63,15 +70,23 @@ class Batcher:
         n = len(self.Y)
         return (rng.permutation(n) if self.shuffle else np.arange(n)), rng
 
-    def epoch(self, epoch: Optional[int] = None) -> Iterator[Batch]:
+    def epoch(self, epoch: Optional[int] = None, start_batch: int = 0) -> Iterator[Batch]:
         """Yields {input_ids (B, F) int32, labels (B,) float32, weight (B,)
         float32 in {0, 1}}, and noise_rows (B * M, F) int32 when M > 0 (or
-        the index forms above)."""
+        the index forms above), from batch `start_batch` on."""
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
         order, rng = self.order(epoch)
-        yield from self._batches(order, rng, 0)
+        self._burn(rng, start_batch)
+        yield from self._batches(order, rng, start_batch)
+
+    def _burn(self, rng: np.random.Generator, start_batch: int) -> None:
+        """Draw the noise rows of the epoch's first `start_batch` batches."""
+        if start_batch and self.noise_rows_per_example > 0:
+            rng.integers(0, len(self.noise_source),
+                         size=min(start_batch, len(self)) * self.batch_size
+                         * self.noise_rows_per_example)
 
     def _batches(self, order: np.ndarray, rng: np.random.Generator,
                  first: int) -> Iterator[Batch]:
@@ -102,24 +117,26 @@ class Batcher:
                     batch["noise_rows"] = self.noise_source[pick]
             yield batch
 
-    def epoch_stacked(self, spc: int, epoch: Optional[int] = None
+    def epoch_stacked(self, spc: int, epoch: Optional[int] = None, start_batch: int = 0
                       ) -> Iterator[Tuple[int, Batch, List[Batch]]]:
-        """Yields (n, batch, views): groups of `spc` full batches stacked on
-        a leading axis of n = spc (one numpy pass a group; the noise rows
-        drawn in one call of spc * B * M, which gives the per-batch draws),
-        then the epoch's tail (a short group and the padded last batch) as
-        single batches (n = 1). `views` are the group's batches for host
-        consumers. The stream is `epoch`'s."""
+        """Yields (n, batch, views): from batch `start_batch` on, groups of
+        `spc` full batches stacked on a leading axis of n = spc (one numpy
+        pass a group; the noise rows drawn in one call of spc * B * M, which
+        gives the per-batch draws), then the epoch's tail (a short group and
+        the padded last batch; from map_tpu's `tail_start`) as single
+        batches (n = 1). `views` are the group's batches for host consumers.
+        The stream is `epoch(epoch, start_batch)`'s."""
         if epoch is None:
             epoch = self._epoch
             self._epoch += 1
         spc = max(1, int(spc))
         bs = self.batch_size
         order, rng = self.order(epoch)
-        n_groups = (len(self.Y) // bs) // spc
+        n_groups = max(0, len(self.Y) // bs - start_batch) // spc
         npe = self.noise_rows_per_example
+        self._burn(rng, start_batch)
         for gi in range(n_groups):
-            b0 = gi * spc
+            b0 = start_batch + gi * spc
             idx = order[b0 * bs:(b0 + spc) * bs].reshape(spc, bs)
             stacked = {"labels": self.Y[idx], "weight": np.ones((spc, bs), np.float32)}
             if self.emit_indices:
@@ -138,5 +155,5 @@ class Batcher:
                 else:
                     stacked["noise_rows"] = self.noise_source[pick]
             yield spc, stacked, [{k: v[i] for k, v in stacked.items()} for i in range(spc)]
-        for b in self._batches(order, rng, n_groups * spc):
+        for b in self._batches(order, rng, start_batch + n_groups * spc):
             yield 1, b, [b]

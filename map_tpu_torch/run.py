@@ -21,6 +21,10 @@ table's AdamW from its gradient streams, in a shared mode without a clip).
 The embedding lookup is field-blocked by default (`--no-field_blocked_lookup`
 turns it off) with `--hybrid_mode=fwd|fwd_split|matmul|both|bwd|bwd_pallas`
 (default: matmul for MFP, fwd otherwise).
+Run management as map_tpu's: `--save_steps` (the resume state) and
+`--resume`, `--async_checkpoint` / `--async_checkpoint_fetch`,
+`--streaming_auc` / `--auc_bins`, `--profile_steps`; every logged window
+and eval also goes to `{output_dir}/metrics.jsonl` (`train/trainer.py`).
 Lifecycle as map_tpu's: parse -> idempotency check (results.log exists ->
 exit) -> logging -> dataset -> config.json -> model from --seed (finetune:
 restored from the checkpoint where names and shapes match) -> train and test

@@ -1,10 +1,17 @@
 """Checkpoint I/O. Counterpart: `map_tpu/train/checkpoints.py:24-50`,
-`prune_checkpoints` (:65-81) and `partial_restore` (:120-140).
+`prune_checkpoints` (:65-81), the resume state (:90-118) and
+`partial_restore` (:120-140).
 
 The port's `{step}.model` is `torch.save` of the model's state_dict (the
 reference's own format, `code/trainer.py:517-519`), buffers included
 (FGCNN's BatchNorm running statistics), written to a temporary file and
 renamed, so a crash never leaves a torn checkpoint.
+
+The resume state, `{output_dir}/resume.state`, is `torch.save` of
+{"state": the Trainer's tensors and host state (`Trainer._train_state`:
+parameters and buffers, the AdamW moments and count, the generators'
+states), "meta": global_step, best_eval_auc, best_eval_step, patience,
+eval_metrics}, on the host, written to a temporary file and renamed.
 
 `load_jax_model_file` reads map_tpu's `{step}.model`: flax's msgpack
 serialization of the variables tree, decoded here with the `msgpack` package
@@ -61,6 +68,28 @@ def prune_checkpoints(model_dir: str, keep: int) -> None:
 def load_model(model_dir: str, step: int) -> Dict[str, torch.Tensor]:
     return torch.load(model_checkpoint_path(model_dir, step),
                       map_location="cpu", weights_only=True)
+
+
+def resume_path(output_dir: str) -> str:
+    return os.path.join(output_dir, "resume.state")
+
+
+def save_train_state(output_dir: str, state: Dict[str, Any], meta: Dict[str, Any]) -> str:
+    os.makedirs(output_dir, exist_ok=True)
+    path = resume_path(output_dir)
+    tmp = path + ".tmp"
+    torch.save({"state": state, "meta": meta}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_train_state(output_dir: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    payload = torch.load(resume_path(output_dir), map_location="cpu", weights_only=True)
+    return payload["state"], payload["meta"]
+
+
+def has_resume_state(output_dir: str) -> bool:
+    return os.path.exists(resume_path(output_dir))
 
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:

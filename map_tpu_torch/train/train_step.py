@@ -1,6 +1,6 @@
 """Supervised, MFP and RFD train and eval steps. Counterpart:
-`map_tpu/train/train_step.py:207-263 make_supervised_steps` (the exact,
-non-streaming eval step), `:270-531 make_mfp_steps` and `:538-585
+`map_tpu/train/train_step.py:207-263 make_supervised_steps` (the exact and
+the streaming eval step), `:270-531 make_mfp_steps` and `:538-585
 make_rfd_steps`.
 
 A step takes one batch from `data/loader.Batcher`: a host batch (numpy
@@ -18,7 +18,14 @@ supervised train step: forward in train mode, the weighted BCE
 (`objectives`), backward (K3 for the table, the cross-net chain from K2's
 residuals), then one `AdamW.step` (K1 for every parameter); returns
 {loss, probs}. eval step: forward in eval mode under
-`torch.inference_mode`; returns {loss, logits, probs}.
+`torch.inference_mode`; returns {loss, logits, probs}, or with
+`streaming_bins` nb > 0 (`--streaming_auc`, map_tpu `:240-261`) the
+batch reduced on the device: `hist_pos` / `hist_neg` (nb,) float32, the
+weight x label and weight x (1 - label) of each row added into bucket
+clip(int(p nb), 0, nb - 1), and `ll_sum` (of softplus(x) - y x, the exact
+BCE from the logit), `logit_sum`, `prob_sum` and `count`, all weighted, so
+the padding rows (weight 0) drop out. map_tpu adds with `.at[].add`, not
+Pallas: plain PyTorch here too.
 
 Train mode is map_tpu's `train=True` in every step (supervised, MFP, RFD):
 FGCNN's BatchNorm normalises by the batch and moves its running
@@ -150,9 +157,24 @@ def device_batch(batch, device: torch.device, data: Optional[ResidentData] = Non
     return resident_batch(b, data)
 
 
+def streaming_sums(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor,
+                   bins: int) -> Dict[str, torch.Tensor]:
+    """A batch's streaming eval reduction (float32 logits, labels, weight)."""
+    probs = torch.sigmoid(logits)
+    bucket = torch.clamp((probs * bins).to(torch.int32), 0, bins - 1).long()
+    hist_pos = torch.zeros(bins, dtype=torch.float32, device=logits.device)
+    hist_neg = torch.zeros_like(hist_pos)
+    hist_pos.index_add_(0, bucket, weight * labels)
+    hist_neg.index_add_(0, bucket, weight * (1.0 - labels))
+    per_ll = torch.logaddexp(torch.zeros_like(logits), logits) - labels * logits
+    return {"hist_pos": hist_pos, "hist_neg": hist_neg,
+            "ll_sum": torch.sum(weight * per_ll), "logit_sum": torch.sum(weight * logits),
+            "prob_sum": torch.sum(weight * probs), "count": torch.sum(weight)}
+
+
 def make_supervised_steps(model: torch.nn.Module, optimizer: AdamW,
-                          device: torch.device, data: Optional[ResidentData] = None
-                          ) -> Tuple[Step, Step]:
+                          device: torch.device, data: Optional[ResidentData] = None,
+                          streaming_bins: int = 0) -> Tuple[Step, Step]:
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         b = device_batch(batch, device, data)
         model.train()
@@ -169,6 +191,9 @@ def make_supervised_steps(model: torch.nn.Module, optimizer: AdamW,
         model.eval()
         logits = model(b["input_ids"]).reshape(-1).float()
         loss = bce_loss(logits, b["labels"], b["weight"])
+        if streaming_bins:
+            return {"loss": loss, **streaming_sums(logits, b["labels"], b["weight"],
+                                                   int(streaming_bins))}
         return {"loss": loss, "logits": logits, "probs": torch.sigmoid(logits)}
 
     return train_step, eval_step

@@ -68,18 +68,54 @@ MFP_pretrain and RFD_pretrain:
 `--device_resident_data=off --steps_per_call=1` is the path of one host
 batch a step. Eval passes stay eager.
 
-Not ported yet (ROADMAP.md): streaming AUC, metrics.jsonl, the async
-checkpoint writer, resume (and the Batcher's `start_batch`) and the fused
-eval dispatch.
+Run management (map_tpu `trainer.py:550-731`, `:1057-1092`):
+- resume: with `save_steps`, a call that crosses a multiple of it
+  (`_crossed`: a call of 8 steps saves at the step it ends on) writes
+  `{output_dir}/resume.state` (`checkpoints.save_train_state`): the
+  parameters and buffers, the AdamW moments and count (K7's decoder state
+  among them: its moments, its handoff's step is the count), the dropout
+  and step generators' states and the trainer's meta. `--resume` restores
+  it before the first step: the tensors in place, `AdamW.rewind(count)`
+  (from which `begin` writes the card's scalar rows), the generators'
+  states set before any graph is captured (a capture registers them as
+  they stand, so the replays draw what the straight run drew), and
+  `_epochs_with_skip` starts at epoch global_step // batches and batch
+  global_step % batches (`Batcher.epoch` / `epoch_stacked`'s
+  `start_batch`, whose groups from there and `tail_start` are map_tpu's;
+  the epoch's order is written to the resident permutation anew).
+- the checkpoint writer (`train/async_writer.py`, `async_checkpoint`): the
+  model and resume saves are written by a worker thread from host copies
+  taken on this thread, or with `async_checkpoint_fetch` from device copies
+  taken on the compute stream, fetched by the worker; every checkpoint read
+  and the end of a run wait for it (`_join_ckpt_writer`).
+- `{output_dir}/metrics.jsonl` (`_emit_metrics`): one strict JSON line a
+  logged window or eval, of kind `train_window`, `eval`, `test`,
+  `mfp_window`, `mfp_eval`, `rfd_window` or `rfd_eval`, with `step`,
+  `time` and map_tpu's keys; a non-finite value is null. No line marks
+  where a run starts (map_tpu writes none either; a resumed run appends).
+- `--streaming_auc`: the supervised eval reduces each batch on the device
+  to two histograms of `auc_bins` buckets and four sums
+  (`train_step.streaming_sums`), accumulated there (the histograms in
+  float64, the sums fetched once and added in float64); the AUC is
+  `auc_from_histograms`, and while its error bound exceeds 5e-5 (up to
+  2^20 bins) the bins double and the pass runs again.
+- `--profile_steps` N: torch.profiler (CPU, and CUDA on the card) from the
+  call that ends at a step in [2, 2 + N) to the first one that reaches
+  2 + N (or the run's end), its trace written as
+  `{output_dir}/profile/trace_{step}.json`.
+Not ported yet (ROADMAP.md): the fused eval dispatch.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import math
+import os
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,6 +128,12 @@ from map_tpu_torch.objectives import alias
 from map_tpu_torch.objectives.corruption import mask_num_of
 from map_tpu_torch.ops import sparse_adamw
 from map_tpu_torch.train import checkpoints
+from map_tpu_torch.train.async_writer import (
+    AsyncCheckpointWriter,
+    fetch_snapshot,
+    host_copy,
+    snapshot_tensors,
+)
 from map_tpu_torch.train.graph import CUDA_WORK, MultiStep
 from map_tpu_torch.train.optimizer import build_optimizer
 from map_tpu_torch.train.train_step import (
@@ -102,9 +144,17 @@ from map_tpu_torch.train.train_step import (
     make_supervised_steps,
     to_device,
 )
-from map_tpu_torch.utils.metrics import binary_log_loss, roc_auc
+from map_tpu_torch.utils.metrics import (
+    auc_from_histograms,
+    auc_histogram_error_bound,
+    binary_log_loss,
+    roc_auc,
+)
 
 logger = logging.getLogger(__name__)
+
+# the streaming AUC's largest error bound, and the most bins it doubles to
+STREAMING_AUC_BOUND, STREAMING_BINS_CAP = 5e-5, 1 << 20
 
 
 class Trainer:
@@ -138,6 +188,14 @@ class Trainer:
                              else None)
         self.noise: Optional[NoiseTables] = None
         self.finetune_counts: Optional[Tuple[int, int]] = None  # (loaded, skipped)
+        self._step_generator: Optional[torch.Generator] = None
+        self._ckpt_writer = AsyncCheckpointWriter()
+        self._async_ckpt = bool(training_args.async_checkpoint)
+        self._async_fetch = self._async_ckpt and bool(training_args.async_checkpoint_fetch)
+        self._streaming_bins = (int(training_args.auc_bins) if training_args.streaming_auc
+                                else 0)
+        self._profiler = None
+        self.streaming_auc_bound: Optional[float] = None  # the last streaming eval's
         if model_config.mfp:
             self.noise = self._noise_tables()
         if training_args.finetune and training_args.pretrained_model_path:
@@ -197,6 +255,7 @@ class Trainer:
         if self.noise is not None or self.config.rfd:
             step_generator = torch.Generator(device=self.device).manual_seed(
                 self.args.seed + 1)
+        self._step_generator = step_generator
         if self.noise is not None:
             self.train_step, self.eval_step = make_mfp_steps(
                 self.model, self.optimizer, self.config, self.args.mask_ratio,
@@ -209,7 +268,8 @@ class Trainer:
                 self.device, data=self._data)
         else:
             self.train_step, self.eval_step = make_supervised_steps(
-                self.model, self.optimizer, self.device, data=self._data)
+                self.model, self.optimizer, self.device, data=self._data,
+                streaming_bins=self._streaming_bins)
         self.multi = MultiStep(self.train_step, self.args.steps_per_call, self.optimizer,
                                self.device, (step_generator, self._dropout_generator))
 
@@ -339,31 +399,49 @@ class Trainer:
                     pass
                 thread.join(timeout=0.01)
 
+
     def _run_train_step(self, n: int, dev_batch: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
         metrics = self.multi(n, dev_batch)
+        prev = self.global_step
         self.global_step += n
+        self._post_step(prev)
         return metrics
 
-    def train_epoch(self, batcher: Batcher, epoch: int
+    def train_epoch(self, batcher: Batcher, epoch: int, start_batch: int = 0
                     ) -> Iterator[Tuple[int, Dict[str, torch.Tensor], list]]:
-        """One epoch of train steps through the pipeline, a host call at a
-        time: (n, the n steps' metrics stacked (n, ...), their host batches)."""
+        """One epoch of train steps through the pipeline, from batch
+        `start_batch` on, a host call at a time: (n, the n steps' metrics
+        stacked (n, ...), their host batches)."""
         batcher.emit_indices = self._data is not None
         batcher.emit_start_only = self._data is not None and self._stream_v2
         if batcher.emit_start_only:
             self._ensure_epoch_perm(epoch, batcher)
         spc = max(1, int(self.args.steps_per_call))
-        batches = (batcher.epoch_stacked(spc, epoch) if spc > 1
-                   else ((1, b, [b]) for b in batcher.epoch(epoch)))
+        batches = (batcher.epoch_stacked(spc, epoch, start_batch) if spc > 1
+                   else ((1, b, [b]) for b in batcher.epoch(epoch, start_batch)))
         for n, dev_batch, views in self._grouped_stream(batches):
             yield n, self._run_train_step(n, dev_batch), views
+
+    def _epochs_with_skip(self, batcher: Batcher) -> Iterator[Tuple[int, int]]:
+        """(epoch, start_batch) of each epoch still to run: after a resume,
+        from the batch global_step gives (map_tpu `_epochs_with_skip`)."""
+        per_epoch = len(batcher)
+        start_epoch, skip = divmod(self.global_step, per_epoch)
+        for epoch in range(start_epoch, self.args.num_train_epochs):
+            yield epoch, skip if epoch == start_epoch else 0
 
     def _prepare_training(self) -> Batcher:
         batcher = self.get_batcher("train", True)
         self._setup_resident_data(batcher)
         self.build_steps(len(batcher))
+        self._maybe_resume()
         return batcher
+
+    def _end_run(self) -> None:
+        """A run's end: the profiler stopped, the checkpoints on disk."""
+        self._stop_profiler()
+        self._join_ckpt_writer()
 
     def train(self) -> None:
         batcher = self._prepare_training()
@@ -374,9 +452,9 @@ class Trainer:
         labels: List[np.ndarray] = []
         weights: List[np.ndarray] = []
         window_t0 = time.time()
-        for epoch in range(self.args.num_train_epochs):
+        for epoch, start_batch in self._epochs_with_skip(batcher):
             logger.info(f"-------------------- epoch-{epoch} --------------------")
-            for n, metrics, group in self.train_epoch(batcher, epoch):
+            for n, metrics, group in self.train_epoch(batcher, epoch, start_batch):
                 prev = self.global_step - n
                 losses.append(metrics["loss"])
                 probs.append(metrics["probs"])
@@ -394,11 +472,13 @@ class Trainer:
                             "time_cost": round(dt, 3)}
                     logger.info(f"step = {self.global_step}, {_log}")
                     self.train_windows.append({"step": self.global_step, **_log})
+                    self._emit_metrics("train_window", _log)
                     losses, probs, labels, weights = [], [], [], []
                     window_t0 = time.time()
             self.eval()
             if self._stop_training:
                 break
+        self._end_run()
         logger.info(self._metrics_table("auc", "log_loss"))
 
     def _metrics_table(self, *columns: str) -> str:
@@ -420,9 +500,9 @@ class Trainer:
                     f"{self.model.mfp_criterion.handoff is not None}")
         window: Dict[str, List[torch.Tensor]] = {"loss": [], "count": [], "acc_count": []}
         window_t0 = time.time()
-        for epoch in range(self.args.num_train_epochs):
+        for epoch, start_batch in self._epochs_with_skip(batcher):
             logger.info(f"-------------------- epoch-{epoch} --------------------")
-            for n, metrics, _ in self.train_epoch(batcher, epoch):
+            for n, metrics, _ in self.train_epoch(batcher, epoch, start_batch):
                 prev = self.global_step - n
                 for key, values in window.items():
                     values.append(metrics[key])
@@ -436,10 +516,12 @@ class Trainer:
                             "time_cost": round(dt, 3)}
                     logger.info(f"step = {self.global_step}, {_log}")
                     self.train_windows.append({"step": self.global_step, **_log})
+                    self._emit_metrics("mfp_window", _log)
                     window = {k: [] for k in window}
                     window_t0 = time.time()
             self.MFP_pretrain_eval()
         self.save_model(self.args.output_dir)
+        self._end_run()
         logger.info(self._metrics_table("mfp_loss", "mfp_acc"))
 
     def MFP_pretrain_eval(self) -> Dict[str, float]:
@@ -448,6 +530,7 @@ class Trainer:
         batcher = self.get_batcher("valid", False)
         logger.info("***** running eval *****")
         logger.info(f"  num examples = {batcher.num_examples()}")
+        t0 = time.time()
         gen = torch.Generator(device=self.device).manual_seed(self.args.seed + 2)
         metrics = [self.eval_step(batch, gen) for batch in batcher.epoch(0)]
         host = {k: torch.stack([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
@@ -455,9 +538,11 @@ class Trainer:
         count = host["count"].sum()
         _log = {"learning_rate": self._current_lr(),
                 "eval_mfp_loss": float((host["loss"] * host["count"]).sum() / count),
-                "eval_mfp_acc": float(host["acc_count"].sum() / count)}
+                "eval_mfp_acc": float(host["acc_count"].sum() / count),
+                "eval_time_cost": time.time() - t0}
         self.eval_metrics.append([_log["eval_mfp_loss"], _log["eval_mfp_acc"]])
         logger.info(str(_log))
+        self._emit_metrics("mfp_eval", _log)
         return _log
 
     def RFD_pretrain(self) -> None:
@@ -471,9 +556,9 @@ class Trainer:
         keys = ("loss", "acc", "pos_ratio")
         window: Dict[str, List[torch.Tensor]] = {k: [] for k in keys}
         window_t0 = time.time()
-        for epoch in range(self.args.num_train_epochs):
+        for epoch, start_batch in self._epochs_with_skip(batcher):
             logger.info(f"-------------------- epoch-{epoch} --------------------")
-            for n, metrics, _ in self.train_epoch(batcher, epoch):
+            for n, metrics, _ in self.train_epoch(batcher, epoch, start_batch):
                 prev = self.global_step - n
                 for key in keys:
                     window[key].append(metrics[key])
@@ -486,18 +571,23 @@ class Trainer:
                             "time_cost": round(time.time() - window_t0, 3)}
                     logger.info(f"step = {self.global_step}, {_log}")
                     self.train_windows.append({"step": self.global_step, **_log})
+                    self._emit_metrics("rfd_window", _log)
                     window = {k: [] for k in keys}
                     window_t0 = time.time()
             self.RFD_pretrain_eval()
         self.save_model(self.args.output_dir)
+        self._end_run()
         logger.info(self._metrics_table("rfd_loss", "rfd_acc"))
 
     def RFD_pretrain_eval(self) -> Dict[str, float]:
+        """The eval's loss and accuracy (and, in the log line and the
+        result, its pos_ratio, which map_tpu's record does not carry)."""
         if self.eval_step is None:
             self.build_steps(len(self.get_batcher("train", True)))
         batcher = self.get_batcher("valid", False)
         logger.info("***** running eval *****")
         logger.info(f"  num examples = {batcher.num_examples()}")
+        t0 = time.time()
         gen = torch.Generator(device=self.device).manual_seed(self.args.seed + 2)
         metrics = [self.eval_step(batch, gen) for batch in batcher.epoch(0)]
         host = {k: torch.stack([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
@@ -506,14 +596,18 @@ class Trainer:
         _log = {"learning_rate": self._current_lr(),
                 **{f"eval_{name}": float((host[k] * host["count"]).sum() / count)
                    for name, k in (("rfd_loss", "loss"), ("rfd_acc", "acc"),
-                                   ("pos_ratio", "pos_ratio"))}}
+                                   ("pos_ratio", "pos_ratio"))},
+                "eval_time_cost": time.time() - t0}
         self.eval_metrics.append([_log["eval_rfd_loss"], _log["eval_rfd_acc"]])
         logger.info(str(_log))
+        self._emit_metrics("rfd_eval", {k: v for k, v in _log.items()
+                                        if k != "eval_pos_ratio"})
         return _log
 
     def load_for_finetune(self, model_path: str) -> None:
         """Copy in every tensor of the checkpoint at `model_path` whose name
         and shape match (map_tpu's `load_for_finetune`)."""
+        self._join_ckpt_writer()
         merged, loaded, skipped = checkpoints.partial_restore(
             self.model.state_dict(), checkpoints.load_any_model_file(model_path,
                                                                      self.config))
@@ -538,24 +632,28 @@ class Trainer:
                     else "\n***** running eval *****")
         logger.info(f"  num examples = {batcher.num_examples()}")
         logger.info(f"  batch size = {batcher.batch_size}")
-        logits, probs, labels, weights = [], [], [], []
-        for batch in batcher.epoch(0):
-            m = self.eval_step(batch)
-            logits.append(m["logits"])
-            probs.append(m["probs"])
-            labels.append(batch["labels"])
-            weights.append(batch["weight"])
-        w = np.concatenate(weights) > 0
-        logits_h = torch.cat(logits).cpu().numpy().astype(np.float64)[w]
-        probs_h = torch.cat(probs).cpu().numpy().astype(np.float64)[w]
-        labels_h = np.concatenate(labels)[w]
-        auc = roc_auc(labels_h, probs_h)
-        ll = binary_log_loss(labels_h, probs_h)
+        if self._streaming_bins:
+            auc, ll, avg_logits, avg_probs = self._streaming_eval(batcher)
+        else:
+            logits, probs, labels, weights = [], [], [], []
+            for batch in batcher.epoch(0):
+                m = self.eval_step(batch)
+                logits.append(m["logits"])
+                probs.append(m["probs"])
+                labels.append(batch["labels"])
+                weights.append(batch["weight"])
+            w = np.concatenate(weights) > 0
+            logits_h = torch.cat(logits).cpu().numpy().astype(np.float64)[w]
+            probs_h = torch.cat(probs).cpu().numpy().astype(np.float64)[w]
+            labels_h = np.concatenate(labels)[w]
+            auc = roc_auc(labels_h, probs_h)
+            ll = binary_log_loss(labels_h, probs_h)
+            avg_logits, avg_probs = float(logits_h.mean()), float(probs_h.mean())
         self.eval_metrics.append([auc, ll])
         _log = {"learning_rate": self._current_lr(), "eval_auc": auc,
-                "eval_loss": ll, "avg_logits": float(logits_h.mean()),
-                "avg_probs": float(probs_h.mean())}
+                "eval_loss": ll, "avg_logits": avg_logits, "avg_probs": avg_probs}
         logger.info(str(_log))
+        self._emit_metrics("test" if test_eval else "eval", _log)
         if not test_eval:
             if auc > self.best_eval_auc:
                 self.best_eval_auc = auc
@@ -568,14 +666,181 @@ class Trainer:
                 self._stop_training = True
         return _log
 
+    def _streaming_eval(self, batcher: Batcher) -> Tuple[float, float, float, float]:
+        """The streaming pass (map_tpu `trainer.py:342-382`) -> (AUC, log
+        loss, mean logit, mean probability); bins doubled and the pass run
+        again while the AUC's error bound exceeds STREAMING_AUC_BOUND."""
+        while True:
+            nb = self._streaming_bins
+            hist_pos = torch.zeros(nb, dtype=torch.float64, device=self.device)
+            hist_neg = torch.zeros_like(hist_pos)
+            sums = []
+            for batch in batcher.epoch(0):
+                m = self.eval_step(batch)
+                hist_pos += m["hist_pos"]
+                hist_neg += m["hist_neg"]
+                sums.append(torch.stack([m[k] for k in ("ll_sum", "logit_sum",
+                                                        "prob_sum", "count")]))
+            hp, hn = hist_pos.cpu().numpy(), hist_neg.cpu().numpy()
+            ll_sum, logit_sum, prob_sum, count = (
+                torch.stack(sums).cpu().numpy().astype(np.float64).sum(axis=0))
+            auc = auc_from_histograms(hp, hn)
+            bound = auc_histogram_error_bound(hp, hn)
+            if bound > STREAMING_AUC_BOUND and nb < STREAMING_BINS_CAP:
+                logger.warning(
+                    f"streaming AUC certified error bound {bound:.2e} exceeds "
+                    f"{STREAMING_AUC_BOUND:.0e}; escalating auc_bins {nb} -> {nb * 2} "
+                    f"and re-running the eval pass")
+                self._rebuild_streaming_eval(nb * 2)
+                continue
+            if bound > STREAMING_AUC_BOUND:
+                logger.warning(
+                    f"streaming AUC certified error bound {bound:.2e} still exceeds "
+                    f"{STREAMING_AUC_BOUND:.0e} at the {nb}-bin cap — disable "
+                    f"--streaming_auc for model selection")
+            else:
+                logger.info(f"streaming AUC certified error bound {bound:.2e}")
+            self.streaming_auc_bound = bound
+            return auc, ll_sum / count, logit_sum / count, prob_sum / count
+
+    def _rebuild_streaming_eval(self, new_bins: int) -> None:
+        """The supervised eval step at `new_bins` bins; the train step and
+        its graphs stay."""
+        self._streaming_bins = int(new_bins)
+        _, self.eval_step = make_supervised_steps(
+            self.model, self.optimizer, self.device, data=self._data,
+            streaming_bins=self._streaming_bins)
+
+    # ---- run management --------------------------------------------------------
+
+    def _post_step(self, prev: int) -> None:
+        self._maybe_save_resume(prev)
+        self._profile_hook()
+
+    def _profile_hook(self) -> None:
+        """torch.profiler over the calls ending at steps [2, 2 + profile_steps)
+        (map_tpu's `_profile_hook`, which runs jax.profiler)."""
+        ps = int(self.args.profile_steps or 0)
+        if not ps:
+            return
+        if self._profiler is None and 2 <= self.global_step < 2 + ps:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+        elif self._profiler is not None and self.global_step >= 2 + ps:
+            self._stop_profiler()
+
+    def _stop_profiler(self) -> None:
+        if self._profiler is None:
+            return
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        out = os.path.join(self.args.output_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, f"trace_{self.global_step}.json"))
+
+    def _train_state(self) -> Dict[str, Any]:
+        """The live tensors and host state a resume restores."""
+        gens = {"dropout": self._dropout_generator.get_state(),
+                "step": (None if self._step_generator is None
+                         else self._step_generator.get_state())}
+        return {"model": self.model.state_dict(),
+                "optimizer": {"names": list(self.optimizer.names),
+                              "count": self.optimizer.count,
+                              "mu": list(self.optimizer.mu), "nu": list(self.optimizer.nu)},
+                "generators": gens}
+
+    @torch.no_grad()
+    def _restore_train_state(self, state: Dict[str, Any]) -> None:
+        self.model.load_state_dict(state["model"])
+        opt = state["optimizer"]
+        if list(opt["names"]) != list(self.optimizer.names):
+            raise ValueError("resume state: the optimizer's parameters differ from the model's")
+        for live, saved in zip(self.optimizer.mu + self.optimizer.nu, opt["mu"] + opt["nu"]):
+            live.copy_(saved)
+        self.optimizer.rewind(int(opt["count"]))
+        gens = state["generators"]
+        self._dropout_generator.set_state(gens["dropout"])
+        if self._step_generator is not None:
+            self._step_generator.set_state(gens["step"])
+
+    def _maybe_resume(self) -> None:
+        """Restore `{output_dir}/resume.state` under `--resume`, before any
+        step (so before any graph is captured)."""
+        if not self.args.resume:
+            return
+        self._join_ckpt_writer()  # a write in flight lands first
+        if not checkpoints.has_resume_state(self.args.output_dir):
+            return
+        state, meta = checkpoints.load_train_state(self.args.output_dir)
+        self._restore_train_state(state)
+        self.global_step = int(meta["global_step"])
+        self.best_eval_auc = float(meta["best_eval_auc"])
+        self.best_eval_step = int(meta["best_eval_step"])
+        self._patience = int(meta["patience"])
+        self.eval_metrics = [list(m) for m in meta.get("eval_metrics", [])]
+        logger.info(f"resumed from step {self.global_step} "
+                    f"(best_eval_auc={self.best_eval_auc:.6f})")
+
+    def _maybe_save_resume(self, prev: int) -> None:
+        if not self._crossed(prev, self.args.save_steps):
+            return
+        meta = {"global_step": self.global_step, "best_eval_auc": self.best_eval_auc,
+                "best_eval_step": self.best_eval_step, "patience": self._patience,
+                "eval_metrics": [list(m) for m in self.eval_metrics]}
+        out = self.args.output_dir
+        self._write(self._train_state(),
+                    lambda host: checkpoints.save_train_state(out, host, meta),
+                    f"resume-{self.global_step}")
+
+    def _write(self, tensors: Any, save, label: str) -> None:
+        """save(host copy of `tensors`): on this thread, or by the writer
+        from host copies taken here, or (fetch) from device copies."""
+        if self._async_fetch:
+            snap, done = snapshot_tensors(tensors)
+            self._ckpt_writer.submit(lambda: save(fetch_snapshot(snap, done)), label=label)
+        elif self._async_ckpt:
+            host = host_copy(tensors)
+            self._ckpt_writer.submit(lambda: save(host), label=label)
+        else:
+            save(host_copy(tensors))
+
+    def _join_ckpt_writer(self) -> None:
+        self._ckpt_writer.wait()
+
+    def _emit_metrics(self, kind: str, payload: Dict[str, Any]) -> None:
+        """One line of `{output_dir}/metrics.jsonl`: kind, step, time and the
+        payload, numpy numbers as Python ones, a non-finite float as null."""
+        rec: Dict[str, Any] = {"kind": kind, "step": self.global_step,
+                               "time": round(time.time(), 3)}
+        for k, v in payload.items():
+            if isinstance(v, (np.floating, np.integer)):
+                v = v.item()
+            if isinstance(v, float) and not math.isfinite(v):
+                v = None
+            rec[k] = v
+        os.makedirs(self.args.output_dir, exist_ok=True)
+        with open(os.path.join(self.args.output_dir, "metrics.jsonl"), "a") as f:
+            f.write(json.dumps(rec, allow_nan=False) + "\n")
+
+    # ---- checkpoints ---------------------------------------------------------
+
     def save_model(self, model_dir: str) -> str:
-        path = checkpoints.save_model(self.model.state_dict(), model_dir,
-                                      self.global_step)
-        if self.args.save_total_limit:
-            checkpoints.prune_checkpoints(model_dir, self.args.save_total_limit)
-        return path
+        step = self.global_step
+        limit = self.args.save_total_limit
+
+        def save(state_dict):
+            checkpoints.save_model(state_dict, model_dir, step)
+            if limit:
+                checkpoints.prune_checkpoints(model_dir, limit)
+
+        self._write(self.model.state_dict(), save, f"model-{step}")
+        return checkpoints.model_checkpoint_path(model_dir, step)
 
     def load_model(self, load_step: int, model_dir: str) -> None:
+        self._join_ckpt_writer()  # the step being read may still be in flight
         self.model.load_state_dict(checkpoints.load_model(model_dir, load_step))
 
     def test(self, load_step: int = -1, model_dir: Optional[str] = None

@@ -8,7 +8,9 @@ Shapes here are the awkward ones (odd batch, ragged D, E not a multiple of
 table); chip_smoke.py holds the same kernels at the serving and training
 shapes. The last cases capture each train step kind into CUDA graphs
 (`train/graph.py`) and hold them to eager steps bit for bit, with draws
-that move on from replay to replay.
+that move on from replay to replay; then a resumed run to the straight one
+on the graph path, the checkpoint writer's device snapshot to a sync save,
+and the streaming eval's histograms to the CPU's.
 """
 
 import dataclasses
@@ -1029,7 +1031,7 @@ GRAPH_SIZES = [7, 24, 60, 300, 20_000, 5, 150, 30_000]  # 6 small fields, 2 big
 
 
 def _graph_trainer(dev, kind, dtype, resident, spc, seed=0, model="dcnv2", groups=1,
-                   **knobs):
+                   args_kw=None, **knobs):
     """A narrow Trainer on the card (DCNv2 unless `model` and `knobs` say
     otherwise) for `kind`: supervised, rfd (bwd_pallas), mfp (per-position,
     matmul) or pf_shared (per-field shared noise, k = 20, the sparse table
@@ -1062,7 +1064,7 @@ def _graph_trainer(dev, kind, dtype, resident, spc, seed=0, model="dcnv2", group
         pretrain=pretrain, pt_type=cfg.pt_type, RFD_replace="Unigram", mask_ratio=0.3,
         sampling_method="randint", data_dir="", pt_shared_noise=kind == "pf_shared",
         pt_per_field_noise=kind == "pf_shared", sparse_table_update=kind == "pf_shared",
-        device_resident_data=resident, steps_per_call=spc)
+        device_resident_data=resident, steps_per_call=spc, **(args_kw or {}))
     data = type("D", (), {"X": {"train": x}, "Y": {"train": y}})()
     return Trainer(models.from_config(cfg, torch.Generator().manual_seed(seed)), cfg, args,
                    data, device=dev)
@@ -1316,3 +1318,127 @@ def test_graph_models_graph_is_bit_equal_to_eager_steps(dev, name, kind):
     assert len(start) == (4 if name == "fgcnn" else 0)
     for n, b in start.items():
         assert not torch.equal(state[n], b), n
+
+
+# ---- resume, the checkpoint writer's snapshot, the streaming eval ---------------------
+
+class _EpochCap:
+    """Drives a Trainer's train loop without its evals (the card tests'
+    datasets hold a train split only): `epochs` epochs from where a resume
+    puts it, the resume state written as calls cross `save_steps`."""
+
+    @staticmethod
+    def run(trainer, epochs=None):
+        batcher = trainer._prepare_training()
+        for i, (epoch, start) in enumerate(trainer._epochs_with_skip(batcher)):
+            if epochs is not None and i == epochs:
+                break
+            for _ in trainer.train_epoch(batcher, epoch, start):
+                pass
+        trainer._end_run()
+        torch.cuda.synchronize()
+        return trainer
+
+
+def _train_state(trainer):
+    return {"model": {k: v.clone() for k, v in trainer.model.state_dict().items()},
+            "mu": [m.clone() for m in trainer.optimizer.mu],
+            "nu": [v.clone() for v in trainer.optimizer.nu],
+            "count": trainer.optimizer.count,
+            "gens": [g.get_state() for g in (trainer._dropout_generator,
+                                             trainer._step_generator) if g is not None]}
+
+
+@pytest.mark.parametrize("kind", ["supervised", "mfp", "rfd", "pf_shared"])
+def test_resume_on_the_graph_path_is_bit_equal(dev, kind, tmp_path):
+    """2 epochs of graphs of 4 against 1 epoch (the resume state written at
+    step 8, where a call crossed 5) and a resumed run to 2 epochs, whose
+    generators, moments and scalar rows restart at step 8 before any
+    capture: parameters, buffers, moments, count and generator states
+    bit-equal (async checkpoints, bf16). MFP's 'randint' positions repeat in
+    a row here at most twice (2 masked of 8 fields), and two gradients
+    added from zero by atomics give one sum in either order."""
+    from map_tpu_torch.train import checkpoints
+
+    def make(out, **a):
+        return _graph_trainer(dev, kind, "bfloat16", "on", 4, groups=2, args_kw=dict(
+            save_steps=5, output_dir=str(tmp_path / out), **a))
+
+    straight = _EpochCap.run(make("a"))
+    _EpochCap.run(make("b"), epochs=1)
+    assert checkpoints.load_train_state(str(tmp_path / "b"))[1]["global_step"] == 8
+    resumed = _EpochCap.run(make("b", resume=True))
+    assert resumed.multi.graphed and 4 in resumed.multi.graphs
+    assert resumed.global_step == straight.global_step == 18
+    ref, got = _train_state(straight), _train_state(resumed)
+    assert got["count"] == ref["count"] == 18
+    for k in ref["model"]:
+        assert torch.equal(got["model"][k], ref["model"][k]), k
+    for part_ in ("mu", "nu", "gens"):
+        for a, b in zip(got[part_], ref[part_]):
+            assert torch.equal(a, b), part_
+
+
+def test_async_snapshot_equals_a_sync_save_while_replays_go_on(dev, tmp_path, monkeypatch):
+    """The fetch-mode writer copies on the card before the next replay and
+    fetches later (held back 0.3 s here while the replays go on): the saved
+    state is the sync save's, bit for bit, not the live one."""
+    import time
+
+    from map_tpu_torch.train import checkpoints
+    from map_tpu_torch.train import trainer as trainer_mod
+
+    fetch = trainer_mod.fetch_snapshot
+
+    def slow_fetch(snap, done):
+        time.sleep(0.3)
+        return fetch(snap, done)
+
+    runs = {}
+    for name, extra in (("sync", dict(async_checkpoint=False)),
+                        ("fetch", dict(async_checkpoint_fetch=True))):
+        if name == "fetch":
+            monkeypatch.setattr(trainer_mod, "fetch_snapshot", slow_fetch)
+        t = _EpochCap.run(_graph_trainer(dev, "mfp", "bfloat16", "on", 4, groups=2,
+                                         args_kw=dict(save_steps=7,
+                                                      output_dir=str(tmp_path / name),
+                                                      **extra)))
+        runs[name] = (checkpoints.load_train_state(str(tmp_path / name)), _train_state(t))
+    (ref, ref_meta), _ = runs["sync"]
+    (got, meta), live = runs["fetch"]
+    assert meta == ref_meta and meta["global_step"] == 17  # the last call, 17 -> 18, runs on
+    for k, v in ref["model"].items():
+        assert torch.equal(got["model"][k], v), k
+    assert any(not torch.equal(got["model"][k], live["model"][k].cpu())
+               for k in got["model"])
+    for part in ("mu", "nu"):
+        for a, b in zip(got["optimizer"][part], ref["optimizer"][part]):
+            assert torch.equal(a, b), part
+
+
+def test_streaming_histograms_on_the_card_equal_the_cpus(dev):
+    """The streaming eval's reduction on the card: the histograms equal the
+    CPU's bucketing of the card's own probabilities (float atomics add
+    whole counts exactly), the sums within float32 rounding of the CPU's."""
+    import numpy as np
+
+    from map_tpu_torch.train.train_step import streaming_sums
+
+    g = torch.Generator().manual_seed(4)
+    n, bins = 50_000, 32768
+    logits = torch.randn(n, generator=g) * 2 - 1.5
+    labels = (torch.rand(n, generator=g) < torch.sigmoid(logits)).float()
+    weight = (torch.arange(n) < n - 77).float()  # padding rows at weight 0
+    got = streaming_sums(logits.to(dev), labels.to(dev), weight.to(dev), bins)
+    torch.cuda.synchronize()
+    probs = torch.sigmoid(logits.to(dev)).cpu().numpy()
+    bucket = np.clip((probs * bins).astype(np.int32), 0, bins - 1)
+    w, y = weight.numpy(), labels.numpy()
+    np.testing.assert_array_equal(got["hist_pos"].cpu().numpy(),
+                                  np.bincount(bucket, w * y, bins).astype(np.float32))
+    np.testing.assert_array_equal(got["hist_neg"].cpu().numpy(),
+                                  np.bincount(bucket, w * (1 - y), bins).astype(np.float32))
+    ref = streaming_sums(logits, labels, weight, bins)
+    assert float(got["count"]) == float(ref["count"]) == n - 77
+    for key in ("ll_sum", "logit_sum", "prob_sum"):
+        assert float(got[key]) == pytest.approx(float(ref[key]), rel=1e-5), key
