@@ -31,10 +31,13 @@ each; any failure ends the run with a nonzero exit code.
    against the flat K3 one on the same ids and cotangent, the small fields'
    rows bit-equal; K6a (their rows) at the serving shape, exact;
 6. serving: DCNv2 at full width (embed 16, 24 fields, MLP 3 x 1000, 3 cross
-   layers) from --seed, saved with save_model and scored by Predictor over
-   --rows field-blocked rows in bf16 and in f32, three timed passes each;
-   logits held against the plain versions on the card; K4 and K2 launch
-   counts checked; one bf16 pass under torch.profiler;
+   layers) from --seed, saved with save_model and scored by the pipelined
+   Predictor (byte-packed ids, a captured forward, the producer, device and
+   drainer stages) over --rows field-blocked rows in bf16 and in f32, three timed
+   passes each; logits held against the plain versions on the card and
+   bit-equal to an eager forward of the same padded chunks; K4 and K2
+   launch counts checked (a replay counted as its capture's launches);
+   one pass in each dtype under torch.profiler (rows/s, idle share);
 7. training, in bf16 and in f32: the port's Trainer on an in-memory 24-field
    dataset drawn from --seed, labels from a fixed random teacher on the ids,
    batch 4096, lr 1e-3 const, wd 0.1 (run_script/run_DCNv2_scratch.sh), one
@@ -106,7 +109,8 @@ each; any failure ends the run with a nonzero exit code.
    descriptor block, host us a step (`k1_plan_host`). The `*_profile`
    phases also give the host ms a step by family. The Trainer runs of 7-9
    take the new default: their launch checks count a graph's replay as
-   its captured launches (`MultiStep.launches_run`);
+   its captured launches, the eval passes' graphs too
+   (`Trainer.launches_run`);
 9. finetune: supervised DCNv2 from the RFD checkpoint (run_DCNv2_finetune.sh's
    default) and from the MFP one (13 tensors loaded, 4 skipped each), one
    epoch, eval AUC > 0.6, launches checked;
@@ -126,7 +130,12 @@ each; any failure ends the run with a nonzero exit code.
    bf16 cell on both paths (`path_time`, the 16-step bit check over
    parameters and buffers, the launches counted from 0 before it);
    `Predictor` rows/s at batch 10000 in bf16 (FGCNN from its running
-   statistics), the first chunk's logits against the plain versions';
+   statistics), the first chunk's logits against the plain versions', the
+   pipelined Predictor's logits in bf16 and f32 bit-equal to an eager
+   forward of the same chunks; FGCNN trained an epoch on the graph path and
+   its state_dict carried to map_tpu's tree (`interop/to_jax.py`, packed and
+   plain tables) and back, bit-equal (the bf16 DCNv2 training run's weights
+   too, in phase 7);
 10. times: median ms of each kernel (CUDA events, L2 flushed and a spin of
    about 1 ms queued on the card before each launch, so that the card, not
    the host's launch pace, sets the time), its bound on an H100 SXM, its
@@ -165,8 +174,10 @@ each; any failure ends the run with a nonzero exit code.
    this data (supervised, MFP under `matmul` and `bwd_pallas`, K6b among
    its kernels, RFD) through the kernels against the plain versions;
 10c. resume (`resume_phase`), on the graph path in bf16, supervised DCNv2
-   and MFP per-position (the stages' flags, 2 epochs): a straight run, and
-   a run stopped after its first epoch with save_steps 20 (async
+   and MFP per-position (the stages' flags, 2 epochs; MFP's positions
+   'randint'): for MFP two straight runs from one seed, parameters,
+   moments, generator states and eval metrics bit-equal; a straight run,
+   and a run stopped after its first epoch with save_steps 20 (async
    checkpoints; MFP's fetched from a snapshot on the card) resumed with
    --resume: parameters, buffers, moments, count and generator states
    bit-equal;
@@ -174,10 +185,22 @@ each; any failure ends the run with a nonzero exit code.
    scratch stage's weights against the exact eval, within its error bound;
    metrics.jsonl's seven kinds among the runs; a `--profile_steps 2` run's
    trace, with the card's kernels in it;
+10e. the eval dispatch (`grouped_eval_phase`): the validation stages'
+   weights at DCNv2's full width, eval batch 10000 over 85,000 synthazu
+   rows (a group of 8 and a padded tail), bf16 and f32, the exact
+   supervised eval, the streaming one, MFP ('randint') and RFD: graphs of
+   8 (steps_per_call 8) against eager passes (1), every pass's metrics
+   bit-equal; eval rows/s in turns and host us a batch with the card idle;
+   the launches the graphs ran; MFP and RFD also with their draws made
+   outside and handed in, bit-equal;
+10f. the alias draws against q (`chi_square_phase`): 10^7 draws of the
+   global and of the per-field draw on synthazu's unigram, chi-square p
+   above 1e-3, each draw's log q the table's;
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
    from the per-field shared run of 8b for K5, K7 and K8, plus each zoo
-   model's graph path and the validation's five stages; `launches_by_path`
-   gives each), nvidia-smi's line, and last
+   model's graph path, the validation's five stages, the grouped eval phase
+   and the serving phase; `launches_by_path` gives each), nvidia-smi's
+   line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -557,6 +580,26 @@ def parity_check(name, dname, lr, k_loss, p_loss, k_params, p_params, p0) -> Non
 
 
 # map_tpu's steps_per_call; the first two calls of the graph path
+def eager_bits_check(name: str, pred, ids: np.ndarray, logits: np.ndarray) -> None:
+    """The Predictor's logits (its packed transfer, captured forward and
+    pipeline) against an eager forward of the same padded chunks by its
+    model outside inference mode (the layers cast their weights on the
+    call): bit-equal."""
+    import torch
+
+    ref = []
+    with torch.no_grad():
+        for lo in range(0, len(ids), pred.batch_size):
+            chunk = pred._check_and_pad(ids[lo:lo + pred.batch_size], lo)
+            ref.append(pred.model(torch.from_numpy(chunk).to(pred.device))
+                       .reshape(-1).float().cpu())
+    ref = torch.cat(ref)[:len(ids)]
+    got = torch.from_numpy(logits)
+    check(f"{name}: pipelined Predictor logits bit-equal to an eager forward of the "
+          "same chunks", torch.equal(got, ref), rows=len(ids),
+          max_abs_diff=float((got - ref).abs().max()))
+
+
 GRAPH_SPC = 8
 BITS_STEPS = 2 * GRAPH_SPC
 
@@ -934,7 +977,7 @@ def mfp_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     trainer.MFP_pretrain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = trainer.multi.launches_run(read_counts())
+    launches = trainer.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": 2 * (steps + eval_batches),
@@ -1133,7 +1176,7 @@ def mfp_shared_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> di
     trainer.MFP_pretrain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = trainer.multi.launches_run(read_counts())
+    launches = trainer.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     # a train step gathers the input rows, the targets and the (F, k) noise
@@ -1358,7 +1401,7 @@ def finetune_phase(args, dev, cfg, data, ckpt, source, reset_counts, read_counts
     test = trainer.test()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = trainer.multi.launches_run(read_counts())
+    launches = trainer.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = 2 * -(-EVAL_ROWS // EVAL_BATCH)
     expected = {"embedding_gather": steps + eval_batches,
@@ -1454,7 +1497,7 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     trainer.RFD_pretrain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = trainer.multi.launches_run(read_counts())
+    launches = trainer.launches_run(read_counts())
     steps = trainer.global_step
     eval_batches = -(-EVAL_ROWS // EVAL_BATCH)
     # a train step: K4 and K2 forward, K3 on the 3 big fields' rows and K6b
@@ -1750,6 +1793,14 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
               and graph["launches"]["scatter_add"] >= steps
               and graph["launches"]["embedding_gather"] >= steps,
               launches=graph["launches"], steps=steps)
+        if name == "fgcnn":  # an epoch on the graph path, its running statistics moved
+            t = make("auto", GRAPH_SPC)
+            b = t._prepare_training()
+            for _ in t.train_epoch(b, 0):
+                pass
+            torch.cuda.synchronize()
+            carry_check("fgcnn (one epoch on the graph path)", t.model.state_dict(), t.config)
+            del t, b
         if name in ("fignn", "fgcnn"):
             tables = ZOO_TABLES.get(name, 1)
             check(f"zoo {name}: the graph path launched K3 and K4 {tables}x a step",
@@ -1757,28 +1808,32 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
                   and graph["launches"]["embedding_gather"] == tables * steps,
                   launches=graph["launches"], steps=steps)
 
-        # serving
+        # serving: the pipelined Predictor, bf16 timed, both dtypes bit-equal
+        # to an eager forward of the same chunks
         model_dir = os.path.join(work, f"{name}_serve")
         m = models.from_config(c_sup, torch.Generator().manual_seed(args.seed))
         checkpoints.save_model(m.state_dict(), model_dir, 1)
-        c_sup.save(model_dir)
-        pred = Predictor(model_dir, 1, batch_size=args.batch)
-        first = score_ids[:args.batch]
-        logits0 = pred.predict_logits(first)  # the warm-up chunk
-        with torch.inference_mode(), plain_layers():
-            ref = pred.model(torch.from_numpy(first).to(dev)).reshape(-1).float().cpu()
-        err = compare(f"zoo {name} serving logits bfloat16, {args.batch} rows",
-                      torch.from_numpy(logits0), ref, *TOL_LOGITS["bfloat16"])
-        seconds = []
-        for _ in range(SERVING_PASSES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            pred.predict_logits(score_ids)
-            seconds.append(time.perf_counter() - t0)
-        emit("zoo_serving", model=name, compute_dtype="bfloat16", rows=args.rows,
-             batch=args.batch, seconds=seconds, rows_per_s=args.rows / min(seconds),
-             max_abs_err=err, num_params=len(list(m.parameters())), card=smi_line())
-        del pred, m
+        for dname in ("bfloat16", "float32"):
+            dataclasses.replace(c_sup, compute_dtype=dname).save(model_dir)
+            pred = Predictor(model_dir, 1, batch_size=args.batch)
+            first = score_ids[:args.batch]
+            logits0 = pred.predict_logits(first)  # the warm-up chunk
+            with torch.inference_mode(), plain_layers():
+                ref = pred.model(torch.from_numpy(first).to(dev)).reshape(-1).float().cpu()
+            err = compare(f"zoo {name} serving logits {dname}, {args.batch} rows",
+                          torch.from_numpy(logits0), ref, *TOL_LOGITS[dname])
+            seconds, logits = [], None
+            for _ in range(SERVING_PASSES if dname == "bfloat16" else 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits = pred.predict_logits(score_ids)
+                seconds.append(time.perf_counter() - t0)
+            eager_bits_check(f"zoo {name} serving {dname}", pred, score_ids, logits)
+            emit("zoo_serving", model=name, compute_dtype=dname, rows=args.rows,
+                 batch=args.batch, seconds=seconds, rows_per_s=args.rows / min(seconds),
+                 max_abs_err=err, num_params=len(list(m.parameters())), card=smi_line())
+            del pred
+        del m
         shutil.rmtree(model_dir, ignore_errors=True)
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
@@ -1840,7 +1895,7 @@ def validation_phase(args, dev, reset_counts, read_counts) -> dict:
     for stage in validate.plan(validate.BASE_STAGES):
         reset_counts()
         line, trainer = validate.run_stage(stage, VALIDATION_SEED, data, work, None, {})
-        launches = trainer.multi.launches_run(read_counts())
+        launches = trainer.launches_run(read_counts())
         epochs = trainer.args.num_train_epochs
         evals = sum(-(-len(data.Y[s]) // trainer.args.eval_batch_size)
                     for s in (["valid"] * epochs + (["test"] if stage.kind == "supervised"
@@ -1942,11 +1997,10 @@ def train_state(trainer) -> dict:
 def resume_phase(args, dev, val) -> None:
     """10c. Resume on the graph path in bf16 (steps_per_call 8), supervised
     DCNv2 (validation/run_tpu.sh's scratch flags) and MFP per-position (its
-    mfp flags, but masked positions drawn without repeats in a row,
-    'normal': with 'randint' a row's repeated positions add three or more
-    gradients through atomics in the masked-position gather's backward, so
-    two MFP runs from one seed differ on the card in the last bits), 2
-    epochs on synthazu: a straight run, and a run stopped after its first
+    mfp flags: 'randint' positions, 7 masked of 24 fields), 2 epochs on
+    synthazu: for MFP first two straight runs from one seed, bit-equal
+    (the masked-position selection's backward adds slot by slot:
+    `models/base.py:SelectMasked`); a straight run, and a run stopped after its first
     epoch with save_steps 20 (first crossed inside the call that ends at
     step 24; async checkpoints, the MFP run's fetched from a snapshot on the
     card) then resumed with --resume to 2 epochs: the parameters, buffers,
@@ -1955,6 +2009,7 @@ def resume_phase(args, dev, val) -> None:
 
     from map_tpu_torch import models
     from map_tpu_torch.config import build_config
+    from map_tpu_torch.objectives.corruption import mask_num_of
     from map_tpu_torch.train import checkpoints
     from map_tpu_torch.train.trainer import Trainer
 
@@ -1967,8 +2022,7 @@ def resume_phase(args, dev, val) -> None:
 
     for name, stage_name, extra in (("supervised", "scratch", {}),
                                     ("mfp per-position", "mfp",
-                                     dict(async_checkpoint_fetch=True,
-                                          sampling_method="normal"))):
+                                     dict(async_checkpoint_fetch=True))):
         stage = validate.STAGES[stage_name]
         out = os.path.join(val["work"], "resume", stage_name)
 
@@ -1991,6 +2045,25 @@ def resume_phase(args, dev, val) -> None:
 
         t0 = time.perf_counter()
         straight = run(make(Trainer, "straight"))
+        if stage.kind == "mfp":
+            # a second straight run from the same seed: 'randint' positions
+            # (a field masked up to 7 times in a row), every bit the first's
+            again = run(make(Trainer, "again"))
+            first, second = train_state(straight), train_state(again)
+            differ = [k for k in first["model"]
+                      if not torch.equal(first["model"][k], second["model"][k])]
+            differ += [f"{part} {i}" for part in ("mu", "nu", "generators")
+                       for i, (a, b) in enumerate(zip(first[part], second[part]))
+                       if not torch.equal(a, b)]
+            emit("mfp_randint_two_runs", steps=straight.global_step,
+                 sampling_method=straight.args.sampling_method, mask_num=mask_num_of(
+                     straight.config.num_fields, straight.args.mask_ratio),
+                 eval_metrics=[straight.eval_metrics, again.eval_metrics], differ=differ)
+            check("mfp randint: two graph-path runs from one seed bit-equal (parameters, "
+                  "moments, generator states, eval loss and accuracy)",
+                  straight.args.sampling_method == "randint" and not differ
+                  and straight.eval_metrics == again.eval_metrics, differ=differ)
+            del again
         killed = run(make(Killed, "part"))
         saved = checkpoints.load_train_state(os.path.join(out, "part"))[1]["global_step"]
         resumed = run(make(Trainer, "part", resume=True))
@@ -2071,6 +2144,236 @@ def streaming_phase(args, dev, val) -> None:
     check("profile_steps 2: a trace under {output_dir}/profile with the card's kernels",
           traces == [os.path.join(targs.output_dir, "profile", "trace_4.json")]
           and kernels > 0, events=len(events), kernel_events=kernels)
+
+
+GROUPED_EVAL_ROWS = 85_000  # 8 eval batches of 10000 (one group) and a padded tail
+CHI_DRAWS = 10_000_000
+
+
+def carry_check(name: str, state_dict, config) -> None:
+    """The reverse carry of a trained model: its state_dict to map_tpu's
+    variables tree (`interop/to_jax.py`), lane-packed and plain, and back
+    through `state_dict_from_jax`, bit-equal."""
+    import torch
+
+    from map_tpu_torch.interop.from_jax import state_dict_from_jax
+    from map_tpu_torch.interop.to_jax import variables_from_state_dict
+
+    sd = {k: v.detach().cpu() for k, v in state_dict.items()}
+    for packed in (True, False):
+        tree = variables_from_state_dict(sd, config, packed=packed)
+        back = state_dict_from_jax(tree, config)
+        differ = [k for k in sd if k not in back or not torch.equal(back[k], sd[k])]
+        leaves = {c: sum(1 for _ in _leaves(tree[c])) for c in tree}
+        emit("reverse_carry", model=name, packed=packed, tensors=len(sd), leaves=leaves,
+             differ=differ)
+        check(f"reverse carry {name} ({'packed' if packed else 'plain'} tables): the "
+              "state_dict to map_tpu's tree and back, bit-equal",
+              not differ and set(back) == set(sd), differ=differ)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def grouped_eval_phase(args, dev, val, reset_counts, read_counts) -> dict:
+    """10e. The eval dispatch at DCNv2's full width (the validation stages'
+    trained weights: scratch, MFP per-position 'randint', RFD) on synthazu:
+    eval batch 10000 over GROUPED_EVAL_ROWS rows of its train split (8
+    batches, one group of 8, and a padded tail), in bf16 and f32, for the
+    exact supervised eval, the streaming one, MFP and RFD: a Trainer with
+    steps_per_call 8 (graphs) and one with 1 (eager), the same weights;
+    after two passes each (the warm-up call and the captures), passes in
+    turns (eager, grouped, grouped, eager; wall clock, rows/s), then one each with a
+    synchronize before every call (host us a batch with the card idle):
+    every pass's metrics bit-equal across the two; the launches that ran
+    (K4 a batch, twice in MFP, K2 a batch); MFP and RFD also with their
+    draws made outside and handed in (`draws`), bit-equal to the pass that
+    draws them itself. Returns the phase's launches."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.objectives.corruption import draw_rfd, mask_num_of
+    from map_tpu_torch.train.graph import launches_run
+    from map_tpu_torch.train.train_step import draw_mfp
+    from map_tpu_torch.train.trainer import Trainer
+
+    d = val["data"]
+    rows = GROUPED_EVAL_ROWS
+    data = SimpleNamespace(X={"train": d.X["train"], "valid": d.X["train"][:rows]},
+                           Y={"train": d.Y["train"], "valid": d.Y["train"][:rows]})
+    batches = -(-rows // EVAL_BATCH)
+    total = {}
+
+    def dispatch_stats(t):
+        """Wrap the Trainer's eval dispatch: the batches it ran and, while
+        `sync` is set, each call's host seconds with the card idle."""
+        stats = {"batches": 0, "sync": False, "host": []}
+        of = t._eval_dispatch_of
+
+        def wrapped(kind):
+            call = of(kind)
+
+            def run(n, batch):
+                if stats["sync"]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = call(n, batch)
+                    stats["host"].append((time.perf_counter() - t0, n))
+                else:
+                    out = call(n, batch)
+                stats["batches"] += n
+                return out
+            return run
+
+        t._eval_dispatch_of = wrapped
+        return stats
+
+    for dname in ("bfloat16", "float32"):
+        for kind, stage in (("supervised", "scratch"), ("streaming", "scratch"),
+                            ("mfp", "mfp"), ("rfd", "rfd")):
+            src = val["trainers"][stage]
+            cfg = dataclasses.replace(src.config, compute_dtype=dname)
+            reset_counts()
+            pair, stats = {}, {}
+            for spc in (GRAPH_SPC, 1):
+                targs = dataclasses.replace(
+                    src.args, steps_per_call=spc, per_device_eval_batch_size=EVAL_BATCH,
+                    compute_dtype=dname, streaming_auc=kind == "streaming",
+                    output_dir=os.path.join(val["work"], "grouped_eval",
+                                            f"{kind}_{dname}_{spc}"))
+                t = Trainer(models.from_config(cfg), cfg, targs, data)
+                t.model.load_state_dict(src.model.state_dict())
+                pair[spc], stats[spc] = t, dispatch_stats(t)
+
+            def run_pass(t, draws=None):
+                if kind == "mfp":
+                    out = t.MFP_pretrain_eval(draws)
+                elif kind == "rfd":
+                    out = t.RFD_pretrain_eval(draws)
+                else:
+                    out = t.eval("valid", test_eval=True)
+                torch.cuda.synchronize()
+                return {k: v for k, v in out.items() if k != "eval_time_cost"}
+
+            # two passes each first: the warm-up call and the graph of 1, then
+            # the graph of 8, captured
+            results = {spc: [run_pass(t), run_pass(t)] for spc, t in pair.items()}
+            wall = {spc: [] for spc in pair}
+            for spc in (1, GRAPH_SPC, GRAPH_SPC, 1):
+                t0 = time.perf_counter()
+                results[spc].append(run_pass(pair[spc]))
+                wall[spc].append(time.perf_counter() - t0)
+            for spc in pair:
+                stats[spc]["sync"] = True
+                results[spc].append(run_pass(pair[spc]))
+                stats[spc]["sync"] = False
+            handed = None
+            if kind in ("mfp", "rfd"):  # the eval's own draws, made outside
+                t = pair[GRAPH_SPC]
+                gen = torch.Generator(device=dev).manual_seed(t.args.seed + 2)
+                f = cfg.num_fields
+                mask_num = mask_num_of(f, t.args.mask_ratio)
+                draws = [draw_mfp(gen, t.noise, EVAL_BATCH, f, mask_num, cfg.pt_neg_num,
+                                  t.args.sampling_method) if kind == "mfp" else
+                         draw_rfd(gen, EVAL_BATCH, f, mask_num, t.args.sampling_method,
+                                  t.args.RFD_replace, cfg.input_size, dev)
+                         for _ in range(batches)]
+                handed = run_pass(t, draws)
+            ran = launches_run(read_counts(), pair[GRAPH_SPC].graphs() + pair[1].graphs())
+            dispatched = stats[GRAPH_SPC]["batches"] + stats[1]["batches"]
+            per = 2 if kind == "mfp" else 1
+            expected = {"embedding_gather": per * dispatched, "cross_net": dispatched}
+            key = {"supervised": "eval"}.get(kind, kind)
+            graphs = {n: g.replays for n, g in pair[GRAPH_SPC]._evals[key].graphs.items()}
+            host_us = {spc: sum(h for h, _ in st["host"]) / sum(n for _, n in st["host"]) * 1e6
+                       for spc, st in stats.items()}
+            emit("grouped_eval", kind=kind, compute_dtype=dname, rows=rows, batch=EVAL_BATCH,
+                 batches=batches, card=smi_line(),
+                 rows_per_s={"grouped": [rows / w for w in wall[GRAPH_SPC]],
+                             "eager": [rows / w for w in wall[1]]},
+                 wall_s={"grouped": wall[GRAPH_SPC], "eager": wall[1]},
+                 host_us_per_batch={"grouped": host_us[GRAPH_SPC], "eager": host_us[1]},
+                 metrics=results[GRAPH_SPC][0], graphs=graphs, launches=ran,
+                 expected_launches=expected, handed_in=handed)
+            ref = results[1][0]
+            check(f"grouped eval {kind} {dname}: every pass's metrics bit-equal to the "
+                  "eager pass's (steps_per_call=1)",
+                  all(r == ref for r in results[GRAPH_SPC] + results[1])
+                  and (handed is None or handed == ref),
+                  grouped=results[GRAPH_SPC], eager=results[1], handed_in=handed)
+            check(f"grouped eval {kind} {dname}: graphs of {GRAPH_SPC} and 1 replayed",
+                  sorted(graphs) == [1, GRAPH_SPC] and all(graphs.values()), graphs=graphs)
+            check(f"grouped eval {kind} {dname}: launches (K4 {per}x and K2 once a batch, "
+                  "replays counted)", all(ran[k] == v for k, v in expected.items())
+                  and all(ran[k] == 0 for k in ran if k not in expected), launches=ran)
+            for k, v in ran.items():
+                total[k] = total.get(k, 0) + v
+            del pair, t
+            torch.cuda.empty_cache()
+    return total
+
+
+def chi_square_phase(args, dev, val) -> None:
+    """10f. The port's alias draws on the card against q (the MFP eval-loss
+    band item's first diagnostic): CHI_DRAWS draws of the global draw
+    (`alias.alias_draw_logq`, synthazu's unigram: the validation MFP
+    stage's table) and of the per-field one (`per_field_alias_draw_logq`,
+    each field's unigram), Pearson's statistic with the buckets expected
+    below 5 draws pooled; p above 1e-3; every draw's log q the table's."""
+    import torch
+
+    from map_tpu_torch.objectives import alias
+
+    d = val["data"]
+    mfp = val["trainers"]["mfp"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(VALIDATION_SEED)
+    ids, logq = alias.alias_draw_logq(gen, mfp.noise.fused, (CHI_DRAWS,))
+    logq_ok = torch.equal(logq, mfp.noise.logprob[ids.long()])
+    probs, _, _ = alias.noise_log_prior(d.feat_count)
+    counts = torch.bincount(ids.long(), minlength=len(probs)).cpu().numpy()
+    stat, dof = alias.chi_square(counts, probs)
+    p = alias.chi_square_p(stat, dof)
+    emit("chi_square", draw="global alias_draw_logq", draws=CHI_DRAWS, vocab=len(probs),
+         statistic=stat, dof=dof, p=p, logq_equal=logq_ok,
+         seconds=time.perf_counter() - t0)
+    check("chi-square: the global alias draws follow q (p > 1e-3), log q the table's",
+          p > 1e-3 and logq_ok, statistic=stat, dof=dof, p=p)
+
+    t0 = time.perf_counter()
+    prob, alias_ids, logprob, _ = alias.build_per_field_alias(d.feat_count, d.idx_low,
+                                                             d.idx_high)
+    fused = torch.from_numpy(alias.build_fused_alias(prob, alias_ids, logprob)).to(dev)
+    low = torch.tensor(d.idx_low, dtype=torch.int32, device=dev)
+    sizes = torch.tensor(d.idx_high, dtype=torch.int32, device=dev) - low
+    nf, k = d.num_fields, 100
+    fields = torch.arange(nf, device=dev).repeat_interleave(CHI_DRAWS // nf // k)
+    ids, logq = alias.per_field_alias_draw_logq(gen, fused, low, sizes, fields, k)
+    logq_ok = torch.equal(logq, torch.from_numpy(logprob).to(dev)[ids.long()])
+    stat = dof = 0
+    per_field = []
+    for f in range(nf):
+        lo, hi = int(d.idx_low[f]), int(d.idx_high[f])
+        got = ids[fields == f].reshape(-1).long() - lo
+        inside = bool(((got >= 0) & (got < hi - lo)).all())
+        s_, k_ = alias.chi_square(torch.bincount(got.clamp(0, hi - lo - 1),
+                                                 minlength=hi - lo).cpu().numpy(),
+                                  alias.noise_distribution(d.feat_count[lo:hi]))
+        per_field.append(dict(field=f, size=hi - lo, statistic=s_, dof=k_, inside=inside))
+        stat, dof = stat + s_, dof + k_
+    p = alias.chi_square_p(stat, dof)
+    emit("chi_square", draw="per-field per_field_alias_draw_logq",
+         draws=int(fields.numel()) * k, statistic=stat, dof=dof, p=p, logq_equal=logq_ok,
+         fields=per_field, seconds=time.perf_counter() - t0)
+    check("chi-square: the per-field alias draws follow each field's q (p > 1e-3), inside "
+          "their field's block, log q the table's",
+          p > 1e-3 and logq_ok and all(x["inside"] for x in per_field),
+          statistic=stat, dof=dof, p=p)
 
 
 def main(argv=None) -> int:
@@ -2340,36 +2643,45 @@ def main(argv=None) -> int:
     model = models.from_config(cfg, torch.Generator().manual_seed(args.seed))
     score_ids = draw_ids(rng, args.rows)
     serving = {}
+    serving_launches = {}
     with tempfile.TemporaryDirectory() as model_dir:
         checkpoints.save_model(model.state_dict(), model_dir, 1)
-        reset_counts()
         for dname in ("bfloat16", "float32"):
             dataclasses.replace(cfg, compute_dtype=dname).save(model_dir)
+            reset_counts()
+            t0 = time.perf_counter()
             pred = Predictor(model_dir, 1, batch_size=args.batch)
             pred.predict_logits(score_ids[:args.batch])  # warm-up: one chunk
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
             seconds = []
             for _ in range(SERVING_PASSES):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 logits = pred.predict_logits(score_ids)
                 seconds.append(time.perf_counter() - t0)
-            serving[dname] = (pred, logits, seconds)
-        serving_launches = read_counts()
-    # both dtypes, the warm-up chunk and every timed pass
-    expected = 2 * (1 + SERVING_PASSES * -(-args.rows // args.batch))
-    emit("serving_launches", launches=serving_launches, expected_each=expected)
-    check("serving launches", serving_launches == {
-        "embedding_gather": expected, "cross_net": expected,
-        "fused_adamw": 0, "scatter_add": 0, "scatter_unique_sorted": 0,
-        "block_cumsum": 0, "sparse_adamw": 0, "field_block_gather": 0,
-        "field_block_scatter": 0})
+            serving_launches[dname] = pred.launches_run(read_counts())
+            serving[dname] = (pred, logits, seconds, setup_s)
+    # each dtype: the construction's eager warm-up call, the warm-up chunk
+    # and every timed pass (a replay counts the launches of its capture)
+    chunks = -(-args.rows // args.batch)
+    expected = 2 + SERVING_PASSES * chunks
+    emit("serving_launches", launches=serving_launches, expected_each=expected,
+         replays={d: v[0].replays for d, v in serving.items()})
+    for dname, launched in serving_launches.items():
+        check(f"serving {dname} launches: K4 and K2 once a chunk, replays counted",
+              launched == {"embedding_gather": expected, "cross_net": expected,
+                           "fused_adamw": 0, "scatter_add": 0, "scatter_unique_sorted": 0,
+                           "block_cumsum": 0, "sparse_adamw": 0, "field_block_gather": 0,
+                           "field_block_scatter": 0}
+              and serving[dname][0].replays == expected - 1, launched=launched)
 
     def plain_forward(m, ids_t):
         """The Predictor's DCNv2 with both kernels swapped for their plain versions."""
         with plain_layers():
             return m(ids_t).reshape(-1).float()
 
-    for dname, (pred, logits, seconds) in serving.items():
+    for dname, (pred, logits, seconds, setup_s) in serving.items():
         with torch.inference_mode():
             ref = torch.cat([
                 plain_forward(pred.model, torch.from_numpy(
@@ -2380,17 +2692,21 @@ def main(argv=None) -> int:
             raise AssertionError(f"logits shape {tuple(got.shape)}")
         err = compare(f"serving logits {dname}, {args.rows} rows", got, ref,
                       *TOL_LOGITS[dname])
+        eager_bits_check(f"serving {dname}", pred, score_ids, logits)
         best = min(seconds)
         emit("serving", compute_dtype=dname, rows=args.rows, batch=args.batch,
              seconds=seconds, rows_per_s=args.rows / best, max_abs_err=err,
-             logit_mean=float(got.mean()), logit_std=float(got.std()))
+             setup_s=setup_s, prefetch=pred.prefetch,
+             packed_blocks=[list(shape) for shape, _ in pred._blocks],
+             logit_mean=float(got.mean()), logit_std=float(got.std()), card=smi)
 
-    # 6b. where one bf16 serving pass spends its time on the card
-    pred = serving["bfloat16"][0]
-    prof = profile(lambda: pred.predict_logits(score_ids), top_n=8)
+    # 6b. where one serving pass spends its time on the card, in each dtype
     batches = -(-args.rows // args.batch)  # a step: one batch of --batch rows
-    emit("serving_profile", compute_dtype="bfloat16", rows=args.rows, steps=batches,
-         **kernel_ms_per_step(prof, batches), **prof)
+    for dname, (pred, *_) in serving.items():
+        prof = profile(lambda: pred.predict_logits(score_ids), top_n=8)
+        emit("serving_profile", compute_dtype=dname, rows=args.rows, steps=batches,
+             rows_per_s=args.rows / prof["wall_ms"] * 1e3,
+             **kernel_ms_per_step(prof, batches), **prof)
     del serving, pred
 
     # 7. training through the Trainer, bf16 and f32
@@ -2418,7 +2734,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         # the launches that ran: a graph's replay counts its captured launches
-        counts = train_launches[dname] = trainer.multi.launches_run(read_counts())
+        counts = train_launches[dname] = trainer.launches_run(read_counts())
         steps = trainer.global_step
         expected = {"embedding_gather": steps + eval_batches,
                     "cross_net": steps + eval_batches,
@@ -2449,6 +2765,9 @@ def main(argv=None) -> int:
         check(f"training {dname}: Predictor scores the best checkpoint",
               abs(pred_auc - test["eval_auc"]) <= 1e-4,
               predictor_auc=pred_auc, trainer_test_auc=test["eval_auc"])
+        if dname == "bfloat16":
+            carry_check("dcnv2 (the bf16 training run's weights)", trainer.model.state_dict(),
+                        cfg_d)
 
         # 5 steps from the same weights, kernels vs plain versions on the card
         batches = list(Batcher(data.X["train"], data.Y["train"], TRAIN_BATCH,
@@ -2912,6 +3231,8 @@ def main(argv=None) -> int:
     val = validation_phase(args, dev, reset_counts, read_counts)
     resume_phase(args, dev, val)
     streaming_phase(args, dev, val)
+    grouped_eval = grouped_eval_phase(args, dev, val, reset_counts, read_counts)
+    chi_square_phase(args, dev, val)
     shutil.rmtree(val["work"], ignore_errors=True)
 
     # 11. summary; each kernel's launches are those of the path that runs
@@ -2929,7 +3250,10 @@ def main(argv=None) -> int:
                                                     "block_cumsum", "sparse_adamw")}}
     by_path = {name: {"dcnv2 rfd bwd_pallas / mfp pf-shared": n,
                       **{f"zoo {m} graph": zoo[m][name] for m in zoo},
-                      "validation synthazu, five stages": val["launches"][name]}
+                      "validation synthazu, five stages": val["launches"][name],
+                      "grouped eval synthazu, four kinds x two dtypes": grouped_eval[name],
+                      "serving dcnv2 pipelined, two dtypes": sum(
+                          v[name] for v in serving_launches.values())}
                for name, n in main_path.items()}
 
     def entry(name, source, replaces, err, timing):

@@ -23,6 +23,11 @@ and `noise_index` (B * M,) int32 in place of `noise_rows`; with
 Both keep `labels` and `weight` for the host's window AUC; nothing sends
 them to the card. The draws are the same, so the stream is the same.
 
+`alloc` ((shape, dtype) -> array, `np.empty` by default) makes the arrays a
+batch's rows, labels, weight and noise rows are written to: the Trainer's
+eval passes give it pinned memory on the card, so their batches are copied
+to the device from where they were gathered, with no copy in between.
+
 `start_batch` (resume, map_tpu `loader.py:90-132`, `:178-266`) skips an
 epoch's first batches without making them: the order is the epoch's, and
 the noise draws of the skipped batches are burnt in one call of
@@ -57,6 +62,7 @@ class Batcher:
         self._epoch = 0
         self.emit_indices = False
         self.emit_start_only = False
+        self.alloc = np.empty  # (shape, dtype) -> the array a batch's key is written to
 
     def __len__(self) -> int:
         return (len(self.Y) + self.batch_size - 1) // self.batch_size
@@ -98,8 +104,9 @@ class Batcher:
             real = len(idx)
             if real < bs:
                 idx = np.concatenate([idx, np.zeros(bs - real, dtype=idx.dtype)])
-            batch = {"labels": self.Y[idx],
-                     "weight": (np.arange(bs) < real).astype(np.float32)}
+            weight = self.alloc(bs, np.float32)
+            weight[:] = np.arange(bs) < real
+            batch = {"labels": self._take(self.Y, idx), "weight": weight}
             if self.emit_indices:
                 batch["real_count"] = np.int32(real)
                 if self.emit_start_only:
@@ -107,15 +114,21 @@ class Batcher:
                 else:
                     batch["index"] = idx.astype(np.int32)
             else:
-                batch["input_ids"] = self.X[idx]
+                batch["input_ids"] = self._take(self.X, idx)
             if self.noise_rows_per_example > 0:
                 pick = rng.integers(0, len(self.noise_source),
                                     size=bs * self.noise_rows_per_example)
                 if self.emit_indices:
                     batch["noise_index"] = pick.astype(np.int32)
                 else:
-                    batch["noise_rows"] = self.noise_source[pick]
+                    batch["noise_rows"] = self._take(self.noise_source, pick)
             yield batch
+
+    def _take(self, src: np.ndarray, idx: np.ndarray) -> np.ndarray:
+        """src[idx] (rows along axis 0), written to an array of `alloc`
+        (mode 'clip' writes it unbuffered; every index lies in range)."""
+        return np.take(src, idx, axis=0, mode="clip",
+                       out=self.alloc(idx.shape + src.shape[1:], src.dtype))
 
     def epoch_stacked(self, spc: int, epoch: Optional[int] = None, start_batch: int = 0
                       ) -> Iterator[Tuple[int, Batch, List[Batch]]]:
@@ -138,7 +151,9 @@ class Batcher:
         for gi in range(n_groups):
             b0 = start_batch + gi * spc
             idx = order[b0 * bs:(b0 + spc) * bs].reshape(spc, bs)
-            stacked = {"labels": self.Y[idx], "weight": np.ones((spc, bs), np.float32)}
+            weight = self.alloc((spc, bs), np.float32)
+            weight[:] = 1.0
+            stacked = {"labels": self._take(self.Y, idx), "weight": weight}
             if self.emit_indices:
                 stacked["real_count"] = np.full(spc, bs, np.int32)
                 if self.emit_start_only:
@@ -146,14 +161,14 @@ class Batcher:
                 else:
                     stacked["index"] = idx.astype(np.int32)
             else:
-                stacked["input_ids"] = self.X[idx]
+                stacked["input_ids"] = self._take(self.X, idx)
             if npe > 0:
                 pick = rng.integers(0, len(self.noise_source),
                                     size=spc * bs * npe).reshape(spc, bs * npe)
                 if self.emit_indices:
                     stacked["noise_index"] = pick.astype(np.int32)
                 else:
-                    stacked["noise_rows"] = self.noise_source[pick]
+                    stacked["noise_rows"] = self._take(self.noise_source, pick)
             yield spc, stacked, [{k: v[i] for k, v in stacked.items()} for i in range(spc)]
         for b in self._batches(order, rng, start_batch + n_groups * spc):
             yield 1, b, [b]

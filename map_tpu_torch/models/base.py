@@ -32,6 +32,35 @@ from map_tpu_torch.objectives.nce import IndexLinearDecoder
 PRETRAINING_HEADS = ("feat_encoder", "mfp_criterion", "pred_rfd")
 
 
+class SelectMasked(torch.autograd.Function):
+    """enc (B, F, P), masked_index (B, M) -> enc[b, masked_index[b, m]]
+    (B, M, P). The forward is `torch.gather`. Its backward would add the M
+    slots' gradients into (B, F, P) by atomics, and with `randint` positions
+    a row can name one field three or more times, so the sum's order (and
+    its last bits) would change from run to run on the card. This backward
+    adds slot by slot, m = 0, 1, ..., M - 1: within one slot every row
+    names one field, so no two adds of a launch meet, and a repeated
+    field's gradient is the same sum in the same order on every run
+    (map_tpu's one-hot einsum, `map_tpu/models/base.py:52-59`, is a fixed-
+    order product as well)."""
+
+    @staticmethod
+    def forward(ctx, enc: torch.Tensor, masked_index: torch.Tensor) -> torch.Tensor:
+        idx = masked_index.long()[..., None].expand(-1, -1, enc.shape[-1])
+        ctx.save_for_backward(idx)
+        ctx.num_fields = enc.shape[1]
+        return torch.gather(enc, 1, idx)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        b, m, p = grad.shape
+        out = grad.new_zeros(b, ctx.num_fields, p)
+        for j in range(m):
+            out.scatter_add_(1, idx[:, j:j + 1], grad[:, j:j + 1])
+        return out, None
+
+
 class CTRModel(nn.Module):
     """Subclasses build their modules in __init__ and implement backbone()
     and supervised_logits(); they end __init__ with `finish`, which builds
@@ -91,9 +120,9 @@ class CTRModel(nn.Module):
     @staticmethod
     def _select_masked(enc: torch.Tensor, masked_index: torch.Tensor) -> torch.Tensor:
         """(B, F, P) x (B, M) -> (B, M, P), an exact gather (map_tpu's one-hot
-        einsum gives the same values)."""
-        idx = masked_index.long()[..., None].expand(-1, -1, enc.shape[-1])
-        return torch.gather(enc, 1, idx)
+        einsum gives the same values) whose backward sums in a fixed order
+        (`SelectMasked`)."""
+        return SelectMasked.apply(enc, masked_index)
 
     def _masked_encoding(self, input_ids: torch.Tensor,
                          masked_index: torch.Tensor) -> torch.Tensor:

@@ -88,6 +88,26 @@ def set_dropout_generator(module: nn.Module, generator: torch.Generator) -> None
             m.generator = generator
 
 
+def _cast_once(module: nn.Module, dt: torch.dtype):
+    """The module's weights as `cast_once` kept them in `dt`, under
+    inference mode only; else None (cast on the call)."""
+    casts = getattr(module, "_casts", None)
+    if casts is None or not torch.is_inference_mode_enabled():
+        return None
+    return casts.get(dt)
+
+
+def cast_weights_once(model: nn.Module) -> None:
+    """Cast once the weights that TorchDense and CrossNetV2 cast on every
+    call, for a model that only scores from here on (the Predictor's): its
+    inference-mode forwards use the copies, the same values in the same
+    layout. Training, its graphs and the Trainer's evals never call this,
+    and a forward outside inference mode casts on the call as before."""
+    for m in model.modules():
+        if hasattr(m, "cast_once"):
+            m.cast_once()
+
+
 class TorchDense(nn.Linear):
     """nn.Linear computed in `dtype` (None: in the input's dtype promoted with
     the float32 parameters, as flax Dense with dtype=None). Like flax Dense,
@@ -106,8 +126,17 @@ class TorchDense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.promote_types(x.dtype, self.weight.dtype)
-        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
-        return y if self.bias is None else y + self.bias.to(dt)
+        w, b = _cast_once(self, dt) or (self.weight.to(dt),
+                                        None if self.bias is None else self.bias.to(dt))
+        y = torch.matmul(x.to(dt), w.t())
+        return y if b is None else y + b
+
+    def cast_once(self) -> None:
+        """Keep the weight and bias cast to compute_dtype (`cast_weights_once`)."""
+        if self.compute_dtype is not None and self.compute_dtype != self.weight.dtype:
+            self._casts = {self.compute_dtype: (
+                self.weight.detach().to(self.compute_dtype),
+                None if self.bias is None else self.bias.detach().to(self.compute_dtype))}
 
 
 class Embeddings(nn.Module):
@@ -194,11 +223,21 @@ class CrossNetV2(nn.Module):
         for layer in self.cross_layers:
             init.linear_(layer.weight, layer.bias, generator)
 
+    def _stacked(self, dt: torch.dtype):
+        return (torch.stack([layer.weight for layer in self.cross_layers]).to(dt),
+                torch.stack([layer.bias for layer in self.cross_layers]).to(dt))
+
     def forward(self, x0: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x0.dtype
-        w = torch.stack([layer.weight for layer in self.cross_layers]).to(dt)
-        b = torch.stack([layer.bias for layer in self.cross_layers]).to(dt)
+        w, b = _cast_once(self, dt) or self._stacked(dt)
         return cross_net(x0.to(dt).contiguous(), w, b)
+
+    def cast_once(self) -> None:
+        """Keep W and b stacked and cast (`cast_weights_once`): in the compute
+        dtype, or in both float32 and bfloat16 when the input sets it."""
+        with torch.no_grad():
+            self._casts = {dt: self._stacked(dt) for dt in
+                           ((self.dtype,) if self.dtype else (torch.float32, torch.bfloat16))}
 
 
 def lr_logits(weight: torch.Tensor, bias: torch.Tensor,

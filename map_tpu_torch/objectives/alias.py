@@ -20,10 +20,14 @@ vocabulary in which each field's block [idx_low, idx_high) is an alias
 table of its own, its redirects global ids. Ids outside every block (the
 reserved ones) keep probability 1, themselves as alias and log q =
 log(1e-10).
+
+`chi_square` / `chi_square_p` hold a sample of draws to q (Pearson's
+statistic over the buckets, those expected below 5 draws pooled).
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Sequence, Tuple
 
@@ -186,3 +190,35 @@ def per_field_alias_draw_logq(generator: torch.Generator, fused: torch.Tensor,
     al = rows[..., 1].contiguous().view(torch.int32)
     return (torch.where(keep, kk, al),
             torch.where(keep, rows[..., 2], rows[..., 3]))
+
+
+def chi_square(counts: np.ndarray, q: np.ndarray) -> Tuple[float, int]:
+    """Pearson's statistic of draw `counts` (V,) against the distribution
+    `q` (V,), buckets of expected count below 5 pooled into one (joined to
+    the smallest other bucket when the pool's own expectation is below 5)
+    -> (statistic, degrees of freedom)."""
+    counts = np.asarray(counts, np.float64)
+    expected = counts.sum() * np.asarray(q, np.float64) / np.sum(q)
+    big = expected >= 5.0
+    obs, exp = list(counts[big]), list(expected[big])
+    pool_obs, pool_exp = counts[~big].sum(), expected[~big].sum()
+    if pool_exp >= 5.0:
+        obs.append(pool_obs)
+        exp.append(pool_exp)
+    elif pool_exp > 0.0 and exp:
+        j = int(np.argmin(exp))
+        obs[j] += pool_obs
+        exp[j] += pool_exp
+    obs, exp = np.asarray(obs), np.asarray(exp)
+    return float(((obs - exp) ** 2 / exp).sum()), len(obs) - 1
+
+
+def chi_square_p(statistic: float, dof: int) -> float:
+    """The upper tail of the chi-square distribution (Wilson-Hilferty's
+    normal approximation of its cube root, close for dof in the tens and
+    more)."""
+    if dof <= 0:
+        return 1.0
+    h = 2.0 / (9.0 * dof)
+    z = ((statistic / dof) ** (1.0 / 3.0) - (1.0 - h)) / math.sqrt(h)
+    return 0.5 * math.erfc(z / math.sqrt(2.0))

@@ -1,8 +1,15 @@
-"""Multi-step dispatch: `steps_per_call` train steps a host call.
-Counterpart: `map_tpu/train/train_step.py:33-50 make_multi_step` and
-`:90-112 make_resident_step / make_resident_multi_step` (a `lax.scan` of the
-step over a stacked batch in one jitted dispatch), as
-`map_tpu/train/trainer.py:515-533 _run_train_step` calls them.
+"""Multi-step dispatch: `steps_per_call` train steps or eval batches a host
+call. Counterpart: `map_tpu/train/train_step.py:33-50 make_multi_step`,
+`:90-112 make_resident_step / make_resident_multi_step` and `:114-143
+make_multi_eval` (a `lax.scan` of the step over a stacked batch in one
+jitted dispatch), as `map_tpu/train/trainer.py:515-533 _run_train_step` and
+`:464-482 _eval_dispatch` call them.
+
+`GraphedCalls` is the dispatch; `MultiStep` (train steps: the optimizer's
+scalar rows below) and `MultiEval` (eval batches: forward only) are its two
+kinds. What follows is said of train steps; an eval call is the same with
+no optimizer state, its generator (the MFP and RFD evals' draws)
+registered as the steps' are.
 
 The torch counterpart of one fused dispatch is a CUDA graph. `MultiStep`
 takes a group of n batches stacked on a leading axis (`Batcher.epoch_stacked`
@@ -98,13 +105,19 @@ class _Captured:
         self.replays = 0
 
 
-class MultiStep:
+class GraphedCalls:
+    """n calls of `step` a host call, each on row j of a batch stacked (n,
+    ...), their outputs stacked the same way: a captured CUDA graph a call
+    on the card with K > 1 (after one eager warm-up call on a side stream),
+    the calls one by one otherwise. `MultiStep` and `MultiEval` are its
+    two kinds; `_begin`, `_advance` and `_capture_calls` are where a train
+    step's optimizer state comes in."""
+
     def __init__(self, step: Callable[[Dict[str, torch.Tensor]], Metrics],
-                 steps_per_call: int, optimizer: AdamW, device: torch.device,
+                 steps_per_call: int, device: torch.device,
                  generators: Iterable[Optional[torch.Generator]] = ()):
         self.step = step
         self.k = max(1, int(steps_per_call))
-        self.optimizer = optimizer
         self.device = torch.device(device)
         self.generators = [g for g in generators if g is not None]
         self.graphed = self.device.type == "cuda" and self.k > 1
@@ -113,8 +126,8 @@ class MultiStep:
         self.captured: Dict[str, int] = {}
 
     def __call__(self, n: int, batch: Dict[str, torch.Tensor]) -> Metrics:
-        """n > 1 steps of a batch stacked (n, ...), or one step of an
-        unstacked batch -> their metrics, stacked (n, ...)."""
+        """n > 1 calls of a batch stacked (n, ...), or one call of an
+        unstacked batch -> their outputs, stacked (n, ...)."""
         if n == 1:
             batch = {k: v.unsqueeze(0) for k, v in batch.items()}
         if not self.graphed:
@@ -126,15 +139,25 @@ class MultiStep:
             g = self.graphs[n] = self._capture(n, batch)
         for k, v in batch.items():
             g.inputs[k].copy_(v)
-        self.optimizer.begin(n)
+        self._begin(n)
         g.graph.replay()
-        self.optimizer.advance(n)
+        self._advance(n)
         g.replays += 1
         return {k: v.clone() for k, v in g.outputs.items()}
 
+    def _begin(self, n: int) -> None:
+        """Before a replay of n calls."""
+
+    def _advance(self, n: int) -> None:
+        """After a replay of n calls."""
+
+    def _capture_calls(self, n: int, inputs: Dict[str, torch.Tensor]) -> Metrics:
+        """The n calls, under capture."""
+        return _stack([self.step(_row(inputs, j)) for j in range(n)])
+
     def _eager(self, n: int, batch: Dict[str, torch.Tensor]) -> Metrics:
         outs = [self.step(_row(batch, j)) for j in range(n)]
-        if n == 1:  # a view, as the one-step call's batch is
+        if n == 1:  # a view, as the one-call batch is
             return {k: v.unsqueeze(0) for k, v in outs[0].items()}
         return _stack(outs)
 
@@ -153,14 +176,9 @@ class MultiStep:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        count = self.optimizer.count
         before = launch_counts()
-        self.optimizer.reserve(n)
-        try:
-            with CUDA_WORK, torch.cuda.graph(graph):
-                outputs = _stack([self.step(_row(inputs, j)) for j in range(n)])
-        finally:
-            self.optimizer.rewind(count)
+        with CUDA_WORK, torch.cuda.graph(graph):
+            outputs = self._capture_calls(n, inputs)
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         for k, v in launches.items():
@@ -177,7 +195,52 @@ class MultiStep:
 
     def launches_run(self, counts: Dict[str, int]) -> Dict[str, int]:
         """The launches that ran, from the wrappers' counters `counts` (taken
-        from 0 before this object's first call)."""
-        replayed = self.replayed()
-        return {k: v - self.captured.get(k, 0) + replayed.get(k, 0)
-                for k, v in counts.items()}
+        from 0 before this object's first call, with no other object's
+        captures among them)."""
+        return launches_run(counts, [self])
+
+
+def launches_run(counts: Dict[str, int], owners: Iterable[GraphedCalls]) -> Dict[str, int]:
+    """The launches that ran, from the wrappers' counters `counts` (taken
+    from 0 before the first call of any of `owners`, whose captures are all
+    the captures among them): counts - captured + replayed."""
+    out = dict(counts)
+    for o in owners:
+        replayed = o.replayed()
+        for k in out:
+            out[k] += replayed.get(k, 0) - o.captured.get(k, 0)
+    return out
+
+
+class MultiStep(GraphedCalls):
+    """`steps_per_call` train steps a call: the optimizer's scalar rows for
+    the n steps are reserved under capture, written before each replay
+    (`AdamW.begin`) and its host state moved on after (`AdamW.advance`)."""
+
+    def __init__(self, step: Callable[[Dict[str, torch.Tensor]], Metrics],
+                 steps_per_call: int, optimizer: AdamW, device: torch.device,
+                 generators: Iterable[Optional[torch.Generator]] = ()):
+        super().__init__(step, steps_per_call, device, generators)
+        self.optimizer = optimizer
+
+    def _begin(self, n: int) -> None:
+        self.optimizer.begin(n)
+
+    def _advance(self, n: int) -> None:
+        self.optimizer.advance(n)
+
+    def _capture_calls(self, n: int, inputs: Dict[str, torch.Tensor]) -> Metrics:
+        count = self.optimizer.count
+        self.optimizer.reserve(n)
+        try:
+            return super()._capture_calls(n, inputs)
+        finally:
+            self.optimizer.rewind(count)
+
+
+class MultiEval(GraphedCalls):
+    """`steps_per_call` eval batches a call (map_tpu `make_multi_eval`): the
+    eval step, forward only, reads the parameters and buffers the training
+    graphs write in place; its generator (the MFP and RFD evals' draws) is
+    registered with each graph, so a grouped pass draws what the eager one
+    does, batch after batch."""

@@ -41,7 +41,9 @@ step's generator (or handed in as `draws`), the corruption, the scores
 through the MFP head, the per-position loss weighted by the example weights
 over max(sum w, 1) * mask_num, backward and one `AdamW.step`; returns
 {loss, count = sum w * mask_num, acc_count}. The eval step does the same
-forward under `torch.inference_mode` with the generator it is given. The
+forward under `torch.inference_mode` with the generator it is given, or
+with draws handed in (its `draws` argument, or the batch's keys of the
+same names, `handed_in`: how a grouped pass gives each batch its own). The
 modes, as map_tpu's:
 - per-position noise (`:305-321`): k ids a masked position, scored with the
   target as (B, M, 1 + k) candidates (K4 forward, fold + K5 backward);
@@ -64,7 +66,8 @@ BCE weighted by the example weights over max(sum w, 1) * F, backward and one
 `AdamW.step`; returns {loss, count = max(sum w, 1) * F, acc (sigmoid > 0.5
 against the labels, on the same weights and denominator), pos_ratio (the
 replaced share)}. The eval step does the same forward under
-`torch.inference_mode` with the generator it is given.
+`torch.inference_mode` with the generator it is given, or with draws
+handed in as the MFP eval step takes them.
 """
 
 from __future__ import annotations
@@ -324,12 +327,27 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
         return metrics
 
     @torch.inference_mode()
-    def eval_step(batch: Batch, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Batch, gen: torch.Generator, draws: Optional[MFPDraws] = None
+                  ) -> Dict[str, torch.Tensor]:
         b = to_device(batch, device)
+        draws = draws or handed_in(b, MFPDraws)
+        if draws is None:
+            draws = draw(gen, b)
+        else:
+            draws = MFPDraws(*(None if t is None else t.to(device) for t in draws))
         model.eval()
-        return forward(b, draw(gen, b))[1]
+        return forward(b, draws)[1]
 
     return train_step, eval_step
+
+
+def handed_in(batch: Dict[str, torch.Tensor], kind) -> Optional[Tuple]:
+    """The draws a batch carries as keys named after `kind`'s fields
+    (MFPDraws, corruption.RFDDraws; a field that is None is left out), or
+    None: how a grouped eval pass hands each batch its draws."""
+    if kind._fields[0] not in batch:
+        return None
+    return kind(*(batch.get(k) for k in kind._fields))
 
 
 def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
@@ -379,9 +397,16 @@ def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
         return metrics
 
     @torch.inference_mode()
-    def eval_step(batch: Batch, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+    def eval_step(batch: Batch, gen: torch.Generator,
+                  draws: Optional[corruption.RFDDraws] = None) -> Dict[str, torch.Tensor]:
         b = to_device(batch, device)
+        draws = draws or handed_in(b, corruption.RFDDraws)
+        if draws is None:
+            draws = draw(gen, b)
+        else:
+            draws = corruption.RFDDraws(*(None if t is None else t.to(device)
+                                          for t in draws))
         model.eval()
-        return forward(b, draw(gen, b))[1]
+        return forward(b, draws)[1]
 
     return train_step, eval_step

@@ -66,7 +66,19 @@ MFP_pretrain and RFD_pretrain:
   `global_step` by n, and a logging window closes when a call crosses a
   multiple of `logging_steps` (map_tpu's `_crossed`).
 `--device_resident_data=off --steps_per_call=1` is the path of one host
-batch a step. Eval passes stay eager.
+batch a step.
+
+The eval passes (`eval`, its streaming pass, `MFP_pretrain_eval`,
+`RFD_pretrain_eval`) go through the eval dispatch (map_tpu
+`trainer.py:244-248`, `:464-482`, `train_step.py:114 make_multi_eval`;
+`_eval_calls`): with `steps_per_call` K > 1 the eval split's batches go in
+groups of K (`Batcher.epoch_stacked`), gathered into pinned memory and
+copied by the producer thread, each group one call of a `MultiEval` (a
+captured CUDA graph of the K forward passes on the card, its calls one by
+one on the CPU), the tail one by one; the MFP and RFD evals' generator is
+registered with the graphs, so a grouped pass draws what the eager one
+does. `launches_run` turns the kernels' counters into the launches that
+ran, over the train graphs and the eval graphs.
 
 Run management (map_tpu `trainer.py:550-731`, `:1057-1092`):
 - resume: with `save_steps`, a call that crosses a multiple of it
@@ -103,7 +115,6 @@ Run management (map_tpu `trainer.py:550-731`, `:1057-1092`):
   call that ends at a step in [2, 2 + N) to the first one that reaches
   2 + N (or the run's end), its trace written as
   `{output_dir}/profile/trace_{step}.json`.
-Not ported yet (ROADMAP.md): the fused eval dispatch.
 """
 
 from __future__ import annotations
@@ -134,9 +145,10 @@ from map_tpu_torch.train.async_writer import (
     host_copy,
     snapshot_tensors,
 )
-from map_tpu_torch.train.graph import CUDA_WORK, MultiStep
+from map_tpu_torch.train.graph import CUDA_WORK, GraphedCalls, MultiEval, MultiStep, launches_run
 from map_tpu_torch.train.optimizer import build_optimizer
 from map_tpu_torch.train.train_step import (
+    MFPDraws,
     NoiseTables,
     ResidentData,
     make_mfp_steps,
@@ -155,6 +167,22 @@ logger = logging.getLogger(__name__)
 
 # the streaming AUC's largest error bound, and the most bins it doubles to
 STREAMING_AUC_BOUND, STREAMING_BINS_CAP = 5e-5, 1 << 20
+
+
+def _with_draws(batches, draws):
+    """(n, batch, views) with the next n of `draws` (host tensors) as the
+    batch's keys (stacked (n, ...) when n > 1; a field that is None left
+    out). It runs on the producer thread: host work only, the copy to the
+    card is the batch's."""
+    for n, batch, views in batches:
+        group = [next(draws) for _ in range(n)]
+        batch = dict(batch)
+        for k in group[0]._fields:
+            parts = [getattr(d, k) for d in group]
+            if parts[0] is None:
+                continue
+            batch[k] = torch.stack(parts) if n > 1 else parts[0]
+        yield n, batch, views
 
 
 class Trainer:
@@ -181,6 +209,9 @@ class Trainer:
         self.optimizer = self.schedule = None
         self.train_step = self.eval_step = None
         self.multi: Optional[MultiStep] = None
+        self._evals: Dict[str, MultiEval] = {}  # the eval passes' dispatch, by kind
+        self._retired: List[GraphedCalls] = []  # dispatches replaced (launch accounting)
+        self._eval_generator: Optional[torch.Generator] = None
         self._data: Optional[ResidentData] = None
         self._stream_v2 = False
         self._perm_epoch = -1
@@ -272,6 +303,7 @@ class Trainer:
                 streaming_bins=self._streaming_bins)
         self.multi = MultiStep(self.train_step, self.args.steps_per_call, self.optimizer,
                                self.device, (step_generator, self._dropout_generator))
+        self._retire_evals()
 
     def _log_run_header(self, title: str = "training") -> None:
         logger.info(f"\n***** running {title} *****")
@@ -345,22 +377,27 @@ class Trainer:
         self._data.perm.copy_(torch.from_numpy(padded))
         self._perm_epoch = epoch
 
-    def _put(self, batch) -> Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
+    def _put(self, batch, wait: bool = False
+             ) -> Tuple[Dict[str, torch.Tensor], Optional[torch.cuda.Event]]:
         """The batch's device keys on the device; on the card copied on the
-        copy stream, with the event of its copies."""
+        copy stream, with the event of its copies, which `wait` waits for
+        here (so the host arrays may go as soon as the batch is handed on)."""
         if self._copy_stream is None:
             return to_device(batch, self.device), None
         with CUDA_WORK, torch.cuda.stream(self._copy_stream):
             out = to_device(batch, self.device)
             done = torch.cuda.Event()
             done.record()
+            if wait:
+                done.synchronize()
         return out, done
 
-    def _grouped_stream(self, batches) -> Iterator[Tuple[int, Dict[str, torch.Tensor], list]]:
+    def _grouped_stream(self, batches, wait: bool = False
+                        ) -> Iterator[Tuple[int, Dict[str, torch.Tensor], list]]:
         """(n, device batch, host batches) of each (n, batch, views) of
         `batches`, copied by a producer thread at most `prefetch_batches`
-        groups ahead; the compute stream waits for each group's copies. An
-        error in the thread is raised here."""
+        groups ahead (`_put`, `wait` as there); the compute stream waits for
+        each group's copies. An error in the thread is raised here."""
         q: queue.Queue = queue.Queue(maxsize=max(1, int(self.args.prefetch_batches)))
         stop = threading.Event()
 
@@ -369,7 +406,7 @@ class Trainer:
                 for n, payload, views in batches:
                     if stop.is_set():
                         return
-                    q.put((n, *self._put(payload), views))
+                    q.put((n, *self._put(payload, wait), views))
                 q.put(None)
             except BaseException as e:  # raised in the consumer
                 q.put(e)
@@ -399,6 +436,78 @@ class Trainer:
                     pass
                 thread.join(timeout=0.01)
 
+
+    # ---- the eval dispatch (map_tpu `_eval_dispatch`, `make_multi_eval`) -----
+
+    def _pinned(self, shape, dtype) -> np.ndarray:
+        """An array in pinned memory (the eval batches' `alloc`)."""
+        with CUDA_WORK:  # the pinned allocator's calls wait for a capture
+            t = torch.empty(shape, dtype=torch.from_numpy(np.empty(0, dtype)).dtype,
+                            pin_memory=True)
+        return t.numpy()
+
+    def _eval_dispatch_of(self, key: str) -> MultiEval:
+        """The dispatch of `key`: an eval kind, and "+draws" when its batches
+        carry draws (other inputs, so graphs of their own). The pretraining
+        evals' step draws from the eval generator, which their graphs
+        register."""
+        d = self._evals.get(key)
+        if d is None:
+            step, gens = self.eval_step, ()
+            if key.split("+")[0] in ("mfp", "rfd"):
+                gen = self._eval_generator
+                step, gens = (lambda b: self.eval_step(b, gen)), (gen,)
+            d = self._evals[key] = MultiEval(step, self.args.steps_per_call, self.device,
+                                             gens)
+        return d
+
+    def _retire_evals(self) -> None:
+        """Drop the eval dispatches (their steps are rebuilt); their launches
+        stay counted."""
+        self._retired.extend(self._evals.values())
+        self._evals = {}
+
+    def graphs(self) -> List[GraphedCalls]:
+        """Every dispatch that may have captured graphs: the train steps' and
+        each eval pass's (those retired included)."""
+        return self._retired + list(self._evals.values()) + ([self.multi] if self.multi
+                                                             else [])
+
+    def launches_run(self, counts: Dict[str, int]) -> Dict[str, int]:
+        """The launches that ran, from the wrappers' counters `counts` (taken
+        from 0 before this Trainer's first step or eval): the train steps'
+        and every eval pass's graphs accounted (`graph.launches_run`)."""
+        return launches_run(counts, self.graphs())
+
+    def _eval_calls(self, kind: str, batcher: Batcher, draws=None
+                    ) -> Iterator[Tuple[int, Dict[str, torch.Tensor], list]]:
+        """An eval pass over `batcher`'s epoch 0 (map_tpu `_eval_dispatch`):
+        (n, the n batches' metrics stacked (n, ...), their host batches) a
+        host call. With `steps_per_call` K > 1 the batches go in groups of K
+        (`Batcher.epoch_stacked`, then the tail one by one), each group one
+        call of the `kind` dispatch (`MultiEval`: a captured graph on the
+        card). The batches are gathered into pinned memory on the card and
+        copied from there by the producer thread (`_grouped_stream`).
+        `draws`, one for each batch (MFPDraws / RFDDraws), go with their
+        batch as its keys (`train_step.handed_in`). The MFP and RFD evals
+        draw from the eval generator, seeded `seed + 2` anew for every pass,
+        so every pass masks the same way."""
+        if kind in ("mfp", "rfd"):
+            if self._eval_generator is None:
+                self._eval_generator = torch.Generator(device=self.device)
+            self._eval_generator.manual_seed(self.args.seed + 2)
+        if self._copy_stream is not None:
+            batcher.alloc = self._pinned
+        spc = max(1, int(self.args.steps_per_call))
+        batches = (batcher.epoch_stacked(spc, 0) if spc > 1
+                   else ((1, b, [b]) for b in batcher.epoch(0)))
+        if draws is not None:  # on the host here, before any capture of this pass
+            draws = [type(d)(*(None if t is None else torch.as_tensor(t).cpu() for t in d))
+                     for d in draws]
+            batches = _with_draws(batches, iter(draws))
+        dispatch = self._eval_dispatch_of(kind if draws is None else kind + "+draws")
+        for n, dev_batch, views in self._grouped_stream(batches, wait=True):
+            yield n, dispatch(n, dev_batch), views
 
     def _run_train_step(self, n: int, dev_batch: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
@@ -524,16 +633,17 @@ class Trainer:
         self._end_run()
         logger.info(self._metrics_table("mfp_loss", "mfp_acc"))
 
-    def MFP_pretrain_eval(self) -> Dict[str, float]:
+    def MFP_pretrain_eval(self, draws: Optional[List[MFPDraws]] = None) -> Dict[str, float]:
+        """The masked eval of the valid split; `draws`, one for each batch,
+        in place of the eval generator's (the tests hand in map_tpu's)."""
         if self.eval_step is None:
             self.build_steps(len(self.get_batcher("train", True)))
         batcher = self.get_batcher("valid", False)
         logger.info("***** running eval *****")
         logger.info(f"  num examples = {batcher.num_examples()}")
         t0 = time.time()
-        gen = torch.Generator(device=self.device).manual_seed(self.args.seed + 2)
-        metrics = [self.eval_step(batch, gen) for batch in batcher.epoch(0)]
-        host = {k: torch.stack([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
+        metrics = [m for _, m, _ in self._eval_calls("mfp", batcher, draws)]
+        host = {k: torch.cat([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
                 for k in ("loss", "count", "acc_count")}
         count = host["count"].sum()
         _log = {"learning_rate": self._current_lr(),
@@ -579,18 +689,18 @@ class Trainer:
         self._end_run()
         logger.info(self._metrics_table("rfd_loss", "rfd_acc"))
 
-    def RFD_pretrain_eval(self) -> Dict[str, float]:
+    def RFD_pretrain_eval(self, draws: Optional[list] = None) -> Dict[str, float]:
         """The eval's loss and accuracy (and, in the log line and the
-        result, its pos_ratio, which map_tpu's record does not carry)."""
+        result, its pos_ratio, which map_tpu's record does not carry);
+        `draws` as `MFP_pretrain_eval`'s (RFDDraws)."""
         if self.eval_step is None:
             self.build_steps(len(self.get_batcher("train", True)))
         batcher = self.get_batcher("valid", False)
         logger.info("***** running eval *****")
         logger.info(f"  num examples = {batcher.num_examples()}")
         t0 = time.time()
-        gen = torch.Generator(device=self.device).manual_seed(self.args.seed + 2)
-        metrics = [self.eval_step(batch, gen) for batch in batcher.epoch(0)]
-        host = {k: torch.stack([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
+        metrics = [m for _, m, _ in self._eval_calls("rfd", batcher, draws)]
+        host = {k: torch.cat([m[k] for m in metrics]).cpu().numpy().astype(np.float64)
                 for k in ("loss", "count", "acc", "pos_ratio")}
         count = host["count"].sum()
         _log = {"learning_rate": self._current_lr(),
@@ -636,12 +746,11 @@ class Trainer:
             auc, ll, avg_logits, avg_probs = self._streaming_eval(batcher)
         else:
             logits, probs, labels, weights = [], [], [], []
-            for batch in batcher.epoch(0):
-                m = self.eval_step(batch)
-                logits.append(m["logits"])
-                probs.append(m["probs"])
-                labels.append(batch["labels"])
-                weights.append(batch["weight"])
+            for _, m, views in self._eval_calls("eval", batcher):
+                logits.append(m["logits"].reshape(-1))
+                probs.append(m["probs"].reshape(-1))
+                labels.extend(v["labels"] for v in views)
+                weights.extend(v["weight"] for v in views)
             w = np.concatenate(weights) > 0
             logits_h = torch.cat(logits).cpu().numpy().astype(np.float64)[w]
             probs_h = torch.cat(probs).cpu().numpy().astype(np.float64)[w]
@@ -675,15 +784,15 @@ class Trainer:
             hist_pos = torch.zeros(nb, dtype=torch.float64, device=self.device)
             hist_neg = torch.zeros_like(hist_pos)
             sums = []
-            for batch in batcher.epoch(0):
-                m = self.eval_step(batch)
-                hist_pos += m["hist_pos"]
-                hist_neg += m["hist_neg"]
+            for _, m, _ in self._eval_calls("streaming", batcher):
+                # whole counts in float32: their float64 sum is exact in any order
+                hist_pos += m["hist_pos"].sum(0, dtype=torch.float64)
+                hist_neg += m["hist_neg"].sum(0, dtype=torch.float64)
                 sums.append(torch.stack([m[k] for k in ("ll_sum", "logit_sum",
-                                                        "prob_sum", "count")]))
+                                                        "prob_sum", "count")], 1))
             hp, hn = hist_pos.cpu().numpy(), hist_neg.cpu().numpy()
             ll_sum, logit_sum, prob_sum, count = (
-                torch.stack(sums).cpu().numpy().astype(np.float64).sum(axis=0))
+                torch.cat(sums).cpu().numpy().astype(np.float64).sum(axis=0))
             auc = auc_from_histograms(hp, hn)
             bound = auc_histogram_error_bound(hp, hn)
             if bound > STREAMING_AUC_BOUND and nb < STREAMING_BINS_CAP:
@@ -710,6 +819,7 @@ class Trainer:
         _, self.eval_step = make_supervised_steps(
             self.model, self.optimizer, self.device, data=self._data,
             streaming_bins=self._streaming_bins)
+        self._retire_evals()
 
     # ---- run management --------------------------------------------------------
 

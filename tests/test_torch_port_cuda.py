@@ -10,7 +10,10 @@ shapes. The last cases capture each train step kind into CUDA graphs
 (`train/graph.py`) and hold them to eager steps bit for bit, with draws
 that move on from replay to replay; then a resumed run to the straight one
 on the graph path, the checkpoint writer's device snapshot to a sync save,
-and the streaming eval's histograms to the CPU's.
+and the streaming eval's histograms to the CPU's; MFP's masked-position
+selection (its backward the CPU's slot-order sum; two 'randint' runs
+bit-equal), the grouped eval passes' graphs to the eager passes, and the
+pipelined Predictor to an eager forward, bit for bit.
 """
 
 import dataclasses
@@ -1442,3 +1445,143 @@ def test_streaming_histograms_on_the_card_equal_the_cpus(dev):
     assert float(got["count"]) == float(ref["count"]) == n - 77
     for key in ("ll_sum", "logit_sum", "prob_sum"):
         assert float(got[key]) == pytest.approx(float(ref[key]), rel=1e-5), key
+
+
+# ---- MFP's masked-position selection, the eval dispatch, the pipelined Predictor -----
+
+def test_select_masked_backward_is_the_slot_order_sum(dev):
+    """The canonical per-position shape, (4096, 24, 32) encodings and 7
+    'randint' positions a row (fields masked up to 7 times): the backward's
+    bits equal the CPU's slot-by-slot sum, twice."""
+    from map_tpu_torch.models.base import SelectMasked
+
+    g = torch.Generator().manual_seed(5)
+    enc = torch.randn(4096, 24, 32, generator=g)
+    idx = torch.randint(0, 24, (4096, 7), generator=g)
+    idx[:64] = 3
+    up = torch.randn(4096, 7, 32, generator=g)
+
+    def grad(e, i, u):
+        e = e.clone().requires_grad_()
+        return torch.autograd.grad(SelectMasked.apply(e, i), e, u)[0]
+
+    ref = grad(enc, idx, up)
+    got = [grad(enc.to(dev), idx.to(dev), up.to(dev)) for _ in range(2)]
+    assert torch.equal(got[0].cpu(), ref) and torch.equal(got[1], got[0])
+
+
+def _with_valid(trainer, rows):
+    """The card tests' dataset with a valid and a test split (the train
+    split's first `rows` rows)."""
+    d = trainer.dataset
+    for split in ("valid", "test"):
+        d.X[split], d.Y[split] = d.X["train"][:rows], d.Y["train"][:rows]
+    return trainer
+
+
+def test_mfp_randint_graph_runs_are_bit_equal(dev, tmp_path):
+    """Two graph-path MFP runs (per-position, bf16, graphs of 4) from one
+    seed with 'randint' positions, 7 masked of 8 fields (a field masked
+    three or more times in most rows): every parameter, moment and the
+    eval's loss and accuracy bit-equal."""
+    runs = []
+    for i in range(2):
+        t = _graph_trainer(dev, "mfp", "bfloat16", "on", 4, groups=2,
+                           args_kw=dict(output_dir=str(tmp_path / str(i)),
+                                        per_device_eval_batch_size=256))
+        t.args = dataclasses.replace(t.args, mask_ratio=0.9)
+        _with_valid(t, 1100)
+        _EpochCap.run(t)
+        ev = t.MFP_pretrain_eval()
+        runs.append((_train_state(t), {k: v for k, v in ev.items() if k != "eval_time_cost"}))
+        assert t.multi.graphed and 4 in t.multi.graphs
+    (a, ev_a), (b, ev_b) = runs
+    for k in a["model"]:
+        assert torch.equal(a["model"][k], b["model"][k]), k
+    for part_ in ("mu", "nu"):
+        for x, y in zip(a[part_], b[part_]):
+            assert torch.equal(x, y), part_
+    assert ev_a == ev_b
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kind", ["supervised", "streaming", "mfp", "rfd"])
+def test_grouped_eval_graphs_equal_the_eager_pass(dev, kind, dtype, tmp_path):
+    """Eval passes of 5 full batches and a padded one in graphs of 4 (the
+    first group eager on a side stream, then a graph of 1 and one of 4)
+    against the eager pass from the same weights: the same metrics, bit for
+    bit, on two passes; the launches that ran (K4 a batch, twice in MFP, K2
+    a batch) counted over the eval graphs."""
+    from map_tpu_torch.train.graph import launch_counts
+
+    base = "supervised" if kind == "streaming" else kind
+    extra = dict(streaming_auc=True, auc_bins=1 << 15) if kind == "streaming" else {}
+    out = {}
+    for spc in (4, 1):
+        before = launch_counts()
+        t = _with_valid(_graph_trainer(dev, base, dtype, "on", spc, args_kw=dict(
+            output_dir=str(tmp_path / str(spc)), per_device_eval_batch_size=100, **extra)),
+            530)
+        run = {"mfp": t.MFP_pretrain_eval, "rfd": t.RFD_pretrain_eval}.get(
+            base, lambda: t.eval("valid", test_eval=True))
+        passes = [{k: v for k, v in run().items() if k != "eval_time_cost"}
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+        ran = t.launches_run({k: v - before[k] for k, v in launch_counts().items()})
+        out[spc] = (passes, t, ran)
+    (got, grouped, ran), (ref, _, ran_eager) = out[4], out[1]
+    assert got == ref and got[0] == got[1]
+    d = grouped._evals[{"supervised": "eval"}.get(kind, kind)]
+    assert d.graphed and sorted(d.graphs) == [1, 4]
+    assert ran == ran_eager
+    if kind != "streaming":  # the streaming pass may run again at more bins
+        assert ran["embedding_gather"] == (2 if base == "mfp" else 1) * 2 * 6, ran
+        assert ran["cross_net"] == 2 * 6, ran
+
+
+_SERVE_SIZES = [7, 256, 300, 70_000, 24, 65_536, 5, 1_000]  # uint8, uint16, int32 offsets
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("compress,prefetch", [(True, 2), (False, 2), (True, 1)])
+def test_pipelined_predictor_is_the_eager_forward(dev, tmp_path, compress, prefetch, dtype):
+    """The Predictor's three stages (packed or int32 transfer, the captured
+    forward, the logits drained by event) against an eager forward of the
+    same padded chunks by a model of the same weights without the cast
+    copies: the same bits; one replay a chunk; the launches counted; a bad
+    id in a later chunk raised, and the next call whole."""
+    import numpy as np
+
+    from map_tpu_torch.serve import Predictor
+    from map_tpu_torch.train import checkpoints
+    from map_tpu_torch.train.graph import launch_counts
+
+    lo = [int(x) for x in np.cumsum([10] + _SERVE_SIZES[:-1])]
+    hi = [a + s for a, s in zip(lo, _SERVE_SIZES)]
+    cfg = Config(model_name="dcnv2", input_size=hi[-1], num_fields=8, embed_size=16,
+                 hidden_size=64, num_hidden_layers=2, num_cross_layers=2,
+                 compute_dtype=dtype, idx_low=lo, idx_high=hi)
+    model = models.from_config(cfg, torch.Generator().manual_seed(1))
+    checkpoints.save_model(model.state_dict(), str(tmp_path), 1)
+    cfg.save(str(tmp_path))
+    before = launch_counts()
+    pred = Predictor(str(tmp_path), 1, batch_size=1000, prefetch=prefetch,
+                     compress_transfer=compress)
+    rng = np.random.default_rng(3)
+    ids = np.stack([rng.integers(a, b, 3500) for a, b in zip(lo, hi)], 1).astype(np.int32)
+    got = pred.predict_logits(ids)
+    ran = pred.launches_run({k: v - before[k] for k, v in launch_counts().items()})
+    assert pred.replays == 4 and ran["embedding_gather"] == 5 and ran["cross_net"] == 5
+    model = model.to(dev).eval()
+    ref = []
+    with torch.inference_mode():
+        for s in range(0, 3500, 1000):
+            chunk = pred._check_and_pad(ids[s:s + 1000], s)
+            ref.append(model(torch.from_numpy(chunk).to(dev)).reshape(-1).float().cpu())
+    ref = torch.cat(ref).numpy()[:3500]
+    np.testing.assert_array_equal(got, ref)
+    bad = ids.copy()
+    bad[2500, 3] = hi[3] if compress else hi[-1]
+    with pytest.raises(ValueError, match="leave"):
+        pred.predict_logits(bad)
+    np.testing.assert_array_equal(pred.predict_logits(ids), got)
