@@ -196,11 +196,33 @@ each; any failure ends the run with a nonzero exit code.
 10f. the alias draws against q (`chi_square_phase`): 10^7 draws of the
    global and of the per-field draw on synthazu's unigram, chi-square p
    above 1e-3, each draw's log q the table's;
+10g. the parallel layer (`parallel_phase`, after 10f): (a) one rank under
+   NCCL on a 1 x 1 mesh, supervised bf16 DCNv2 at full width, 16 steps on
+   the graph path (the loss's global count, the metrics and the flat
+   gradient all_reduce captured in the graphs of 8 steps) and its eval,
+   bit-equal to the run without a process group; (b) two ranks sharing the
+   card under gloo (this script with --parallel_rank, spawned after the
+   kernels are built): data-parallel 2 x 1 supervised (the plain lookup,
+   and the hybrid one under `bwd_pallas`, K6b under the gradient
+   all_reduce), row-sharded 1 x 2 under psum (supervised, MFP per-position
+   k = 25, RFD Unigram) and under hotcold (supervised), each in f32 and
+   bf16, 8 eager steps of the same global batches as one rank: the
+   row-sharded runs in f32 within 1e-5 of one rank (loss and every
+   parameter); the data-parallel runs in f32 bit-equal to the same steps in
+   one process with each gradient summed over the batch's two row blocks
+   (`dp_witness`: that loop reproduces the one-rank run bit for bit at one
+   block, and its first two-block gradient lies within 1e-4 of each leaf's
+   largest one-rank gradient), their first loss within 1e-5 of one rank,
+   every loss within 1e-4 and the eval AUC within 2e-5, the parameters'
+   distance to one rank recorded by leaf and by step; bf16's band
+   recorded; the ranks' bits equal; hotcold's overflow 0 with each rank's
+   cold segment; the (1, 2) mesh's checkpoint equal to one rank's; each
+   rank's launches;
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
    from the per-field shared run of 8b for K5, K7 and K8, plus each zoo
-   model's graph path, the validation's five stages, the grouped eval phase
-   and the serving phase; `launches_by_path` gives each), nvidia-smi's
-   line, and last
+   model's graph path, the validation's five stages, the grouped eval
+   phase, the serving phase and the parallel phase's runs;
+   `launches_by_path` gives each), nvidia-smi's line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits 2 without a result when there is no CUDA device or the map_tpu_torch
@@ -2376,12 +2398,504 @@ def chi_square_phase(args, dev, val) -> None:
           statistic=stat, dof=dof, p=p)
 
 
+# ---- 10g. the parallel layer: a 1 x 1 NCCL mesh on the graph path, and two
+# gloo ranks sharing the card (data-parallel, row-sharded psum and hotcold)
+
+PARALLEL_STEPS = 8  # eager steps of each two-rank run (8 global batches)
+PARALLEL_GRAPH_STEPS = 16  # the 1 x 1 NCCL run: a warm-up call and a replay
+# (name, data axis, model axis, exchange, objective, hybrid lookup) of the
+# two-rank runs; the hybrid lookup (K6b's backward, `bwd_pallas`) is off
+# under a table mesh, so only a data-parallel run can take it
+PARALLEL_RUNS = (("dp 2x1 supervised", 2, 1, "psum", "sup", False),
+                 ("dp 2x1 supervised hybrid bwd_pallas", 2, 1, "psum", "sup", True),
+                 ("rows 1x2 psum supervised", 1, 2, "psum", "sup", False),
+                 ("rows 1x2 psum mfp", 1, 2, "psum", "mfp", False),
+                 ("rows 1x2 psum rfd", 1, 2, "psum", "rfd", False),
+                 ("rows 1x2 hotcold supervised", 1, 2, "hotcold", "sup", False))
+PARALLEL_DTYPES = ("float32", "bfloat16")
+TOL_PARALLEL_F32 = 1e-5  # loss and every parameter, two ranks against one
+# data-parallel f32 against one rank: every step's loss, the eval AUC
+# (map_tpu's tests/test_multiprocess.py: 2e-5), and the first step's
+# gradient within this share of each leaf's largest |gradient| (a loss over
+# a rank's own count, or a block left out, moves a gradient by a factor;
+# rounding moved fc_out.bias, one sum of 4096 terms that cancel, by 1.02e-5)
+TOL_PARALLEL_DP_LOSS, TOL_PARALLEL_DP_AUC, TOL_PARALLEL_DP_GRAD = 1e-4, 2e-5, 1e-4
+PARALLEL_CKPT_RUN = "rows 1x2 psum supervised float32"  # saved, against one rank's
+PARALLEL_TIMEOUT_S = 300
+
+
+def parallel_data(seed: int, steps: int):
+    """The phase's in-memory dataset (its own generator, so that every rank
+    and the parent draw the same): `steps` global batches of TRAIN_BATCH."""
+    return teacher_dataset(np.random.default_rng(seed + 17), steps * TRAIN_BATCH)
+
+
+def parallel_variant(kind: str, hybrid: bool, dname: str) -> str:
+    """The name of a one-rank reference (objective, lookup, dtype)."""
+    return f"{kind}{'_hybrid' if hybrid else ''}_{dname}"
+
+
+def parallel_cfg(cfg, kind: str, dname: str, data, hybrid: bool = False):
+    """The phase's DCNv2 config: supervised, MFP per-position (k = 25) or
+    RFD (Unigram); the hybrid lookup under `bwd_pallas` with `hybrid`, else
+    off (as under a table mesh)."""
+    from map_tpu_torch.data.dataset import compute_feat_count
+
+    c = dataclasses.replace(cfg, compute_dtype=dname, field_blocked_lookup=hybrid,
+                            hybrid_mode="bwd_pallas" if hybrid else "")
+    if kind == "mfp":
+        c = dataclasses.replace(c, pretrain=True, pt_type="MFP", proj_size=MFP_PROJ,
+                                pt_neg_num=MFP_NEG, nce_loss_type="nce",
+                                feat_count=compute_feat_count(data.X["train"],
+                                                              cfg.input_size))
+    elif kind == "rfd":
+        c = dataclasses.replace(c, pretrain=True, pt_type="RFD", RFD_replace="Unigram",
+                                proj_size=MFP_PROJ)
+    return c
+
+
+def parallel_targs(out_dir: str, kind: str, dname: str, seed: int, data_axis: int = 1,
+                   model_axis: int = 1, exchange: str = "psum", spc: int = 1,
+                   resident: str = "off", hybrid: bool = False):
+    from map_tpu_torch.config import TrainingArguments
+
+    extra = {}
+    if kind == "mfp":
+        extra = dict(pretrain=True, pt_type="MFP", mask_ratio=MFP_MASK_RATIO,
+                     sampling_method="randint")
+    elif kind == "rfd":
+        extra = dict(pretrain=True, pt_type="RFD", RFD_replace="Unigram",
+                     mask_ratio=MFP_MASK_RATIO, sampling_method="randint")
+    if hybrid:
+        extra["hybrid_mode"] = "bwd_pallas"
+    return TrainingArguments(
+        output_dir=out_dir, dataset_name="in-memory", data_dir=out_dir,
+        per_device_train_batch_size=TRAIN_BATCH // data_axis,
+        per_device_eval_batch_size=EVAL_BATCH // data_axis,
+        learning_rate=LR, weight_decay=WEIGHT_DECAY, lr_sched="const",
+        num_train_epochs=1, logging_steps=PARALLEL_GRAPH_STEPS // 2, compute_dtype=dname,
+        seed=seed, steps_per_call=spc, device_resident_data=resident,
+        num_model_shards=model_axis, table_exchange=exchange,
+        exact_eval_allgather=True, **extra)
+
+
+def parallel_steps(trainer):
+    """One epoch of the trainer's steps, driven as `train` drives them ->
+    the steps' losses (n,) on the host."""
+    import torch
+
+    batcher = trainer._prepare_training()
+    losses = [m["loss"].reshape(-1) for _, m, _ in trainer.train_epoch(batcher, 0)]
+    return torch.cat(losses).cpu()
+
+
+def bits_digest(t) -> int:
+    """A hash of a float32 tensor's bits (two tensors of one shape whose
+    digests differ differ; equal digests: equal, but for a collision)."""
+    import torch
+
+    x = t.detach().contiguous().view(-1).view(torch.int32).long()
+    w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+    return int((x * w).sum())
+
+
+def split_batch_steps(trainers, halves) -> dict:
+    """The data-parallel witness: in one process, without a process group,
+    `trainers[i]` takes PARALLEL_STEPS supervised steps whose gradient is
+    summed over `halves[i]` row blocks of each global batch, every block's
+    loss over the global weight, as `halves[i]` data-parallel ranks compute
+    it (gloo adds two ranks' tensors as a + b, which is b + a), then one
+    AdamW (K1) update. halves 1 is the one-rank step. The trainers step in
+    lockstep -> each one's losses and final state, the first step's
+    gradients, and after every step the largest distance between the first
+    two trainers' parameters and the count past TOL_PARALLEL_F32."""
+    import torch
+
+    from map_tpu_torch.objectives.supervised import bce_loss
+    from map_tpu_torch.train.train_step import device_batch
+
+    epochs = [t._prepare_training().epoch(0) for t in trainers]
+    losses = [[] for _ in trainers]
+    first, growth = [None] * len(trainers), []
+    for batches in zip(*epochs):
+        for i, (t, batch, k) in enumerate(zip(trainers, batches, halves)):
+            b = device_batch(batch, t.device)
+            n = b["labels"].shape[0] // k
+            blocks = [slice(j * n, (j + 1) * n) for j in range(k)]
+            count = b["weight"][blocks[0]].sum()
+            for s in blocks[1:]:
+                count = count + b["weight"][s].sum()
+            total = loss_sum = None
+            for s in blocks:
+                t.model.train()
+                logits = t.model(b["input_ids"][s]).reshape(-1)
+                loss = bce_loss(logits, b["labels"][s], b["weight"][s], count)
+                t.optimizer.zero_grad()
+                loss.backward()
+                g = [torch.zeros_like(p) if p.grad is None else p.grad.float().contiguous()
+                     for p in t.optimizer.params]
+                total = g if total is None else [a + c for a, c in zip(total, g)]
+                loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            if first[i] is None:
+                first[i] = [x.clone() for x in total]
+            t.optimizer.zero_grad()
+            t.optimizer.step(total)
+            losses[i].append(loss_sum.float().reshape(1))
+        d = [(p - q).abs() for p, q in zip(trainers[0].optimizer.params,
+                                            trainers[1].optimizer.params)]
+        growth.append(dict(max=max(float(x.max()) for x in d),
+                           over_tol=sum(int((x > TOL_PARALLEL_F32).sum()) for x in d)))
+    torch.cuda.synchronize()
+    states = [{k: v.detach().clone() for k, v in t.model.state_dict().items()}
+              for t in trainers]
+    return dict(losses=[torch.cat(x).cpu() for x in losses], states=states,
+                first=first, growth=growth, names=list(trainers[0].optimizer.names))
+
+
+def dp_witness(args, cfg, work, variant: str, hybrid: bool) -> dict:
+    """The data-parallel f32 run's witness (`split_batch_steps`): one rank's
+    steps and the two-block steps side by side. The one-block loop must
+    reproduce the Trainer's one-rank run bit for bit (so the loop is the
+    Trainer's step), and the first step's two-block gradient must lie
+    within TOL_PARALLEL_DP_GRAD of each leaf's largest one-block gradient
+    (a normalisation or a dropped block would show there, which AdamW's
+    update, invariant to a gradient's scale, hides). The two-block state
+    and losses are saved for the ranks, which must equal them bit for bit;
+    the distance to one rank's parameters after each step is recorded."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.train.trainer import Trainer
+
+    data = parallel_data(args.seed, PARALLEL_STEPS)
+    trainers = []
+    for k in (1, 2):
+        targs = parallel_targs(os.path.join(work, f"split{k} {variant}"), "sup", "float32",
+                               args.seed, hybrid=hybrid)
+        trainers.append(Trainer(models.from_config(cfg, torch.Generator().manual_seed(
+            args.seed)), cfg, targs, data))
+    res = split_batch_steps(trainers, (1, 2))
+    del trainers
+    ref = torch.load(os.path.join(work, f"ref_{variant}.pt"), weights_only=True)
+    one, two = res["states"]
+    loop_equal = (torch.equal(res["losses"][0], ref["losses"].reshape(-1))
+                  and all(torch.equal(one[k].cpu(), ref["state"][k]) for k in ref["state"]))
+    grad_rel = {}
+    for name, a, b in zip(res["names"], *res["first"]):
+        scale = float(a.abs().max())
+        grad_rel[name] = float((b - a).abs().max()) / scale if scale > 0 else float(
+            (b - a).abs().max())
+    torch.save({"state": {k: v.cpu() for k, v in two.items()}, "losses": res["losses"][1]},
+               os.path.join(work, f"split_{variant}.pt"))
+    emit("parallel_dp_witness", variant=variant, loop_equals_one_rank=loop_equal,
+         first_grad_rel_err=grad_rel, growth=res["growth"],
+         loss_errs=(res["losses"][1] - res["losses"][0]).abs().tolist())
+    check(f"parallel (b) dp witness {variant}: the one-block loop is the one-rank run, "
+          "bit for bit", loop_equal)
+    check(f"parallel (b) dp witness {variant}: the first step's two-block gradient within "
+          f"{TOL_PARALLEL_DP_GRAD} of each leaf's largest one-rank gradient",
+          all(v <= TOL_PARALLEL_DP_GRAD for v in grad_rel.values()),
+          worst=max(grad_rel.items(), key=lambda kv: kv[1]))
+    del res, one, two, ref
+    torch.cuda.empty_cache()
+    return grad_rel
+
+
+def parallel_worker(args) -> int:
+    """One of the two ranks on the card (spawned by `parallel_phase`): each
+    run of PARALLEL_RUNS in each dtype, PARALLEL_STEPS eager steps through
+    the Trainer; the result held against the one-rank run the parent saved,
+    the ranks' bits compared through a gathered digest; one line of results."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.kernels import build
+    from map_tpu_torch.parallel import embedding as pe
+    from map_tpu_torch.parallel.mesh import maybe_init_distributed
+    from map_tpu_torch.train.graph import launch_counts
+    from map_tpu_torch.train.trainer import Trainer
+
+    world = maybe_init_distributed()
+    build.library()  # built by the parent: loaded, not compiled
+    lo, hi, vocab = field_blocks()
+    cfg = base_cfg(vocab, lo, hi)
+    data = parallel_data(args.seed, PARALLEL_STEPS)
+    work = args.parallel_work
+    out = {}
+    for name, d, m, exch, kind, hybrid in PARALLEL_RUNS:
+        for dname in PARALLEL_DTYPES:
+            run = f"{name} {dname}"
+            variant = parallel_variant(kind, hybrid, dname)
+            c = parallel_cfg(cfg, kind, dname, data, hybrid)
+            targs = parallel_targs(os.path.join(work, "rank_runs", run), kind, dname,
+                                   args.seed, d, m, exch, hybrid=hybrid)
+            before = launch_counts()
+            pe.hotcold_stats.clear()
+            trainer = Trainer(models.from_config(c, torch.Generator().manual_seed(args.seed)),
+                              c, targs, data)
+            t0 = time.perf_counter()
+            losses = parallel_steps(trainer)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = launch_counts()
+            launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+            full = trainer._full_state_dict()
+            ref = torch.load(os.path.join(work, f"ref_{variant}.pt"), weights_only=True)
+            diffs = {k: (full[k] - ref["state"][k].to(full[k].device)).float().abs()
+                     for k in ref["state"]}
+            param_err = max(float(x.max()) for x in diffs.values())
+            over = {k: int((x > TOL_PARALLEL_F32).sum()) for k, x in diffs.items()}
+            loss_errs = (losses - ref["losses"]).abs().tolist()
+            split_equal = None  # data-parallel f32: bit-equal to `dp_witness`'s two blocks
+            if d > 1 and dname == "float32":
+                split = torch.load(os.path.join(work, f"split_{variant}.pt"),
+                                   weights_only=True)
+                split_equal = (torch.equal(losses, split["losses"])
+                               and all(torch.equal(full[k].cpu(), split["state"][k])
+                                       for k in split["state"]))
+            auc = (trainer.eval("valid", test_eval=True)["eval_auc"] if kind == "sup"
+                   else None)
+            digest = torch.tensor([bits_digest(losses)] + [bits_digest(full[k]) for k in
+                                                           sorted(full)], device=trainer.device)
+            digests = trainer.mesh.world.all_gather(digest)
+            agree = bool((digests == digests[0]).all())
+            stats = {k: int(v) for k, v in pe.hotcold_stats.items()}
+            if run == PARALLEL_CKPT_RUN:
+                trainer.save_model(os.path.join(work, "ckpt_rows"))
+                trainer._join_ckpt_writer()
+            out[run] = dict(mesh=[d, m], exchange=exch, steps=len(losses),
+                            wall_s=wall, loss_err=max(loss_errs), loss_errs=loss_errs,
+                            param_err=param_err, split_equal=split_equal,
+                            elements=sum(x.numel() for x in diffs.values()),
+                            over_tol={k: v for k, v in over.items() if v},
+                            auc_err=None if auc is None else abs(auc - ref["auc"]),
+                            ranks_agree=agree, launches=launches, hotcold=stats,
+                            shards={k: list(s) for k, s in trainer._shards.items()},
+                            finite=bool(torch.isfinite(losses).all()))
+            del trainer, full, ref, diffs
+            torch.cuda.empty_cache()
+    print("PARALLEL_RANK " + json.dumps({"rank": int(os.environ["RANK"]), "world": world,
+                                         "runs": out}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def base_cfg(vocab, lo, hi):
+    """The smoke's full-width DCNv2 (phase 6's)."""
+    from map_tpu_torch.config import Config
+
+    return Config(model_name="dcnv2", input_size=vocab, num_fields=len(FIELD_SIZES),
+                  embed_size=EMBED, hidden_size=1000, num_hidden_layers=3,
+                  hidden_act="relu", num_cross_layers=3,
+                  idx_low=[int(x) for x in lo], idx_high=[int(x) for x in hi])
+
+
+def parallel_phase(args, dev, cfg, reset_counts, read_counts) -> dict:
+    """10g. (a) `parallel_nccl_1x1`, (b) `parallel_two_ranks`."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        nccl = parallel_nccl_1x1(args, cfg, work, reset_counts, read_counts)
+        out = parallel_two_ranks(args, cfg, work)
+        out["launches_nccl_1x1"] = nccl
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    emit("parallel", bf16_band=out["bf16_band"], wall_s=out["wall_s"], card=smi_line())
+    return out
+
+
+def parallel_nccl_1x1(args, cfg, work, reset_counts, read_counts) -> dict:
+    """10g (a). One rank under NCCL on a 1 x 1 mesh: supervised bf16 DCNv2,
+    PARALLEL_GRAPH_STEPS steps on the graph path (the collectives captured
+    in the graphs of 8 steps) and its eval, bit-equal to the same run
+    without a process group."""
+    import torch
+    import torch.distributed as dist
+
+    from map_tpu_torch import models
+    from map_tpu_torch.parallel.launch import free_port
+    from map_tpu_torch.train.trainer import Trainer
+
+    data16 = parallel_data(args.seed + 1, PARALLEL_GRAPH_STEPS)
+    c = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    runs = {}
+    for label in ("no process group", "nccl 1x1"):
+        if label == "nccl 1x1":
+            dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                                    world_size=1, rank=0)
+        targs = parallel_targs(os.path.join(work, label), "sup", "bfloat16", args.seed,
+                               spc=GRAPH_SPC, resident="auto")
+        trainer = Trainer(models.from_config(c, torch.Generator().manual_seed(args.seed)),
+                          c, targs, data16)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        runs[label] = dict(
+            wall_s=time.perf_counter() - t0, windows=trainer.train_windows,
+            evals=trainer.eval_metrics, steps=trainer.global_step,
+            state={k: v.clone() for k, v in trainer.model.state_dict().items()},
+            graphs=graph_replays(trainer), launches=trainer.launches_run(read_counts()),
+            backend=trainer.mesh.world.backend, spc=trainer._spc)
+        del trainer
+        if label == "nccl 1x1":
+            dist.destroy_process_group()
+    a, b = runs["no process group"], runs["nccl 1x1"]
+    same = ([(w["window_loss"], w["window_auc"]) for w in a["windows"]]
+            == [(w["window_loss"], w["window_auc"]) for w in b["windows"]])
+    bits = all(torch.equal(a["state"][k], b["state"][k]) for k in a["state"])
+    emit("parallel_nccl_1x1", steps=b["steps"], backend=b["backend"], steps_per_call=b["spc"],
+         graphs=b["graphs"], launches=b["launches"], wall_s=b["wall_s"],
+         wall_s_no_pg=a["wall_s"], windows=[w["window_loss"] for w in b["windows"]],
+         evals=b["evals"], card=smi_line())
+    check("parallel (a): nccl 1x1, collectives captured in the graphs of 8 steps",
+          b["backend"] == "nccl" and b["spc"] == GRAPH_SPC and b["steps"] == PARALLEL_GRAPH_STEPS
+          and sum(b["graphs"].values()) >= 1, graphs=b["graphs"])
+    check("parallel (a): nccl 1x1 bit-equal to no process group (losses, evals, "
+          "every parameter and buffer)", same and bits and a["evals"] == b["evals"])
+    launches = b["launches"]
+    del runs, a, b
+    torch.cuda.empty_cache()
+    return launches
+
+
+def parallel_two_ranks(args, cfg, work) -> dict:
+    """10g (b). Two ranks sharing the card under gloo (NCCL refuses two ranks
+    on one device), each run of PARALLEL_RUNS in float32 and bfloat16,
+    PARALLEL_STEPS eager steps on the same global batches as one rank
+    (whose runs this process makes first, with `dp_witness`'s): the
+    row-sharded runs in float32 within TOL_PARALLEL_F32 (loss and every
+    parameter), the data-parallel ones bit-equal to the witness's two-block
+    steps and held to one rank by their losses and eval AUC; bfloat16's
+    band recorded, the ranks' bits equal, hotcold's overflow 0; the (1, 2)
+    mesh's checkpoint equal to one rank's."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.parallel.launch import free_port, rank_env
+    from map_tpu_torch.train import checkpoints
+    from map_tpu_torch.train.trainer import Trainer
+
+    # references: one rank, no process group, the same global batches
+    data = parallel_data(args.seed, PARALLEL_STEPS)
+    variants = {(kind, hybrid) for _, _, _, _, kind, hybrid in PARALLEL_RUNS}
+    for kind, hybrid in sorted(variants):
+        for dname in PARALLEL_DTYPES:
+            variant = parallel_variant(kind, hybrid, dname)
+            ck = parallel_cfg(cfg, kind, dname, data, hybrid)
+            targs = parallel_targs(os.path.join(work, f"ref {variant}"), kind, dname,
+                                   args.seed, hybrid=hybrid)
+            trainer = Trainer(models.from_config(ck, torch.Generator().manual_seed(args.seed)),
+                              ck, targs, data)
+            losses = parallel_steps(trainer)
+            auc = (trainer.eval("valid", test_eval=True)["eval_auc"] if kind == "sup"
+                   else None)
+            torch.save({"state": {k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                        "losses": losses, "auc": auc},
+                       os.path.join(work, f"ref_{variant}.pt"))
+            if variant == "sup_float32":
+                trainer.save_model(os.path.join(work, "ckpt_ref"))
+                trainer._join_ckpt_writer()
+            del trainer
+            torch.cuda.empty_cache()
+    # the data-parallel f32 runs' witness: their steps in one process
+    for _, d, _, _, kind, hybrid in PARALLEL_RUNS:
+        if d > 1:
+            dp_witness(args, parallel_cfg(cfg, kind, "float32", data, hybrid), work,
+                       parallel_variant(kind, hybrid, "float32"), hybrid)
+
+    # two ranks on the card, gloo; the kernels were built above, so no
+    # rank runs nvcc; a rank that fails fails the phase
+    port = free_port()
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--parallel_rank",
+           "--parallel_work", work, "--seed", str(args.seed)]
+    procs = [subprocess.Popen(cmd, env=rank_env(r, 2, port, "gloo"), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PARALLEL_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    reports = []
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        line = [ln for ln in so.splitlines() if ln.startswith("PARALLEL_RANK ")]
+        check(f"parallel (b): rank {r} ran to its end", p.returncode == 0 and bool(line),
+              rc=p.returncode, stderr=se[-3000:], stdout=so[-1500:])
+        reports.append(json.loads(line[0][len("PARALLEL_RANK "):]))
+    for rep in reports:
+        for run, res in rep["runs"].items():
+            emit("parallel_rank", rank=rep["rank"], run=run, **res)
+    bands = {}
+    for run in reports[0]["runs"]:
+        rs = [rep["runs"][run] for rep in reports]
+        f32 = run.endswith("float32")
+        check(f"parallel (b) {run}: the ranks' bits agree, losses finite",
+              all(x["ranks_agree"] and x["finite"] for x in rs))
+        data_parallel = rs[0]["mesh"][0] > 1
+        if f32 and not data_parallel:
+            check(f"parallel (b) {run}: loss and every parameter within "
+                  f"{TOL_PARALLEL_F32} of one rank",
+                  all(x["loss_err"] <= TOL_PARALLEL_F32 and x["param_err"] <= TOL_PARALLEL_F32
+                      for x in rs), loss_err=rs[0]["loss_err"], param_err=rs[0]["param_err"])
+        elif f32:
+            # data parallelism sums each gradient over two blocks of the batch,
+            # one rank over one: held bit for bit to those steps in one process
+            # (`dp_witness`, whose first gradient agrees with one rank's), and
+            # to one rank by its losses and eval AUC; the parameters' distance
+            # to one rank is recorded, by leaf
+            x = rs[0]
+            emit("parallel_dp_f32", run=run, loss_errs=x["loss_errs"],
+                 param_err=x["param_err"], over_tol=x["over_tol"],
+                 elements=x["elements"], auc_err=x["auc_err"], split_equal=x["split_equal"])
+            check(f"parallel (b) {run}: bit-equal to the same steps in one process with "
+                  "each gradient summed over the batch's two blocks (losses, every parameter)",
+                  all(y["split_equal"] for y in rs))
+            check(f"parallel (b) {run}: first loss within {TOL_PARALLEL_F32}, every loss "
+                  f"within {TOL_PARALLEL_DP_LOSS}, eval AUC within {TOL_PARALLEL_DP_AUC} of "
+                  "one rank", all(y["loss_errs"][0] <= TOL_PARALLEL_F32
+                                  and y["loss_err"] <= TOL_PARALLEL_DP_LOSS
+                                  and y["auc_err"] <= TOL_PARALLEL_DP_AUC for y in rs),
+                  loss_errs=x["loss_errs"], auc_err=x["auc_err"])
+        else:
+            bands[run] = dict(loss_err=rs[0]["loss_err"], param_err=rs[0]["param_err"],
+                              auc_err=rs[0]["auc_err"], over_tol=rs[0]["over_tol"])
+        if "hybrid" in run:
+            check(f"parallel (b) {run}: K6b ran on every step of each rank",
+                  all(x["launches"].get("field_block_scatter", 0) >= x["steps"] for x in rs),
+                  launches=[x["launches"] for x in rs])
+        if "hotcold" in run:
+            check(f"parallel (b) {run}: hotcold overflow 0",
+                  all(x["hotcold"].get("overflow", -1) == 0 and x["hotcold"]["lookups"] > 0
+                      for x in rs), cold_counts=[x["hotcold"] for x in rs])
+    ref_ckpt = checkpoints.load_model(os.path.join(work, "ckpt_ref"), PARALLEL_STEPS)
+    rows_ckpt = checkpoints.load_model(os.path.join(work, "ckpt_rows"), PARALLEL_STEPS)
+    check("parallel (b): the (1, 2) mesh's checkpoint equals one rank's",
+          ref_ckpt.keys() == rows_ckpt.keys()
+          and all(torch.equal(ref_ckpt[k], rows_ckpt[k]) for k in ref_ckpt))
+    totals: dict = {}
+    for rep in reports:
+        for res in rep["runs"].values():
+            for k, v in res["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    return {"bf16_band": bands, "launches_two_ranks": totals,
+            "launches": {rep["rank"]: {run: res["launches"] for run, res in rep["runs"].items()}
+                         for rep in reports}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=200_000)
     ap.add_argument("--batch", type=int, default=10_000)
     ap.add_argument("--train_steps", type=int, default=55)
+    # a rank of phase 10g's two-rank runs (started by the phase itself)
+    ap.add_argument("--parallel_rank", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--parallel_work", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -2394,6 +2908,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(HERE))
+    if args.parallel_rank:
+        return parallel_worker(args)
     import torch.nn.functional as F
 
     from map_tpu_torch import models
@@ -3235,6 +3751,9 @@ def main(argv=None) -> int:
     chi_square_phase(args, dev, val)
     shutil.rmtree(val["work"], ignore_errors=True)
 
+    # 10g. the parallel layer
+    parallel = parallel_phase(args, dev, cfg, reset_counts, read_counts)
+
     # 11. summary; each kernel's launches are those of the path that runs
     # it, counted from 0 over that path's run: the RFD run under the K6b
     # backward (this slice's main path: K1-K4, K6b) and the per-field shared
@@ -3253,7 +3772,10 @@ def main(argv=None) -> int:
                       "validation synthazu, five stages": val["launches"][name],
                       "grouped eval synthazu, four kinds x two dtypes": grouped_eval[name],
                       "serving dcnv2 pipelined, two dtypes": sum(
-                          v[name] for v in serving_launches.values())}
+                          v[name] for v in serving_launches.values()),
+                      "parallel nccl 1x1 graph path": parallel["launches_nccl_1x1"].get(name, 0),
+                      f"parallel two ranks, both ranks, {2 * len(PARALLEL_RUNS)} runs": parallel[
+                          "launches_two_ranks"].get(name, 0)}
                for name, n in main_path.items()}
 
     def entry(name, source, replaces, err, timing):

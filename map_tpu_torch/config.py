@@ -16,8 +16,16 @@ as `config.py:330-373` does. `steps_per_call`, `prefetch_batches`,
 pipeline and multi-step dispatch, with its defaults (`train/trainer.py`);
 `save_steps`, `async_checkpoint`, `async_checkpoint_fetch`, `resume`,
 `profile_steps`, `streaming_auc` and `auc_bins` its run management, with
-its defaults. `exact_eval_allgather` is multi-host only: it comes with the
-parallel layer (ROADMAP.md).
+its defaults. The parallel layer's (`parallel/`, map_tpu `config.py:83-84`,
+`:123-132`, `:156`): `num_data_shards` (-1: the world over the model
+axis), `num_model_shards` (the tables' row blocks), `table_sharding`
+(auto: rows when the model axis > 1 | rows | replicated), `table_exchange`
+(psum | hotcold), `hot_rows_per_field`, `mock_devices` (the CLI launches
+that many local gloo ranks on the CPU, `parallel/launch.py`: map_tpu's
+virtual CPU devices) and `exact_eval_allgather` (a multi-rank eval gathers
+every example instead of the streaming AUC). The global batch is the
+per-device batch times the data axis' size, from the port's own world
+size (`parallel/mesh.data_parallel_size`).
 
 The field-blocked hybrid lookup (`ops/hybrid_gather.py`) engages where
 map_tpu's does with its default packed tables (`packed_tables=True`, which
@@ -213,14 +221,27 @@ class TrainingArguments:
     prefetch_batches: int = 2
     device_resident_data: str = "auto"  # auto | on | off
     device_data_budget_gb: float = 8.0
+    # the parallel layer (map_tpu config.py:83-84, :123-132, :156)
+    num_data_shards: int = -1  # the data axis; -1 = the world // num_model_shards
+    num_model_shards: int = 1  # the tables' row blocks (the model axis)
+    table_sharding: str = "auto"  # auto | replicated | rows
+    table_exchange: str = "psum"  # psum | hotcold
+    hot_rows_per_field: int = 512  # hotcold: each field's hot id prefix
+    mock_devices: int = 0  # > 0: the CLI runs that many local gloo ranks on the CPU
+    exact_eval_allgather: bool = False  # a multi-rank eval gathers every example
 
     @property
     def train_batch_size(self) -> int:
-        return self.per_device_train_batch_size  # one device
+        """The global batch: per device x the data axis."""
+        from map_tpu_torch.parallel.mesh import data_parallel_size
+
+        return self.per_device_train_batch_size * data_parallel_size(self)
 
     @property
     def eval_batch_size(self) -> int:
-        return self.per_device_eval_batch_size
+        from map_tpu_torch.parallel.mesh import data_parallel_size
+
+        return self.per_device_eval_batch_size * data_parallel_size(self)
 
 
 @dataclass
@@ -312,6 +333,9 @@ def check_supported(model_args: ModelArguments,
             and training_args.RFD_replace not in RFD_REPLACE):
         raise NotImplementedError(f"RFD_replace={training_args.RFD_replace}: "
                                   f"one of {RFD_REPLACE}")
+    if training_args.table_sharding not in ("auto", "rows", "replicated"):
+        raise ValueError(f"table_sharding={training_args.table_sharding}: "
+                         "auto | rows | replicated")
     if training_args.device_resident_data not in ("auto", "on", "off"):
         raise ValueError(f"device_resident_data={training_args.device_resident_data}: "
                          "auto | on | off")

@@ -28,6 +28,16 @@ batch's rows, labels, weight and noise rows are written to: the Trainer's
 eval passes give it pinned memory on the card, so their batches are copied
 to the device from where they were gathered, with no copy in between.
 
+`row_shard` (start_block, n_blocks, D) (map_tpu `loader.py:46-72`, the
+trainer's `_row_shard`): under data parallelism every rank computes the
+same global order and draws, and takes only its rows of each global batch:
+the global batch splits into D blocks of B / D rows and the rank keeps
+n_blocks of them from start_block (its `input_ids` / `index`, `labels`,
+`weight`, and the noise rows of those rows; `start` and `real_count` stay
+the global batch's, which the device rebuild offsets by the rank's first
+row: `train_step.resident_batch`). Ranks of one model group take the same
+block.
+
 `start_batch` (resume, map_tpu `loader.py:90-132`, `:178-266`) skips an
 epoch's first batches without making them: the order is the epoch's, and
 the noise draws of the skipped batches are burnt in one call of
@@ -60,6 +70,7 @@ class Batcher:
         self.noise_source = (None if noise_source is None
                              else np.ascontiguousarray(noise_source, dtype=np.int32))
         self._epoch = 0
+        self.row_shard: Optional[Tuple[int, int, int]] = None
         self.emit_indices = False
         self.emit_start_only = False
         self.alloc = np.empty  # (shape, dtype) -> the array a batch's key is written to
@@ -69,6 +80,17 @@ class Batcher:
 
     def num_examples(self) -> int:
         return len(self.Y)
+
+    def block(self) -> Tuple[int, int]:
+        """(lo, rows): this rank's rows of a global batch."""
+        if self.row_shard is None:
+            return 0, self.batch_size
+        start, n_blocks, total = self.row_shard
+        if self.batch_size % total:
+            raise ValueError(f"global batch {self.batch_size} does not split into "
+                             f"{total} data blocks")
+        per = self.batch_size // total
+        return start * per, n_blocks * per
 
     def order(self, epoch: int) -> Tuple[np.ndarray, np.random.Generator]:
         """The epoch's row order and the generator its noise draws continue."""
@@ -99,13 +121,16 @@ class Batcher:
         """Batches first, first + 1, ... of the epoch whose order is `order`,
         the noise drawn from `rng` (which has drawn the batches' before)."""
         bs = self.batch_size
+        lo, lbs = self.block()
+        npe = self.noise_rows_per_example
         for b in range(first, len(self)):
             idx = order[b * bs:(b + 1) * bs]
             real = len(idx)
             if real < bs:
                 idx = np.concatenate([idx, np.zeros(bs - real, dtype=idx.dtype)])
-            weight = self.alloc(bs, np.float32)
-            weight[:] = np.arange(bs) < real
+            idx = idx[lo:lo + lbs]
+            weight = self.alloc(lbs, np.float32)
+            weight[:] = np.arange(lo, lo + lbs) < real
             batch = {"labels": self._take(self.Y, idx), "weight": weight}
             if self.emit_indices:
                 batch["real_count"] = np.int32(real)
@@ -115,9 +140,9 @@ class Batcher:
                     batch["index"] = idx.astype(np.int32)
             else:
                 batch["input_ids"] = self._take(self.X, idx)
-            if self.noise_rows_per_example > 0:
+            if npe > 0:
                 pick = rng.integers(0, len(self.noise_source),
-                                    size=bs * self.noise_rows_per_example)
+                                    size=bs * npe)[lo * npe:(lo + lbs) * npe]
                 if self.emit_indices:
                     batch["noise_index"] = pick.astype(np.int32)
                 else:
@@ -144,14 +169,16 @@ class Batcher:
             self._epoch += 1
         spc = max(1, int(spc))
         bs = self.batch_size
+        lo, lbs = self.block()
         order, rng = self.order(epoch)
         n_groups = max(0, len(self.Y) // bs - start_batch) // spc
         npe = self.noise_rows_per_example
         self._burn(rng, start_batch)
         for gi in range(n_groups):
             b0 = start_batch + gi * spc
-            idx = order[b0 * bs:(b0 + spc) * bs].reshape(spc, bs)
-            weight = self.alloc((spc, bs), np.float32)
+            idx = np.ascontiguousarray(
+                order[b0 * bs:(b0 + spc) * bs].reshape(spc, bs)[:, lo:lo + lbs])
+            weight = self.alloc((spc, lbs), np.float32)
             weight[:] = 1.0
             stacked = {"labels": self._take(self.Y, idx), "weight": weight}
             if self.emit_indices:
@@ -163,8 +190,9 @@ class Batcher:
             else:
                 stacked["input_ids"] = self._take(self.X, idx)
             if npe > 0:
-                pick = rng.integers(0, len(self.noise_source),
-                                    size=spc * bs * npe).reshape(spc, bs * npe)
+                pick = np.ascontiguousarray(rng.integers(
+                    0, len(self.noise_source), size=spc * bs * npe
+                ).reshape(spc, bs * npe)[:, lo * npe:(lo + lbs) * npe])
                 if self.emit_indices:
                     stacked["noise_index"] = pick.astype(np.int32)
                 else:

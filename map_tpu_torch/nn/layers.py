@@ -46,6 +46,8 @@ from map_tpu_torch.nn import init
 from map_tpu_torch.nn.activations import Activation
 from map_tpu_torch.ops.cross import cross_net
 from map_tpu_torch.ops.embedding import embedding_lookup
+from map_tpu_torch.parallel import context
+from map_tpu_torch.parallel.collectives import all_reduce_sum
 from map_tpu_torch.ops.hybrid_gather import hybrid_lookup
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -170,8 +172,11 @@ class Embeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         bounds = self.field_bounds
+        # under a table mesh the hybrid lookup is off (map_tpu
+        # `ops/packed_table.py:105-113`): a row block takes the exchange
         if (bounds is not None and input_ids.dim() == 2
-                and input_ids.shape[1] == len(bounds)):
+                and input_ids.shape[1] == len(bounds)
+                and getattr(self.embedding.weight, "map_tpu_shard", None) is None):
             emb = hybrid_lookup(self.embedding.weight, input_ids, bounds, NUM_RESERVED,
                                 self.hybrid_mode or None, self.dtype)
         else:
@@ -616,7 +621,12 @@ class BatchNorm(nn.Module):
     the running statistics. Plain tensor arithmetic, and the update is an
     in-place write of registered buffers, so a captured CUDA graph replays
     it. Every row counts, padding rows included: flax's BatchNorm takes no
-    mask (map_tpu `nn/layers.py:296`)."""
+    mask (map_tpu `nn/layers.py:296`). Under data parallelism
+    (`parallel.context.data_group`) the batch statistics are the global
+    batch's, as map_tpu's span its sharded batch axis: the sum and the sum
+    of squares over the rank's rows are summed over the data group
+    (`parallel/collectives.all_reduce_sum`, whose backward sums the
+    gradient over the group too)."""
 
     def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -637,8 +647,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         axes = list(range(x.dim() - 1))
         if self.training:
-            mean = x.mean(dim=axes)
-            var = torch.clamp_min((x * x).mean(dim=axes) - mean * mean, 0.0)
+            group = context.data_group()
+            if group is not None and group.size > 1:
+                count = x.numel() // x.shape[-1] * group.size
+                sums = all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]),
+                                      group)
+                mean, sq = (sums / count).chunk(2)
+            else:
+                mean, sq = x.mean(dim=axes), (x * x).mean(dim=axes)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

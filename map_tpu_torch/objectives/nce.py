@@ -121,6 +121,9 @@ class IndexLinearDecoder(nn.Module):
         """Scores over the whole vocabulary (`index_linear.py:145-151`):
         (B, M, E) -> (B, M, V)."""
         emb = self.emb.weight
+        if getattr(emb, "map_tpu_shard", None) is not None:
+            raise NotImplementedError("the full loss scores every id: not under a "
+                                      "table mesh")
         dt = self._dtype(inputs, emb)
         return (torch.einsum("bme,ve->bmv", inputs.to(dt), emb.to(dt))
                 + self.bias.weight[:, 0])

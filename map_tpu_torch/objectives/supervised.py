@@ -8,6 +8,8 @@ weight 0 and contribute nothing (the loader pads the last batch).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -18,8 +20,10 @@ def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def bce_loss(logits: torch.Tensor, labels: torch.Tensor,
-             weight: torch.Tensor) -> torch.Tensor:
-    """logits (B,) or (B, 1); labels (B,); weight (B,) in {0, 1}."""
+             weight: torch.Tensor, count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B,) or (B, 1); labels (B,); weight (B,) in {0, 1}; `count`
+    the global batch's weight sum under data parallelism (default: this
+    batch's), the loss's denominator."""
     per_ex = bce_with_logits(logits.reshape(-1).float(), labels.reshape(-1).float())
-    denom = torch.clamp(weight.sum(), min=1.0)
+    denom = torch.clamp(weight.sum() if count is None else count, min=1.0)
     return (per_ex * weight).sum() / denom

@@ -24,6 +24,16 @@ emb stream goes to the handoff for K7 and no emb gradient is returned; the
 bias keeps its dense gradient through K5, as map_tpu's does
 (`dedup_scatter.py:497-499`, `:651-654`).
 
+Under a table mesh (row blocks of emb and bias, `parallel/sharding`; map_tpu
+`dedup_scatter.py:356-392`, `:435-462`): the forward's rows are
+`parallel/embedding.sharded_rows_gather`'s (a masked K4 gather of emb and
+one of bias, summed over the model group in one all_reduce); the backward's sort, K8 fold and
+compaction run as above on the candidate stream, which is the same on
+every rank of the model group (its data block), and only the scatter is the
+shard's: K5 on the folded stream offset to its block
+(`sharded_rows_scatter_add`). The data axis sums the blocks' gradients in
+the train step, as every gradient. The sparse table update is off there.
+
 Capacity: map_tpu compacts into a static 131,072 slots and, under a
 `lax.cond`, scatters the raw stream when a batch has more distinct ids. In
 eager PyTorch that choice needs the count on the host, a sync in the middle
@@ -42,6 +52,8 @@ from map_tpu_torch.ops.embedding import embedding_lookup
 from map_tpu_torch.ops.scan import block_cumsum
 from map_tpu_torch.ops.scatter_unique import scatter_unique_sorted
 from map_tpu_torch.ops.sparse_adamw import Stream, StreamHandoff
+from map_tpu_torch.parallel.embedding import sharded_rows_gather, sharded_rows_scatter_add
+from map_tpu_torch.parallel.sharding import shard_of
 
 
 def sort_and_fold(flat_ids: torch.Tensor, grads: torch.Tensor, vocab_size: int
@@ -73,13 +85,34 @@ def sort_and_fold(flat_ids: torch.Tensor, grads: torch.Tensor, vocab_size: int
     return uids, vals, num_unique
 
 
+def _rows(emb: torch.Tensor, bias: torch.Tensor, ids: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows (..., E), bias (...)) of `ids`, from whole tables or row blocks."""
+    if shard_of(emb) is None:
+        return embedding_lookup(emb, ids), bias[ids][..., 0]
+    both = sharded_rows_gather((emb, bias), ids, _model_group())
+    return both[..., :-1], both[..., -1]
+
+
+def _model_group():
+    from map_tpu_torch.parallel import context
+
+    mesh = context.table_mesh()
+    if mesh is None:
+        raise RuntimeError("a row-sharded decoder is read with no table mesh active")
+    return mesh.model_group
+
+
 class _DecoderGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, emb, bias, ids, handoff, stream):
         ctx.save_for_backward(ids)
-        ctx.vocab_size = emb.shape[0]
+        ctx.shard = shard_of(emb)
+        ctx.vocab_size = emb.shape[0] if ctx.shard is None else ctx.shard.total
+        if ctx.shard is not None and handoff is not None:
+            raise ValueError("the sparse table update is off under a table mesh")
         ctx.handoff, ctx.stream = handoff, stream
-        return embedding_lookup(emb, ids), bias[ids][..., 0]
+        return _rows(emb, bias, ids)
 
     @staticmethod
     def backward(ctx, g_rows, g_bias):
@@ -88,6 +121,9 @@ class _DecoderGather(torch.autograd.Function):
         g = torch.cat([g_rows.reshape(-1, e).float(),
                        g_bias.reshape(-1, 1).float()], dim=1)
         uids, vals, _ = sort_and_fold(ids.reshape(-1), g, ctx.vocab_size)
+        if ctx.shard is not None:
+            d_emb, d_bias = sharded_rows_scatter_add(uids, vals, ctx.shard, widths=(e, 1))
+            return d_emb, d_bias, None, None, None
         if ctx.handoff is None:
             d_emb, d_bias = scatter_unique_sorted(uids, vals, ctx.vocab_size,
                                                   widths=(e, 1))
@@ -107,4 +143,4 @@ def decoder_gather(emb: torch.Tensor, bias: torch.Tensor, ids: torch.Tensor,
     ("target" or "noise") instead of returning it."""
     if torch.is_grad_enabled() and (emb.requires_grad or bias.requires_grad):
         return _DecoderGather.apply(emb, bias, ids, handoff, stream)
-    return embedding_lookup(emb, ids), bias[ids][..., 0]
+    return _rows(emb, bias, ids)

@@ -125,7 +125,34 @@ def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """(V, E) table, (...) ids -> (..., E) rows, cast to `out_dtype` if given.
     On the card: table float32, ids int32 in [0, V) (unchecked by the
-    kernels), out_dtype None, float32 or bfloat16. Differentiable in `table`."""
+    kernels), out_dtype None, float32 or bfloat16. Differentiable in `table`.
+
+    A row block of a sharded table (`parallel/sharding.shard_tables`) goes
+    through the exchange of the active mesh (map_tpu `ops/embedding.py:71-85`):
+    `hotcold_embedding_lookup` for batch-leading ids when the exchange is
+    'hotcold' and the table has hot rows, else `sharded_embedding_lookup`."""
+    if getattr(table, "map_tpu_shard", None) is not None:
+        return _sharded(table, ids, out_dtype)
     if torch.is_grad_enabled() and table.requires_grad:
         return _Lookup.apply(table, ids, out_dtype)
     return _gather(table, ids, out_dtype)
+
+
+def _sharded(table: torch.Tensor, ids: torch.Tensor,
+             out_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    from map_tpu_torch.parallel import context
+    from map_tpu_torch.parallel.embedding import (
+        hotcold_embedding_lookup,
+        sharded_embedding_lookup,
+    )
+
+    mesh = context.table_mesh()
+    if mesh is None:
+        raise RuntimeError("a row-sharded table is looked up with no table mesh active")
+    shard = table.map_tpu_shard
+    hot = (context.table_hot_rows_on(shard.total, table.device)
+           if context.table_exchange() == "hotcold" and ids.dim() >= 2 else None)
+    if hot is not None and hot.numel() > 0:
+        return hotcold_embedding_lookup(table, ids, mesh.model_group, hot,
+                                        out_dtype=out_dtype)
+    return sharded_embedding_lookup(table, ids, mesh.model_group, out_dtype)

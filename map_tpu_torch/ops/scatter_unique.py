@@ -59,8 +59,9 @@ def scatter_unique_sorted_plain(uids: torch.Tensor, vals: torch.Tensor,
                                 vocab_size: int, widths: Optional[Sequence[int]] = None,
                                 matmul: str = "highest") -> Tuple[torch.Tensor, ...]:
     w = _widths(vals, widths, matmul)
-    # sentinels land on a spare row past the table, dropped below
-    slots = torch.where(uids < vocab_size, uids, vocab_size).long()
+    # sentinels (and the negative ids of a shard's offset stream) land on a
+    # spare row past the table, dropped below
+    slots = torch.where((uids >= 0) & (uids < vocab_size), uids, vocab_size).long()
     out = torch.zeros(vocab_size + 1, vals.shape[-1], dtype=torch.float32,
                       device=vals.device)
     out.index_copy_(0, slots, _rounded(vals.float(), matmul))
@@ -74,7 +75,10 @@ def scatter_unique_sorted(uids: torch.Tensor, vals: torch.Tensor, vocab_size: in
     >= vocab_size (a sentinel) after the last one below it (unchecked by the
     kernel); vals (C, E') float32 -> float32 (vocab_size, w) tensors, one per
     width in `widths` (default: one of E'), holding the columns of vals in
-    order: row uids[j] is vals[j], every row no uid names is 0."""
+    order: row uids[j] is vals[j], every row no uid names is 0. Negative
+    entries (ascending, before the others: a row-sharded table's stream
+    offset to its block, `parallel/embedding.sharded_rows_scatter_add`) fall
+    in no row and are skipped."""
     w = _widths(vals, widths, matmul)
     if vals.device.type == "cpu":
         return scatter_unique_sorted_plain(uids, vals, vocab_size, w, matmul)

@@ -25,6 +25,14 @@ Run management as map_tpu's: `--save_steps` (the resume state) and
 `--resume`, `--async_checkpoint` / `--async_checkpoint_fetch`,
 `--streaming_auc` / `--auc_bins`, `--profile_steps`; every logged window
 and eval also goes to `{output_dir}/metrics.jsonl` (`train/trainer.py`).
+Parallel runs (`parallel/`): `--num_model_shards` (row-sharded tables),
+`--num_data_shards`, `--table_exchange=psum|hotcold`,
+`--hot_rows_per_field`, `--exact_eval_allgather`; the process group is
+made from map_tpu's MAP_TPU_COORDINATOR / MAP_TPU_NUM_PROCESSES /
+MAP_TPU_PROCESS_ID or torchrun's variables (`parallel/mesh.
+maybe_init_distributed`, before the Trainer, as in map_tpu `run.py:28-43`);
+`--mock_devices N` launches N local gloo ranks of this CLI
+(`parallel/launch.py`). Rank 0 writes the run directory's files.
 Lifecycle as map_tpu's: parse -> idempotency check (results.log exists ->
 exit) -> logging -> dataset -> config.json -> model from --seed (finetune:
 restored from the checkpoint where names and shapes match) -> train and test
@@ -48,12 +56,25 @@ from map_tpu_torch.utils.logging import (
 )
 
 
-def main(argv=None) -> int:
+def main(argv=None, on_trainer=None) -> int:
+    """The CLI; `on_trainer(trainer)`, if given, is called once the run
+    ends (`parallel/worker.py` reports each rank's results through it)."""
     model_args, training_args = parse_args(argv)  # raises on an unknown pretraining
+    if training_args.mock_devices > 0 and world_size_from_env() <= 1:
+        from map_tpu_torch.parallel.launch import launch
+
+        args = list(sys.argv[1:] if argv is None else argv)
+        results = launch(training_args.mock_devices, args, backend="gloo")
+        return max((abs(r.returncode) for r in results), default=0)
     if job_already_finished(training_args.output_dir):
         print("job already finished, quit")
         return 0
-    logger = setup_logging(training_args.output_dir)
+    import torch.distributed as dist
+
+    from map_tpu_torch.parallel.mesh import maybe_init_distributed, rank
+
+    maybe_init_distributed()
+    logger = setup_logging(training_args.output_dir, rank())
     logger.info(f"training/evaluation parameters {training_args}")
 
     from map_tpu_torch.data.dataset import CTRDataset
@@ -61,7 +82,8 @@ def main(argv=None) -> int:
     dataset = CTRDataset(training_args.data_dir, training_args.dataset_name,
                          pretrain=training_args.pretrain)
     config = build_config(model_args, training_args, dataset)
-    config.save(training_args.output_dir)
+    if rank() == 0:
+        config.save(training_args.output_dir)
     model = models.from_config(config,
                                torch.Generator().manual_seed(training_args.seed))
     trainer = Trainer(model, config, training_args, dataset)
@@ -72,8 +94,23 @@ def main(argv=None) -> int:
     else:
         trainer.train()
         trainer.test()
-    mark_job_finished(training_args.output_dir)
+    if on_trainer is not None:
+        on_trainer(trainer)
+    if rank() == 0:
+        mark_job_finished(training_args.output_dir)
+    if dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
+
+
+def world_size_from_env() -> int:
+    import os
+
+    for name in ("MAP_TPU_NUM_PROCESSES", "WORLD_SIZE"):
+        if os.environ.get(name):
+            return int(os.environ[name])
+    return 1
 
 
 if __name__ == "__main__":

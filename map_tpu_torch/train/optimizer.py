@@ -26,6 +26,11 @@ capture its rows without writing them, `rewind(count)` puts the host state
 back after the capture, and `advance(n)` moves it (the count and every
 handoff's step) past n steps that ran without this object.
 
+Under data parallelism (`grad_group`, the data group) every dense
+gradient is summed over the group before the update, as one flat buffer in
+the parameters' order (`parallel/collectives.all_reduce_flat_`): a table's
+row block with the rest, so K1 still updates them all in one launch.
+
 With `max_grad_norm > 0` the gradients are first clipped by their global
 norm, as optax.clip_by_global_norm does (`optimizer.py:170-192`).
 
@@ -39,13 +44,16 @@ stale streams. A clip needs every gradient, so it refuses a handoff.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from map_tpu_torch.ops import fused_adamw as k1
 from map_tpu_torch.ops import sparse_adamw as k7
+from map_tpu_torch.parallel.collectives import all_reduce_flat_
+from map_tpu_torch.parallel.mesh import Group
+from map_tpu_torch.parallel.sharding import is_vocab_table as is_table_leaf  # noqa: F401 (map_tpu's name)
 from map_tpu_torch.train.schedules import Schedule, make_schedule
 
 # (params, mus, nus, grads, wds, scalar buffer, slot): an entry a dense parameter
@@ -75,26 +83,6 @@ def decays(name: str) -> bool:
     return not ("norm" in parts[-2] or batch_norm)
 
 
-def is_table_leaf(name: str, shape: Sequence[int]) -> bool:
-    """The port's copy of map_tpu's vocabulary-table rule
-    (`map_tpu/parallel/sharding.py:is_vocab_table`) on torch names: the named
-    tables, or any 2-D parameter with >= 4096 rows and >= 8x more rows than
-    columns. No update branches on it (every dense parameter goes through
-    K1); it is the rule the row-sharded tables of the parallel slice will
-    read."""
-    if len(shape) != 2:
-        return False
-    keys = name.split(".")
-    tail = keys[-2:]
-    if any(k in ("embedding", "emb") for k in tail):
-        return True
-    if "bias" in tail and shape[1] == 128:  # lane-packed decoder bias
-        return True
-    if "weight" in tail and "lr_layer" in keys:
-        return True
-    return shape[0] >= 4096 and shape[0] >= 8 * shape[1]
-
-
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: g unchanged when the global norm is below
     max_norm, else g / norm * max_norm. Stays on the device (no sync)."""
@@ -109,8 +97,9 @@ class AdamW:
                  update: UpdateFn = k1.fused_adamw_leaves,
                  sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
                  sparse_update: SparseUpdateFn = k7.sparse_adamw_step,
-                 slots: int = 1):
+                 slots: int = 1, grad_group: Optional[Group] = None):
         named = list(named_params)
+        self.grad_group = grad_group
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.decay = [decays(n) for n in self.names]
@@ -204,6 +193,11 @@ class AdamW:
         grads = [None if i in streams else
                  torch.zeros_like(p) if g is None else g.float().contiguous()
                  for i, (p, g) in enumerate(zip(self.params, grads))]
+        if self.grad_group is not None:
+            dense = [i for i, g in enumerate(grads) if g is not None]
+            for i, g in zip(dense, all_reduce_flat_([grads[i] for i in dense],
+                                                    self.grad_group)):
+                grads[i] = g
         if self.max_grad_norm and self.max_grad_norm > 0:
             grads = clip_by_global_norm(grads, self.max_grad_norm)
         if self._left == 0:
@@ -233,8 +227,8 @@ class AdamW:
 def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
                     num_warmup_steps: int, update: UpdateFn = k1.fused_adamw_leaves,
                     sparse: Optional[Dict[str, k7.StreamHandoff]] = None,
-                    sparse_update: SparseUpdateFn = k7.sparse_adamw_step
-                    ) -> Tuple[AdamW, Schedule]:
+                    sparse_update: SparseUpdateFn = k7.sparse_adamw_step,
+                    grad_group: Optional[Group] = None) -> Tuple[AdamW, Schedule]:
     beta1, beta2 = (float(x) for x in args.adam_betas.split(","))
     schedule = make_schedule(args.lr_sched, args.learning_rate,
                              num_warmup_steps, num_training_steps)
@@ -242,5 +236,5 @@ def build_optimizer(model: torch.nn.Module, args, num_training_steps: int,
                 args.adam_epsilon, args.weight_decay,
                 max_grad_norm=args.max_grad_norm or 0.0, update=update,
                 sparse=sparse, sparse_update=sparse_update,
-                slots=getattr(args, "steps_per_call", 1))
+                slots=getattr(args, "steps_per_call", 1), grad_group=grad_group)
     return opt, schedule

@@ -86,6 +86,8 @@ from map_tpu_torch.objectives.nce import (
     sampled_softmax_loss,
 )
 from map_tpu_torch.objectives.supervised import bce_loss, bce_with_logits
+from map_tpu_torch.parallel.collectives import global_count, reduce_sums
+from map_tpu_torch.parallel.mesh import Group
 from map_tpu_torch.train.optimizer import AdamW
 
 Batch = Dict[str, np.ndarray]
@@ -100,12 +102,16 @@ class ResidentData(NamedTuple):
     """The train split on the device (map_tpu `trainer.py:298-370`): x (N,
     F) int32, y (N,) float32, and with stream v2 `perm`, the epoch's order
     padded to whole batches (int32), which the Trainer rewrites in place
-    once an epoch, so that a captured step reads each epoch's."""
+    once an epoch, so that a captured step reads each epoch's. Under data
+    parallelism a rank reads rows [lo, lo + rows) of each global batch of
+    `batch_size` (`Batcher.block`); rows 0 means all of them."""
 
     x: torch.Tensor
     y: torch.Tensor
     perm: Optional[torch.Tensor]
     batch_size: int
+    lo: int = 0
+    rows: int = 0
 
 
 def is_index_batch(batch) -> bool:
@@ -138,11 +144,13 @@ def resident_batch(batch: Dict[str, torch.Tensor], data: ResidentData
     if "start" in batch:
         idx = data.perm.view(-1, data.batch_size).index_select(
             0, batch["start"].reshape(1)).reshape(-1)
+        if data.rows:
+            idx = idx[data.lo:data.lo + data.rows]
     else:
         idx = batch["index"]
     out = {"input_ids": data.x.index_select(0, idx),
            "labels": data.y.index_select(0, idx),
-           "weight": (torch.arange(idx.shape[0], device=idx.device)
+           "weight": (torch.arange(data.lo, data.lo + idx.shape[0], device=idx.device)
                       < batch["real_count"]).float()}
     if "noise_index" in batch:
         out["noise_rows"] = data.x.index_select(0, batch["noise_index"])
@@ -177,29 +185,41 @@ def streaming_sums(logits: torch.Tensor, labels: torch.Tensor, weight: torch.Ten
 
 def make_supervised_steps(model: torch.nn.Module, optimizer: AdamW,
                           device: torch.device, data: Optional[ResidentData] = None,
-                          streaming_bins: int = 0) -> Tuple[Step, Step]:
+                          streaming_bins: int = 0, dp: Optional[Group] = None
+                          ) -> Tuple[Step, Step]:
+    """`dp`: the data group under data parallelism (the loss over the
+    global count; the loss, and the streaming eval's sums, summed over it)."""
     def train_step(batch: Batch) -> Dict[str, torch.Tensor]:
         b = device_batch(batch, device, data)
         model.train()
         logits = model(b["input_ids"]).reshape(-1)
-        loss = bce_loss(logits, b["labels"], b["weight"])
+        loss = bce_loss(logits, b["labels"], b["weight"], global_count(b["weight"], dp))
         optimizer.zero_grad()
         loss.backward()
         optimizer.step()
-        return {"loss": loss.detach(), "probs": torch.sigmoid(logits.detach().float())}
+        return reduce_sums({"loss": loss.detach(),
+                            "probs": torch.sigmoid(logits.detach().float())}, ("loss",), dp)
 
     @torch.inference_mode()
     def eval_step(batch: Batch) -> Dict[str, torch.Tensor]:
         b = to_device(batch, device)
         model.eval()
         logits = model(b["input_ids"]).reshape(-1).float()
-        loss = bce_loss(logits, b["labels"], b["weight"])
+        loss = bce_loss(logits, b["labels"], b["weight"], global_count(b["weight"], dp))
         if streaming_bins:
-            return {"loss": loss, **streaming_sums(logits, b["labels"], b["weight"],
-                                                   int(streaming_bins))}
-        return {"loss": loss, "logits": logits, "probs": torch.sigmoid(logits)}
+            sums = streaming_sums(logits, b["labels"], b["weight"], int(streaming_bins))
+            return reduce_sums({"loss": loss, **sums}, ("loss", *sums), dp)
+        return reduce_sums({"loss": loss, "logits": logits, "probs": torch.sigmoid(logits)},
+                           ("loss",), dp)
 
     return train_step, eval_step
+
+
+def _rows_of(t: Optional[torch.Tensor], lo: int, n: int, per_row: int = 1
+             ) -> Optional[torch.Tensor]:
+    """Rows [lo, lo + n) of a global batch's draw (per_row entries a row
+    when it is flat)."""
+    return None if t is None else t[lo * per_row:(lo + n) * per_row]
 
 
 class MFPDraws(NamedTuple):
@@ -258,8 +278,13 @@ def draw_mfp(generator: torch.Generator, tables: NoiseTables, batch_size: int,
 def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
                    mask_ratio: float, sampling_method: str, tables: NoiseTables,
                    generator: torch.Generator, device: torch.device,
-                   shared_noise: bool = False, data: Optional[ResidentData] = None):
-    """-> (train_step(batch, draws=None), eval_step(batch, generator))."""
+                   shared_noise: bool = False, data: Optional[ResidentData] = None,
+                   dp: Optional[Group] = None):
+    """-> (train_step(batch, draws=None), eval_step(batch, generator)).
+    Under data parallelism (`dp`) the draws are the global batch's, made
+    alike on every rank from the shared generator, and each rank keeps its
+    rows (the shared noise sets are drawn once, the same everywhere); the
+    loss is over the global count and the metrics are summed over `dp`."""
     mask_num = corruption.mask_num_of(config.num_fields, mask_ratio)
     k = int(config.pt_neg_num)
     loss_type = config.nce_loss_type
@@ -304,13 +329,23 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
             else:
                 per_pos = sampled_softmax_loss(logits, cand_logq, norm)
             acc_count = mfp_accuracy_count(logits.detach(), w)
-        loss = (per_pos * w[:, None]).sum() / (torch.clamp_min(w.sum(), 1.0) * mask_num)
-        return loss, {"loss": loss.detach(), "count": w.sum() * mask_num,
-                      "acc_count": acc_count}
+        wsum = global_count(w, dp)
+        loss = (per_pos * w[:, None]).sum() / (torch.clamp_min(wsum, 1.0) * mask_num)
+        return loss, reduce_sums({"loss": loss.detach(), "count": w.sum() * mask_num,
+                                  "acc_count": acc_count},
+                                 ("loss", "count", "acc_count"), dp)
 
     def draw(gen, b) -> MFPDraws:
-        return draw_mfp(gen, tables, b["input_ids"].shape[0], config.num_fields,
-                        mask_num, k, sampling_method, shared_noise, full)
+        n = b["input_ids"].shape[0]
+        blocks, index = (1, 0) if dp is None else (dp.size, dp.index)
+        d = draw_mfp(gen, tables, n * blocks, config.num_fields, mask_num, k,
+                     sampling_method, shared_noise, full)
+        if blocks == 1:
+            return d
+        lo = index * n
+        if shared_noise:
+            return MFPDraws(_rows_of(d.masked_index, lo, n), d.noise, d.noise_logq)
+        return MFPDraws(*(_rows_of(t, lo, n) for t in d))
 
     def train_step(batch: Batch, draws: Optional[MFPDraws] = None
                    ) -> Dict[str, torch.Tensor]:
@@ -353,8 +388,9 @@ def handed_in(batch: Dict[str, torch.Tensor], kind) -> Optional[Tuple]:
 def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
                    mask_ratio: float, sampling_method: str, rfd_replace: str,
                    generator: torch.Generator, device: torch.device,
-                   data: Optional[ResidentData] = None):
-    """-> (train_step(batch, draws=None), eval_step(batch, generator))."""
+                   data: Optional[ResidentData] = None, dp: Optional[Group] = None):
+    """-> (train_step(batch, draws=None), eval_step(batch, generator)).
+    `dp` as `make_mfp_steps`'s: the global batch's draws, a rank's rows."""
     f = int(config.num_fields)
     mask_num = corruption.mask_num_of(f, mask_ratio)
 
@@ -368,18 +404,26 @@ def make_rfd_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
             b["input_ids"], draws, rfd_replace, idx_low, idx_high, b.get("noise_rows"))
         logits = model.rfd_logits(corrupted).float()
         w = b["weight"][:, None]
-        denom = torch.clamp_min(b["weight"].sum(), 1.0) * f
+        wsum = global_count(b["weight"], dp)
+        denom = torch.clamp_min(wsum, 1.0) * f
         loss = (bce_with_logits(logits, labels) * w).sum() / denom
         pred = (torch.sigmoid(logits.detach()) > 0.5).float()
         acc = ((pred == labels).float() * w).sum() / denom
         pos_ratio = (labels * w).sum() / denom
-        return loss, {"loss": loss.detach(), "count": denom, "acc": acc,
-                      "pos_ratio": pos_ratio}
+        return loss, reduce_sums({"loss": loss.detach(), "count": denom, "acc": acc,
+                                  "pos_ratio": pos_ratio}, ("loss", "acc", "pos_ratio"), dp)
 
     def draw(gen, b) -> corruption.RFDDraws:
-        return corruption.draw_rfd(gen, b["input_ids"].shape[0], f, mask_num,
-                                   sampling_method, rfd_replace, int(config.input_size),
-                                   device)
+        n = b["input_ids"].shape[0]
+        blocks, index = (1, 0) if dp is None else (dp.size, dp.index)
+        d = corruption.draw_rfd(gen, n * blocks, f, mask_num, sampling_method,
+                                rfd_replace, int(config.input_size), device)
+        if blocks == 1:
+            return d
+        lo = index * n
+        flat = rfd_replace in ("Uniform", "Whole-Unigram")  # (B * M,) draws
+        return corruption.RFDDraws(_rows_of(d.masked_index, lo, n),
+                                   _rows_of(d.replace, lo, n, mask_num if flat else 1))
 
     def train_step(batch: Batch, draws: Optional[corruption.RFDDraws] = None
                    ) -> Dict[str, torch.Tensor]:

@@ -41,6 +41,31 @@ test; MFP and RFD pretraining; finetune transfer. Counterpart:
   training (`checkpoints.partial_restore`); the checkpoint is the port's
   `{step}.model` or map_tpu's msgpack one, carried through `interop`.
 
+The parallel layer (map_tpu `trainer.py:74-87`, `:125-152`, `:172-205`,
+`:252-290`, `:310`, `:486-512`, `:703-721`; `parallel/`): the Trainer lays
+the world's ranks out as a (data, model) mesh (`parallel/mesh.build_mesh`;
+one rank without a process group is the 1 x 1 mesh and makes no
+collective). Under `table_sharding` rows (auto: when the model axis > 1)
+each vocabulary table keeps this rank's row block (`parallel/sharding`),
+and its lookups go through `table_exchange` ('psum', or 'hotcold' with
+`_build_hot_rows`; a typo raises). A rank reads its data block of every
+global batch (`_row_shard`); the steps normalise by the global count, sum
+their metrics and the dense gradients over the data group and draw the
+global batch's noise; FGCNN's BatchNorm takes the global batch's
+statistics. A multi-rank eval is the streaming AUC (its histograms summed
+over the data group) unless `exact_eval_allgather`, which gathers every
+example of each batch (one batch a call); `device_resident_data` auto is
+off with more than one rank (`on` still works); the sparse table update is
+off. Checkpoints are gathered: every rank takes part, rank 0 writes the
+same `{step}.model` and `resume.state` an unsharded run writes, and every
+load (finetune, test, resume) cuts the full tensors to this rank's blocks,
+moments with their tables. Only rank 0 writes metrics.jsonl (with
+`process_count`); the checkpoint writer's join is a barrier. The dispatch
+rule: under NCCL the collectives are captured in the graphs of
+`steps_per_call` steps; gloo (the CPU, or ranks sharing one card) cannot
+be captured, so there the Trainer runs one eager step a call, and its run
+header says so.
+
 The model comes built (`models.from_config`), as map_tpu's Trainer takes it;
 the dataset is any object with `X[split]` (N, F) int ids and `Y[split]` (N,)
 labels for "train", "valid" and "test", so an in-memory dataset serves as
@@ -133,11 +158,20 @@ import torch
 
 from map_tpu_torch import resolve_device
 from map_tpu_torch.config import Config, TrainingArguments
+from map_tpu_torch.data.dataset import NUM_RESERVED
 from map_tpu_torch.data.loader import Batcher
 from map_tpu_torch.nn.layers import set_dropout_generator
 from map_tpu_torch.objectives import alias
 from map_tpu_torch.objectives.corruption import mask_num_of
 from map_tpu_torch.ops import sparse_adamw
+from map_tpu_torch.parallel import context
+from map_tpu_torch.parallel.mesh import build_mesh, world_size
+from map_tpu_torch.parallel.sharding import (
+    gather_tables,
+    process_data_blocks,
+    shard_tables,
+    slice_tables,
+)
 from map_tpu_torch.train import checkpoints
 from map_tpu_torch.train.async_writer import (
     AsyncCheckpointWriter,
@@ -195,8 +229,22 @@ class Trainer:
         self.config = model_config
         self.args = training_args
         self.dataset = dataset
-        self._dropout_generator = torch.Generator(
-            device=self.device).manual_seed(training_args.seed)
+        self.world = world_size()
+        self.mesh = build_mesh(training_args.num_data_shards,
+                               training_args.num_model_shards)
+        mode = training_args.table_sharding
+        if mode == "auto":
+            mode = "rows" if self.mesh.num_model > 1 else "replicated"
+        self._table_mode = mode
+        self._shards: Dict[str, Any] = {}  # a table's name -> this rank's Shard
+        # gloo cannot be captured: one eager step a call (the run header says so)
+        self._eager_collectives = (self.mesh.distributed
+                                   and self.mesh.world.backend == "gloo")
+        self._spc = (1 if self._eager_collectives
+                     else max(1, int(training_args.steps_per_call)))
+        # ranks of one model group read the same rows, so draw the same masks
+        self._dropout_generator = torch.Generator(device=self.device).manual_seed(
+            training_args.seed + 1_000_003 * self.mesh.data_index)
         set_dropout_generator(self.model, self._dropout_generator)
 
         self.global_step = 0
@@ -223,15 +271,80 @@ class Trainer:
         self._ckpt_writer = AsyncCheckpointWriter()
         self._async_ckpt = bool(training_args.async_checkpoint)
         self._async_fetch = self._async_ckpt and bool(training_args.async_checkpoint_fetch)
-        self._streaming_bins = (int(training_args.auc_bins) if training_args.streaming_auc
-                                else 0)
+        streaming = bool(training_args.streaming_auc)
+        if not streaming and self.world > 1 and not training_args.exact_eval_allgather:
+            # map_tpu's multi-host default: no rank gathers every example
+            streaming = True
+            logger.info("multi-process eval: streaming-histogram AUC enabled by "
+                        "default (pass --exact_eval_allgather to override)")
+        self._streaming_bins = int(training_args.auc_bins) if streaming else 0
         self._profiler = None
         self.streaming_auc_bound: Optional[float] = None  # the last streaming eval's
         if model_config.mfp:
             self.noise = self._noise_tables()
         if training_args.finetune and training_args.pretrained_model_path:
             self.load_for_finetune(training_args.pretrained_model_path)
+        self._setup_mesh()
 
+    # ---- the parallel layer ----------------------------------------------------
+
+    def _setup_mesh(self) -> None:
+        """The table blocks and the context the steps read (map_tpu
+        `trainer.py:172-205`); called before any step is built."""
+        exch = str(self.args.table_exchange)
+        if exch not in context.EXCHANGES:
+            raise ValueError(f"table_exchange={exch!r} — valid: 'psum', 'hotcold' "
+                             "(a typo here must not silently fall back to psum)")
+        self._shards = shard_tables(self.model, self.mesh, self._table_mode)
+        context.set_mesh(self.mesh)
+        context.set_table_exchange("psum")
+        if self._shards and exch == "hotcold":
+            context.set_table_exchange("hotcold", self._build_hot_rows())
+        if self.mesh.distributed:
+            for g in (self.mesh.world, self.mesh.data_group, self.mesh.model_group):
+                g.all_reduce_(torch.zeros(1, device=self.device))  # warm-up, before capture
+        if self._shards:
+            logger.info(f"table sharding: rows over mesh {self.mesh.shape}; exchange = "
+                        + ("hot-prefix cache + capacity-bounded cold segments"
+                           if exch == "hotcold" else "masked gather + all_reduce"))
+
+    def _build_hot_rows(self) -> Dict[int, np.ndarray]:
+        """The hotcold exchange's hot ids (map_tpu `trainer.py:252-290` at pack
+        factor 1): the first `hot_rows_per_field` ids of every field's block
+        (the preprocessing orders a field's ids by falling frequency) and the
+        reserved ids (the <mask> id is the hottest of an MFP stream); every
+        table has V rows, so one list serves them all."""
+        cfg = self.config
+        if cfg.idx_low is None:
+            return {}
+        r = int(self.args.hot_rows_per_field)
+        hots = [np.arange(0, NUM_RESERVED)]
+        for lo, hi in zip(cfg.idx_low, cfg.idx_high):
+            stop = min(int(lo) + r, int(hi))
+            if stop > int(lo):
+                hots.append(np.arange(int(lo), stop))
+        return {int(cfg.input_size): np.unique(np.concatenate(hots)).astype(np.int32)}
+
+    def _row_shard(self) -> Optional[Tuple[int, int, int]]:
+        """(start_block, n_blocks, D): this rank's data blocks of a global
+        batch (map_tpu `_row_shard`), None with one rank."""
+        if self.world == 1:
+            return None
+        blocks, d = process_data_blocks(self.mesh)
+        return blocks[0], len(blocks), d
+
+    def _dp(self):
+        """The data group the steps reduce over, None without a process group."""
+        return self.mesh.data_group if self.mesh.distributed else None
+
+    def _full_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with every table whole (a collective over
+        the model group when tables are sharded)."""
+        sd = self.model.state_dict()
+        return gather_tables(sd, self._shards, self.mesh.model_group) if self._shards else sd
+
+    def _load_full_state_dict(self, sd: Dict[str, torch.Tensor]) -> None:
+        self.model.load_state_dict(slice_tables(sd, self._shards))
     def _noise_tables(self) -> NoiseTables:
         c = self.config
 
@@ -264,24 +377,30 @@ class Trainer:
         bs = (self.args.train_batch_size if is_training
               else self.args.eval_batch_size)
         m = self._noise_rows_per_example()
-        return Batcher(self.dataset.X[split], self.dataset.Y[split],
-                       batch_size=bs, shuffle=is_training, seed=self.args.seed,
-                       noise_source=self.dataset.X["train"] if m else None,
-                       noise_rows_per_example=m)
+        b = Batcher(self.dataset.X[split], self.dataset.Y[split],
+                    batch_size=bs, shuffle=is_training, seed=self.args.seed,
+                    noise_source=self.dataset.X["train"] if m else None,
+                    noise_rows_per_example=m)
+        b.row_shard = self._row_shard()
+        return b
 
     def build_steps(self, num_batches_per_epoch: int) -> None:
         self._t_total = int(num_batches_per_epoch * self.args.num_train_epochs)
         self._t_warmup = int(self._t_total * self.args.warmup_ratio)
+        context.set_mesh(self.mesh)
+        dp = self._dp()
         sparse = None
         if self.noise is not None:
             handoff = None
-            if sparse_adamw.engages(self.args.sparse_table_update,
-                                    self.args.pt_shared_noise, self.args.max_grad_norm):
+            if self.world == 1 and sparse_adamw.engages(
+                    self.args.sparse_table_update, self.args.pt_shared_noise,
+                    self.args.max_grad_norm):
                 handoff = sparse_adamw.StreamHandoff()
                 sparse = {"mfp_criterion.emb.weight": handoff}
             self.model.mfp_criterion.handoff = handoff
         self.optimizer, self.schedule = build_optimizer(
-            self.model, self.args, self._t_total, self._t_warmup, sparse=sparse)
+            self.model, self.args, self._t_total, self._t_warmup, sparse=sparse,
+            grad_group=dp)
         step_generator = None
         if self.noise is not None or self.config.rfd:
             step_generator = torch.Generator(device=self.device).manual_seed(
@@ -291,17 +410,18 @@ class Trainer:
             self.train_step, self.eval_step = make_mfp_steps(
                 self.model, self.optimizer, self.config, self.args.mask_ratio,
                 self.args.sampling_method, self.noise, step_generator,
-                self.device, shared_noise=self.args.pt_shared_noise, data=self._data)
+                self.device, shared_noise=self.args.pt_shared_noise, data=self._data,
+                dp=dp)
         elif self.config.rfd:
             self.train_step, self.eval_step = make_rfd_steps(
                 self.model, self.optimizer, self.config, self.args.mask_ratio,
                 self.args.sampling_method, self.args.RFD_replace, step_generator,
-                self.device, data=self._data)
+                self.device, data=self._data, dp=dp)
         else:
             self.train_step, self.eval_step = make_supervised_steps(
                 self.model, self.optimizer, self.device, data=self._data,
-                streaming_bins=self._streaming_bins)
-        self.multi = MultiStep(self.train_step, self.args.steps_per_call, self.optimizer,
+                streaming_bins=self._streaming_bins, dp=dp)
+        self.multi = MultiStep(self.train_step, self._spc, self.optimizer,
                                self.device, (step_generator, self._dropout_generator))
         self._retire_evals()
 
@@ -319,6 +439,19 @@ class Trainer:
         logger.info(f"  weight_decay = {self.args.weight_decay}")
         logger.info(f"  lr_sched = {self.args.lr_sched}")
         logger.info(f"  device = {self.device}")
+        logger.info(f"  mesh = {self.mesh.num_data} x {self.mesh.num_model} (data x model), "
+                    f"{self.world} rank(s), backend = {self.mesh.world.backend or 'none'}, "
+                    f"table sharding = {self._table_mode}")
+        logger.info("  dispatch = " + (
+            "one eager step a call (gloo collectives cannot be captured)"
+            if self._eager_collectives else
+            f"{self._spc} steps a call" + (", collectives captured"
+                                           if self.mesh.distributed else "")))
+        if (self._shards and str(self.args.table_exchange) == "hotcold"
+                and not self._eager_collectives and self._spc > 1):
+            logger.info("  table exchange = hotcold captured in the graphs: each lookup "
+                        "runs both branches (the full masked gather and the cold segment) "
+                        "and selects on the card, more gather and scatter work than psum")
 
     def _crossed(self, prev: int, every: int) -> bool:
         """A call that moved global_step from prev crossed a multiple of every."""
@@ -341,7 +474,8 @@ class Trainer:
         the device too) unless the batches carry RFD noise rows."""
         self._data, self._stream_v2, self._perm_epoch = None, False, -1
         mode = self.args.device_resident_data
-        if mode == "off":
+        if mode == "off" or (mode == "auto" and self.world > 1):
+            # map_tpu `trainer.py:310`: each rank would hold the whole matrix
             return
         x = self.dataset.X["train"]
         budget = float(self.args.device_data_budget_gb) * 1e9
@@ -355,12 +489,13 @@ class Trainer:
                            f"{budget/1e9:.1f} — the upload may OOM the device")
         self._stream_v2 = self._noise_rows_per_example() == 0
         bs = batcher.batch_size
+        lo, rows = batcher.block()
         self._data = ResidentData(
             torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(self.device),
             torch.from_numpy(np.ascontiguousarray(self.dataset.Y["train"],
                                                   dtype=np.float32)).to(self.device),
             (torch.zeros(len(batcher) * bs, dtype=torch.int32, device=self.device)
-             if self._stream_v2 else None), bs)
+             if self._stream_v2 else None), bs, lo, rows if self.world > 1 else 0)
         logger.info(f"device-resident data: on ({x.nbytes/1e9:.2f} GB train matrix in HBM; "
                     "per-step transfer = "
                     + ("batch number only (resident epoch permutation)"
@@ -457,9 +592,13 @@ class Trainer:
             if key.split("+")[0] in ("mfp", "rfd"):
                 gen = self._eval_generator
                 step, gens = (lambda b: self.eval_step(b, gen)), (gen,)
-            d = self._evals[key] = MultiEval(step, self.args.steps_per_call, self.device,
-                                             gens)
+            d = self._evals[key] = MultiEval(step, self._eval_spc(key), self.device, gens)
         return d
+
+    def _eval_spc(self, key: str) -> int:
+        """Eval batches a call: one for a multi-rank exact eval, whose
+        examples are gathered batch by batch (map_tpu `trainer.py:244-246`)."""
+        return 1 if key == "eval" and self.world > 1 else self._spc
 
     def _retire_evals(self) -> None:
         """Drop the eval dispatches (their steps are rebuilt); their launches
@@ -498,7 +637,7 @@ class Trainer:
             self._eval_generator.manual_seed(self.args.seed + 2)
         if self._copy_stream is not None:
             batcher.alloc = self._pinned
-        spc = max(1, int(self.args.steps_per_call))
+        spc = self._eval_spc(kind)
         batches = (batcher.epoch_stacked(spc, 0) if spc > 1
                    else ((1, b, [b]) for b in batcher.epoch(0)))
         if draws is not None:  # on the host here, before any capture of this pass
@@ -526,7 +665,7 @@ class Trainer:
         batcher.emit_start_only = self._data is not None and self._stream_v2
         if batcher.emit_start_only:
             self._ensure_epoch_perm(epoch, batcher)
-        spc = max(1, int(self.args.steps_per_call))
+        spc = self._spc
         batches = (batcher.epoch_stacked(spc, epoch, start_batch) if spc > 1
                    else ((1, b, [b]) for b in batcher.epoch(epoch, start_batch)))
         for n, dev_batch, views in self._grouped_stream(batches):
@@ -579,7 +718,9 @@ class Trainer:
                             "window_loss": float(loss_w.mean()),
                             "examples_per_sec": round(w.sum() / max(dt, 1e-9)),
                             "time_cost": round(dt, 3)}
-                    logger.info(f"step = {self.global_step}, {_log}")
+                    tag = (f" [shard-local metrics, 1 of {self.world} processes]"
+                           if self.world > 1 else "")
+                    logger.info(f"step = {self.global_step}, {_log}{tag}")
                     self.train_windows.append({"step": self.global_step, **_log})
                     self._emit_metrics("train_window", _log)
                     losses, probs, labels, weights = [], [], [], []
@@ -719,9 +860,9 @@ class Trainer:
         and shape match (map_tpu's `load_for_finetune`)."""
         self._join_ckpt_writer()
         merged, loaded, skipped = checkpoints.partial_restore(
-            self.model.state_dict(), checkpoints.load_any_model_file(model_path,
+            self._full_state_dict(), checkpoints.load_any_model_file(model_path,
                                                                      self.config))
-        self.model.load_state_dict(merged)
+        self._load_full_state_dict(merged)
         self.finetune_counts = (loaded, skipped)
         logger.info(f"finetune restore: {loaded} tensors loaded, {skipped} skipped")
 
@@ -751,6 +892,13 @@ class Trainer:
                 probs.append(m["probs"].reshape(-1))
                 labels.extend(v["labels"] for v in views)
                 weights.extend(v["weight"] for v in views)
+                if self.world > 1:  # the global batch's rows, in block order
+                    logits[-1], probs[-1], labels[-1], weights[-1] = (
+                        self.mesh.data_group.all_gather(torch.as_tensor(r, device=self.device))
+                        .reshape(-1) for r in (logits[-1], probs[-1], labels[-1], weights[-1]))
+            if self.world > 1:
+                labels = [t.cpu().numpy() for t in labels]
+                weights = [t.cpu().numpy() for t in weights]
             w = np.concatenate(weights) > 0
             logits_h = torch.cat(logits).cpu().numpy().astype(np.float64)[w]
             probs_h = torch.cat(probs).cpu().numpy().astype(np.float64)[w]
@@ -818,7 +966,7 @@ class Trainer:
         self._streaming_bins = int(new_bins)
         _, self.eval_step = make_supervised_steps(
             self.model, self.optimizer, self.device, data=self._data,
-            streaming_bins=self._streaming_bins)
+            streaming_bins=self._streaming_bins, dp=self._dp())
         self._retire_evals()
 
     # ---- run management --------------------------------------------------------
@@ -852,24 +1000,31 @@ class Trainer:
         prof.export_chrome_trace(os.path.join(out, f"trace_{self.global_step}.json"))
 
     def _train_state(self) -> Dict[str, Any]:
-        """The live tensors and host state a resume restores."""
+        """The live tensors and host state a resume restores, every table
+        (and its moments) whole."""
         gens = {"dropout": self._dropout_generator.get_state(),
                 "step": (None if self._step_generator is None
                          else self._step_generator.get_state())}
-        return {"model": self.model.state_dict(),
-                "optimizer": {"names": list(self.optimizer.names),
-                              "count": self.optimizer.count,
-                              "mu": list(self.optimizer.mu), "nu": list(self.optimizer.nu)},
+        opt = self.optimizer
+        moments = [gather_tables(dict(zip(opt.names, seq)), self._shards,
+                                 self.mesh.model_group) for seq in (opt.mu, opt.nu)]
+        return {"model": self._full_state_dict(),
+                "optimizer": {"names": list(opt.names), "count": opt.count,
+                              "mu": [moments[0][n] for n in opt.names],
+                              "nu": [moments[1][n] for n in opt.names]},
                 "generators": gens}
 
     @torch.no_grad()
     def _restore_train_state(self, state: Dict[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
+        self._load_full_state_dict(state["model"])
         opt = state["optimizer"]
-        if list(opt["names"]) != list(self.optimizer.names):
+        names = list(self.optimizer.names)
+        if list(opt["names"]) != names:
             raise ValueError("resume state: the optimizer's parameters differ from the model's")
-        for live, saved in zip(self.optimizer.mu + self.optimizer.nu, opt["mu"] + opt["nu"]):
-            live.copy_(saved)
+        for lives, saved in ((self.optimizer.mu, opt["mu"]), (self.optimizer.nu, opt["nu"])):
+            cut = slice_tables(dict(zip(names, saved)), self._shards)
+            for live, name in zip(lives, names):
+                live.copy_(cut[name])
         self.optimizer.rewind(int(opt["count"]))
         gens = state["generators"]
         self._dropout_generator.set_state(gens["dropout"])
@@ -901,9 +1056,10 @@ class Trainer:
                 "best_eval_step": self.best_eval_step, "patience": self._patience,
                 "eval_metrics": [list(m) for m in self.eval_metrics]}
         out = self.args.output_dir
-        self._write(self._train_state(),
-                    lambda host: checkpoints.save_train_state(out, host, meta),
-                    f"resume-{self.global_step}")
+        state = self._train_state()  # every rank takes part; rank 0 writes
+        if self.mesh.rank == 0:
+            self._write(state, lambda host: checkpoints.save_train_state(out, host, meta),
+                        f"resume-{self.global_step}")
 
     def _write(self, tensors: Any, save, label: str) -> None:
         """save(host copy of `tensors`): on this thread, or by the writer
@@ -918,13 +1074,21 @@ class Trainer:
             save(host_copy(tensors))
 
     def _join_ckpt_writer(self) -> None:
+        """The writer's saves on disk; with several ranks a barrier, so no
+        rank reads a checkpoint rank 0 is still writing."""
         self._ckpt_writer.wait()
+        if self.world > 1:
+            self.mesh.world.barrier()
 
     def _emit_metrics(self, kind: str, payload: Dict[str, Any]) -> None:
         """One line of `{output_dir}/metrics.jsonl`: kind, step, time and the
         payload, numpy numbers as Python ones, a non-finite float as null."""
+        if self.mesh.rank != 0:
+            return
         rec: Dict[str, Any] = {"kind": kind, "step": self.global_step,
                                "time": round(time.time(), 3)}
+        if self.world > 1:
+            rec["process_count"] = self.world
         for k, v in payload.items():
             if isinstance(v, (np.floating, np.integer)):
                 v = v.item()
@@ -946,12 +1110,14 @@ class Trainer:
             if limit:
                 checkpoints.prune_checkpoints(model_dir, limit)
 
-        self._write(self.model.state_dict(), save, f"model-{step}")
+        state = self._full_state_dict()  # every rank takes part; rank 0 writes
+        if self.mesh.rank == 0:
+            self._write(state, save, f"model-{step}")
         return checkpoints.model_checkpoint_path(model_dir, step)
 
     def load_model(self, load_step: int, model_dir: str) -> None:
         self._join_ckpt_writer()  # the step being read may still be in flight
-        self.model.load_state_dict(checkpoints.load_model(model_dir, load_step))
+        self._load_full_state_dict(checkpoints.load_model(model_dir, load_step))
 
     def test(self, load_step: int = -1, model_dir: Optional[str] = None
              ) -> Dict[str, float]:

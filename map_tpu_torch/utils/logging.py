@@ -13,16 +13,20 @@ import shutil
 import sys
 
 
-def setup_logging(output_dir: str) -> logging.Logger:
+def setup_logging(output_dir: str, process_index: int = 0) -> logging.Logger:
+    """Rank 0 logs at INFO to the console and train.log; any other rank
+    warnings only, to the console (map_tpu's `setup_logging`)."""
     os.makedirs(output_dir, exist_ok=True)
     root = logging.getLogger()
-    root.setLevel(logging.INFO)
+    root.setLevel(logging.INFO if process_index == 0 else logging.WARNING)
     for h in list(root.handlers):  # repeated setup (tests) must not duplicate
         root.removeHandler(h)
     fmt = logging.Formatter("%(message)s")
     sh = logging.StreamHandler(sys.stdout)
     sh.setFormatter(fmt)
     root.addHandler(sh)
+    if process_index != 0:
+        return root
     fh = logging.FileHandler(filename=train_log_path(output_dir), mode="w")
     fh.setFormatter(fmt)
     root.addHandler(fh)

@@ -1585,3 +1585,66 @@ def test_pipelined_predictor_is_the_eager_forward(dev, tmp_path, compress, prefe
     with pytest.raises(ValueError, match="leave"):
         pred.predict_logits(bad)
     np.testing.assert_array_equal(pred.predict_logits(ids), got)
+
+
+# ---- the parallel layer -------------------------------------------------------
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("v,num,index", [(1013519, 2, 1), (1001, 4, 3), (5000, 3, 0)])
+def test_shard_local_gather_and_scatter_match_the_plain_versions(dev, v, num, index,
+                                                                 out_dtype):
+    """K4 on a row block with the ids it does not own clamped (and zeroed
+    after), K3 on the owned positions (the others dropped into the spare
+    rows): bit-exact against their plain versions on the same inputs, and
+    the block's gradient equal to the whole table's rows."""
+    from map_tpu_torch.parallel import embedding as pe
+    from map_tpu_torch.parallel.sharding import shard_rows
+
+    s = shard_rows(v, num, index)
+    g = torch.Generator(device=dev).manual_seed(v)
+    block = torch.randn(s.rows, 16, device=dev, generator=g)
+    ids = torch.randint(0, v, (4096, 24), device=dev, generator=g, dtype=torch.int32)
+    ids[0, :4] = torch.tensor([s.lo, s.lo + s.rows - 1, 0, v - 1], device=dev)
+    local, own = pe._owned(ids, s.lo, s.rows)
+    safe = torch.where(own, local, 0).to(torch.int32)
+    before = embedding.launches
+    got = embedding.embedding_lookup(block, safe, out_dtype)
+    assert embedding.launches == before + 1
+    assert torch.equal(got, embedding.embedding_lookup_plain(block, safe, out_dtype))
+    masked = pe.masked_gather(block, ids, s)
+    assert torch.equal(masked[own], block[local[own].long()])
+    assert not masked[~own].any()
+    grads = torch.randn(4096, 24, 16, device=dev, generator=g).to(out_dtype or torch.float32)
+    lids = pe.local_ids(ids, s)
+    before = scatter.launches
+    got_g = scatter.scatter_add(lids, grads, s.rows + pe.SPARE)
+    assert scatter.launches == before + 1
+    assert torch.equal(got_g, scatter.scatter_add_plain(lids, grads, s.rows + pe.SPARE))
+    whole = scatter.scatter_add_plain(ids, grads, v)
+    assert torch.equal(pe.local_scatter(ids, grads, s), whole[s.lo:s.lo + s.rows])
+
+
+def test_nccl_one_rank_graph_path_is_bit_equal_to_no_process_group(dev, tmp_path):
+    """One rank under NCCL (a 1 x 1 mesh: the loss's global count, the
+    metrics and the flat gradient buffer go through all_reduce, captured in
+    the graphs of 4 steps) against the same run without a process group:
+    parameters, buffers and moments bit-equal."""
+    import torch.distributed as dist
+
+    from map_tpu_torch.parallel.launch import free_port
+
+    ref = _EpochCap.run(_graph_trainer(dev, "supervised", "bfloat16", "on", 4, groups=2))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        got = _EpochCap.run(_graph_trainer(dev, "supervised", "bfloat16", "on", 4,
+                                           groups=2))
+        assert got.mesh.distributed and got.mesh.world.backend == "nccl"
+        assert got.multi.graphed and got.multi.graphs[4].replays > 0
+    finally:
+        dist.destroy_process_group()
+    a, b = _train_state(ref), _train_state(got)
+    for k in a["model"]:
+        assert torch.equal(a["model"][k], b["model"][k]), k
+    for x, y in zip(a["mu"] + a["nu"], b["mu"] + b["nu"]):
+        assert torch.equal(x, y)
