@@ -217,11 +217,35 @@ each; any failure ends the run with a nonzero exit code.
    distance to one rank recorded by leaf and by step; bf16's band
    recorded; the ranks' bits equal; hotcold's overflow 0 with each rank's
    cold segment; the (1, 2) mesh's checkpoint equal to one rank's; each
-   rank's launches;
+   rank's launches; and the data-parallel f32 run once more from the
+   memmap mode, both ranks materializing the phase's data into one empty
+   directory at once (one writes, the other waits), bit-equal to the run
+   in RAM (`parallel_memmap`);
+10h. the >RAM memmap mode and the native batch gather (`memmap_phase`):
+   the supervised data of phase 7 written through the memmap writer core
+   from memory (chunks of 40,000 rows scattered over the three splits) and
+   opened by CTRDataset under a 1 MB host budget; supervised bf16 and MFP
+   per-position k = 25 at full width, resident data `auto` (uploaded from
+   the memmap) and `off` (every batch gathered by the native gather from
+   the memmap): 16 graph-path steps, 32 more timed, then an eval, bit-equal
+   to the in-RAM run from the same weights; every host gather of those
+   runs by the native gather; K4, K3, K1, K2 (K5, K8) launched; host ms to
+   gather a batch of 4096 x 24 and a group of 8, native against np.take,
+   from RAM and the warm memmap; the alias table by the host library
+   against the loop at V = 1,013,519;
+10i. the layers no model calls (`layers_phase`: `nn/extras.py` and the five
+   of `nn/layers.py`) at 24 fields, embed 16, batch 4096: forward and
+   backward in f32 on the card and on the CPU against the same module in
+   f64 on the CPU, the card's error within 8 times the CPU's f32 error
+   plus 1e-5 of the largest value;
+10j. the preprocessing CLIs' modules import without pandas, h5py and
+   sklearn, and the legacy StratifiedKFold gives map_tpu's pin
+   (`preprocess_phase`);
 11. the `kernels` line (launches from the RFD run of 7b for K1-K4 and K6,
    from the per-field shared run of 8b for K5, K7 and K8, plus each zoo
    model's graph path, the validation's five stages, the grouped eval
-   phase, the serving phase and the parallel phase's runs;
+   phase, the serving phase, the parallel phase's runs and the memmap
+   phase's;
    `launches_by_path` gives each), nvidia-smi's line, and last
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -241,6 +265,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -2421,6 +2446,7 @@ TOL_PARALLEL_F32 = 1e-5  # loss and every parameter, two ranks against one
 # rounding moved fc_out.bias, one sum of 4096 terms that cancel, by 1.02e-5)
 TOL_PARALLEL_DP_LOSS, TOL_PARALLEL_DP_AUC, TOL_PARALLEL_DP_GRAD = 1e-4, 2e-5, 1e-4
 PARALLEL_CKPT_RUN = "rows 1x2 psum supervised float32"  # saved, against one rank's
+PARALLEL_MEMMAP_RUN = "dp 2x1 supervised float32"  # again, from the memmap mode
 PARALLEL_TIMEOUT_S = 300
 
 
@@ -2621,7 +2647,7 @@ def parallel_worker(args) -> int:
     cfg = base_cfg(vocab, lo, hi)
     data = parallel_data(args.seed, PARALLEL_STEPS)
     work = args.parallel_work
-    out = {}
+    out, ram_ref = {}, None
     for name, d, m, exch, kind, hybrid in PARALLEL_RUNS:
         for dname in PARALLEL_DTYPES:
             run = f"{name} {dname}"
@@ -2663,6 +2689,8 @@ def parallel_worker(args) -> int:
             if run == PARALLEL_CKPT_RUN:
                 trainer.save_model(os.path.join(work, "ckpt_rows"))
                 trainer._join_ckpt_writer()
+            if run == PARALLEL_MEMMAP_RUN:
+                ram_ref = (losses.clone(), {k: v.cpu() for k, v in full.items()})
             out[run] = dict(mesh=[d, m], exchange=exch, steps=len(losses),
                             wall_s=wall, loss_err=max(loss_errs), loss_errs=loss_errs,
                             param_err=param_err, split_equal=split_equal,
@@ -2674,11 +2702,53 @@ def parallel_worker(args) -> int:
                             finite=bool(torch.isfinite(losses).all()))
             del trainer, full, ref, diffs
             torch.cuda.empty_cache()
+    memmap = parallel_memmap_run(args, cfg, data, work, ram_ref)
     print("PARALLEL_RANK " + json.dumps({"rank": int(os.environ["RANK"]), "world": world,
-                                         "runs": out}), flush=True)
+                                         "runs": out, "memmap": memmap}), flush=True)
     torch.distributed.destroy_process_group()
     return 0
 
+
+
+def parallel_memmap_run(args, cfg, data, work, ram_ref) -> dict:
+    """A rank's PARALLEL_MEMMAP_RUN from the memmap mode: both ranks
+    materialize the phase's data into `work/memmap` at once (its meta and
+    split written by the parent), open it under a 1 MB host budget, and run
+    the same steps as in RAM; their batches gathered by the native gather
+    from the memmap -> whether this rank wrote, and the run equal to
+    `ram_ref` (losses, the whole state) bit for bit."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.data import artifacts, native
+    from map_tpu_torch.data.dataset import CTRDataset
+    from map_tpu_torch.train.trainer import Trainer
+
+    d = os.path.join(work, "memmap")
+    x, y, splits = memmap_layout(data, args.seed)
+    t0 = time.perf_counter()
+    wrote = artifacts.materialize_split_memmaps(d, MEMMAP_NAME, splits,
+                                                source=memmap_source(x, y)) is not None
+    materialize_s = time.perf_counter() - t0
+    ds = CTRDataset(d, MEMMAP_NAME, host_data_budget_mb=1)
+    name, dp, mp, exch, kind, hybrid = next(r for r in PARALLEL_RUNS
+                                            if f"{r[0]} float32" == PARALLEL_MEMMAP_RUN)
+    c = parallel_cfg(cfg, kind, "float32", data, hybrid)
+    targs = parallel_targs(os.path.join(work, "rank_runs", "memmap " + PARALLEL_MEMMAP_RUN),
+                           kind, "float32", args.seed, dp, mp, exch, hybrid=hybrid)
+    trainer = Trainer(models.from_config(c, torch.Generator().manual_seed(args.seed)), c,
+                      targs, ds)
+    calls = native.calls()
+    losses = parallel_steps(trainer)
+    full = trainer._full_state_dict()
+    equal = (ram_ref is not None and torch.equal(losses, ram_ref[0])
+             and all(torch.equal(full[k].cpu(), ram_ref[1][k]) for k in ram_ref[1]))
+    out = dict(wrote=wrote, materialize_s=materialize_s, memory_mapped=ds.memory_mapped,
+               steps=len(losses), native_gathers=native.calls() - calls,
+               equal_to_ram=bool(equal))
+    del trainer, full
+    torch.cuda.empty_cache()
+    return out
 
 def base_cfg(vocab, lo, hi):
     """The smoke's full-width DCNv2 (phase 6's)."""
@@ -2805,6 +2875,11 @@ def parallel_two_ranks(args, cfg, work) -> dict:
             dp_witness(args, parallel_cfg(cfg, kind, "float32", data, hybrid), work,
                        parallel_variant(kind, hybrid, "float32"), hybrid)
 
+    # the memmap run's directory: its meta and split only; both ranks write
+    # the split files into it at once (one writes, the other waits)
+    _, _, mm_splits = memmap_layout(data, args.seed)
+    write_memmap_meta(os.path.join(work, "memmap"), cfg.input_size, mm_splits)
+
     # two ranks on the card, gloo; the kernels were built above, so no
     # rank runs nvcc; a rank that fails fails the phase
     port = free_port()
@@ -2830,6 +2905,14 @@ def parallel_two_ranks(args, cfg, work) -> dict:
     for rep in reports:
         for run, res in rep["runs"].items():
             emit("parallel_rank", rank=rep["rank"], run=run, **res)
+    mm = [rep["memmap"] for rep in reports]
+    emit("parallel_memmap", run=PARALLEL_MEMMAP_RUN, ranks=mm)
+    check(f"parallel (b) {PARALLEL_MEMMAP_RUN} on the memmap: both ranks materialized into "
+          "one empty directory at once, one wrote, the other waited",
+          sorted(x["wrote"] for x in mm) == [False, True] and all(x["memory_mapped"] for x in mm),
+          ranks=mm)
+    check(f"parallel (b) {PARALLEL_MEMMAP_RUN} on the memmap: bit-equal to the run in RAM "
+          "(losses, every parameter)", all(x["equal_to_ram"] for x in mm))
     bands = {}
     for run in reports[0]["runs"]:
         rs = [rep["runs"][run] for rep in reports]
@@ -2885,6 +2968,358 @@ def parallel_two_ranks(args, cfg, work) -> dict:
     return {"bf16_band": bands, "launches_two_ranks": totals,
             "launches": {rep["rank"]: {run: res["launches"] for run, res in rep["runs"].items()}
                          for rep in reports}}
+
+
+MEMMAP_NAME = "smoke"
+MEMMAP_CHUNK_ROWS = 40_000  # several chunks, each scattered over the three splits
+MEMMAP_STEPS = 2 * GRAPH_SPC  # a warm-up call and a captured replay
+MEMMAP_TIMED_STEPS = 4 * GRAPH_SPC  # then timed, on the host clock
+MEMMAP_GATHER_REPS = 50
+# the zoo-less layers: the card's f32 error against the same module in f64
+# on the CPU within TOL_LAYERS times the CPU's own f32 error plus
+# TOL_LAYERS_REL of the tensor's largest value: the gradients are sums of
+# 4096 x 24 terms, some of which cancel, so their rounding follows the
+# order of the sum (the card's and the CPU's differ), not the result's size
+TOL_LAYERS, TOL_LAYERS_REL = 8.0, 1e-5
+
+
+def memmap_layout(data, seed: int):
+    """The smoke's three splits as one (N, F) matrix in a shuffled file
+    order -> (x, y, splits): file row r holds row perm[r] of the splits'
+    concatenation; `splits` gives each split's rows in the file, in its
+    order, so the memmap writer scatters every chunk over all three."""
+    names = ("train", "valid", "test")
+    x = np.concatenate([np.asarray(data.X[s]) for s in names])
+    y = np.concatenate([np.asarray(data.Y[s]) for s in names])
+    perm = np.random.default_rng(seed + 29).permutation(len(y))
+    at = np.empty_like(perm)
+    at[perm] = np.arange(len(perm))  # the file row of each concatenated row
+    ends = np.cumsum([len(data.Y[s]) for s in names])
+    splits = {s: at[a:b] for s, a, b in zip(names, np.r_[0, ends[:-1]], ends)}
+    return x[perm], y[perm], splits
+
+
+def write_memmap_meta(directory: str, vocab: int, splits) -> None:
+    """The meta JSON (a feat_map of `vocab` ids, the smoke's fields) and
+    split.pkl of a dataset whose rows come from memory, not an h5."""
+    from map_tpu_torch.data import artifacts
+
+    os.makedirs(directory, exist_ok=True)
+    fields = [f"f{i}" for i in range(len(FIELD_SIZES))]
+    artifacts.write_meta(directory, MEMMAP_NAME, fields, {str(i): i for i in range(vocab)},
+                         {"<rsv>": 0, **{f: i + 1 for i, f in enumerate(fields)}})
+    artifacts.write_split(directory, splits)
+
+
+def memmap_source(x, y, chunk_rows: int = MEMMAP_CHUNK_ROWS):
+    """(total, fields, chunks) for `artifacts.materialize_split_memmaps`."""
+    return len(y), x.shape[1], ((x[i:i + chunk_rows], y[i:i + chunk_rows])
+                                for i in range(0, len(y), chunk_rows))
+
+
+@contextlib.contextmanager
+def counting_takes():
+    """Counts the Batcher's gathers (`Batcher._take`) while it is open ->
+    a dict whose 'takes' grows."""
+    from map_tpu_torch.data.loader import Batcher
+
+    seen = {"takes": 0}
+    take = Batcher._take
+    lock = threading.Lock()  # the prefetch thread gathers too
+
+    def counted(self, src, idx):
+        with lock:
+            seen["takes"] += 1
+        return take(self, src, idx)
+
+    Batcher._take = counted
+    try:
+        yield seen
+    finally:
+        Batcher._take = take
+
+
+def memmap_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
+    """10h. The >RAM memmap mode: the smoke's supervised data written
+    through the memmap writer core (`artifacts.materialize_split_memmaps`
+    from rows in memory, MEMMAP_CHUNK_ROWS a chunk, scattered over the
+    splits) and opened by CTRDataset under a 1 MB host budget; then, for
+    supervised bf16 and MFP per-position k = 25 DCNv2 at full width, under
+    `device_resident_data` auto (the train matrix uploaded from the memmap)
+    and off (every batch gathered on the host by the native gather from
+    the memmap): MEMMAP_STEPS graph-path steps, MEMMAP_TIMED_STEPS more
+    on the host clock, then an eval, bit-equal to the same run from the
+    in-RAM dataset with the same weights; the native
+    gather serving every host batch of those runs (a call count); its rows
+    bit-equal to np.take; the launches of K4, K3, K1, K2 (K5, K8 in MFP);
+    host ms to gather a TRAIN_BATCH x 24 batch and a group of GRAPH_SPC,
+    native against np.take, from RAM and from the warm memmap; wall ms a
+    step, memmap against RAM;
+    the alias build by the host library against map_tpu's loop at V."""
+    import torch
+
+    from map_tpu_torch import models
+    from map_tpu_torch.data import artifacts, native
+    from map_tpu_torch.data.dataset import CTRDataset, compute_feat_count
+    from map_tpu_torch.objectives import alias
+    from map_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_memmap_")
+    lo, hi, vocab = field_blocks()
+    d = os.path.join(work, "data")
+    x, y, splits = memmap_layout(data, args.seed)
+    write_memmap_meta(d, vocab, splits)
+    t0 = time.perf_counter()
+    ranges = artifacts.materialize_split_memmaps(d, MEMMAP_NAME, splits,
+                                                 source=memmap_source(x, y))
+    materialize_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = CTRDataset(d, MEMMAP_NAME, pretrain=True, host_data_budget_mb=1)
+    open_s = time.perf_counter() - t0
+    same = all(np.array_equal(np.asarray(ds.X[s]), data.X[s])
+               and np.array_equal(np.asarray(ds.Y[s]), data.Y[s]) for s in splits)
+    check("memmap: the written splits are the in-RAM arrays, bit for bit, opened "
+          "memory-mapped", ds.memory_mapped and isinstance(ds.X["train"], np.memmap)
+          and same and ranges is not None and np.array_equal(ds.idx_low, x.min(0))
+          and np.array_equal(ds.idx_high, x.max(0) + 1)
+          and np.array_equal(ds.feat_count, compute_feat_count(data.X["train"], vocab)),
+          rows=len(y), chunks=-(-len(y) // MEMMAP_CHUNK_ROWS))
+
+    # the native gather against np.take, from RAM and from the warm memmap:
+    # a batch of TRAIN_BATCH rows, and a graph call's group of GRAPH_SPC
+    # batches (`Batcher.epoch_stacked`), each into an array made once
+    gather = {}
+    draw = np.random.default_rng(args.seed + 31)
+    for shape_name, shape in (("batch", (TRAIN_BATCH,)), ("group", (GRAPH_SPC, TRAIN_BATCH))):
+        idx = draw.integers(0, len(data.Y["train"]), shape)
+        out = np.empty(shape + (len(FIELD_SIZES),), np.int32)
+        for src_name, src in (("ram", data.X["train"]), ("memmap", ds.X["train"])):
+            want = np.take(np.asarray(data.X["train"]), idx, axis=0)
+            check(f"memmap: native rows from {src_name} ({shape_name}) bit-equal to np.take",
+                  np.array_equal(native.take(src, idx), want)
+                  and np.array_equal(np.take(src, idx, axis=0, mode="clip"), want))
+            for how, fn in (("native", lambda s=src: native.take(s, idx, out)),
+                            ("np_take", lambda s=src: np.take(s, idx, axis=0, mode="clip",
+                                                              out=out))):
+                fn()
+                ts = []
+                for _ in range(MEMMAP_GATHER_REPS):
+                    t0 = time.perf_counter()
+                    fn()
+                    ts.append((time.perf_counter() - t0) * 1e3)
+                gather[f"{how}_{src_name}_{shape_name}_ms"] = float(np.median(ts))
+    probs = alias.noise_distribution(ds.feat_count)
+    t0 = time.perf_counter()
+    loop = alias.build_alias_table(probs)
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = alias.build_alias_table(probs, native=True)
+    native_s = time.perf_counter() - t0
+    check("memmap: the host library's alias table bit-equal to the loop's, V = "
+          f"{vocab}", all(np.array_equal(a, b) for a, b in zip(loop, built)),
+          loop_s=loop_s, native_s=native_s)
+
+    runs, launches, walls = {}, {}, {}
+    for kind in ("supervised", "mfp"):
+        for resident in ("auto", "off"):
+            for src_name in ("ram", "memmap"):
+                ds_k = data if src_name == "ram" else ds
+                fc = (compute_feat_count(data.X["train"], vocab) if src_name == "ram"
+                      else ds.feat_count)
+                c = dataclasses.replace(cfg, compute_dtype="bfloat16")
+                out_dir = os.path.join(work, f"{kind} {resident} {src_name}")
+                if kind == "mfp":
+                    c = dataclasses.replace(c, pretrain=True, pt_type="MFP", proj_size=MFP_PROJ,
+                                            pt_neg_num=MFP_NEG, nce_loss_type="nce",
+                                            feat_count=fc, hybrid_mode="matmul")
+                    targs = dataclasses.replace(
+                        mfp_args(out_dir, args.seed, device_resident_data=resident),
+                        data_dir=d if src_name == "memmap" else out_dir)
+                else:
+                    from map_tpu_torch.config import TrainingArguments
+
+                    targs = TrainingArguments(
+                        output_dir=out_dir, dataset_name=MEMMAP_NAME,
+                        data_dir=d if src_name == "memmap" else "",
+                        per_device_train_batch_size=TRAIN_BATCH,
+                        per_device_eval_batch_size=EVAL_BATCH, learning_rate=LR,
+                        weight_decay=WEIGHT_DECAY, lr_sched="const", num_train_epochs=1,
+                        compute_dtype="bfloat16", seed=args.seed,
+                        device_resident_data=resident)
+                trainer = Trainer(models.from_config(c, torch.Generator().manual_seed(
+                    args.seed)), c, targs, ds_k)
+                reset_counts()
+                calls = native.calls()
+                with counting_takes() as seen:
+                    # MEMMAP_STEPS steps (a warm-up call, a captured replay),
+                    # the next MEMMAP_TIMED_STEPS timed, then the eval
+                    batcher = trainer._prepare_training()
+                    it = trainer.train_epoch(batcher, 0)
+                    for _ in it:
+                        if trainer.global_step >= MEMMAP_STEPS:
+                            break
+                    torch.cuda.synchronize()
+                    state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+                    t0 = time.perf_counter()
+                    timed = 0
+                    for n, _, _ in it:
+                        timed += n
+                        if timed >= MEMMAP_TIMED_STEPS:
+                            break
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) / max(timed, 1) * 1e3
+                    it.close()
+                    ev = (trainer.MFP_pretrain_eval() if kind == "mfp"
+                          else trainer.eval("valid"))
+                    ev = {k: v for k, v in ev.items() if "time" not in k}
+                    torch.cuda.synchronize()
+                served = native.calls() - calls
+                key = f"{kind} {resident}"
+                runs.setdefault(key, {})[src_name] = (state, ev, trainer.global_step)
+                walls[f"{key} {src_name}"] = wall_ms
+                if src_name == "memmap":
+                    launches[key] = trainer.launches_run(read_counts())
+                    check(f"memmap {key}: every host gather by the native gather",
+                          seen["takes"] > 0 and served == seen["takes"]
+                          and trainer._native and (trainer._data is None) == (resident == "off"),
+                          takes=seen["takes"], native_calls=served)
+                del trainer, state
+                torch.cuda.empty_cache()
+            a, b = runs[key]["ram"], runs[key]["memmap"]
+            differ = [k for k in a[0] if not torch.equal(a[0][k], b[0][k])]
+            check(f"memmap {key}: {MEMMAP_STEPS} graph-path steps, then after "
+                  f"{MEMMAP_TIMED_STEPS} more the eval, bit-equal to the in-RAM run", not differ and a[1] == b[1] and a[2] == b[2] >= MEMMAP_STEPS,
+                  differ=differ[:5], eval_ram=a[1], eval_memmap=b[1])
+            want = ["embedding_gather", "scatter_add", "fused_adamw", "cross_net"] + (
+                ["scatter_unique_sorted", "block_cumsum"] if kind == "mfp" else [])
+            check(f"memmap {key}: K4, K3, K1, K2{', K5, K8' if kind == 'mfp' else ''} "
+                  "launched", all(launches[key].get(k, 0) > 0 for k in want),
+                  launches=launches[key])
+            del runs[key]
+    shutil.rmtree(work, ignore_errors=True)
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    out = dict(materialize_s=materialize_s, open_s=open_s, rows=len(y),
+               chunk_rows=MEMMAP_CHUNK_ROWS,
+               gather_rows={"batch": TRAIN_BATCH, "group": GRAPH_SPC * TRAIN_BATCH},
+               gather_ms=gather, alias_s={"loop": loop_s, "native": native_s},
+               wall_ms_per_step=walls, launches=launches,
+               wall_s=time.perf_counter() - t_phase, card=smi_line())
+    emit("memmap", **out)
+    out["launches_total"] = total
+    return out
+
+
+def layers_phase(args, dev) -> dict:
+    """10i. The layers no model calls (`nn/extras.py`, the five of
+    `nn/layers.py`) at 24 fields, embed 16, batch TRAIN_BATCH: forward and
+    backward (a seeded normal cotangent) on the card in f32, in f32 on the
+    CPU and in f64 on the CPU; the card's error against f64 within
+    TOL_LAYERS times the CPU f32 one's plus TOL_LAYERS_REL of the largest
+    value, for the output and every gradient. OuterProductLayer's 'mat' kernel
+    is map_tpu's einsum, defined only where the pairs equal the width (276
+    != 16 here): its 'vec' and 'num' kernels run."""
+    import copy
+
+    import torch
+
+    from map_tpu_torch.nn import extras as tx
+    from map_tpu_torch.nn import layers as tl
+
+    t0 = time.perf_counter()
+    f, e, b = len(FIELD_SIZES), EMBED, TRAIN_BATCH
+    cases = {
+        "InterHAtAttentionalAggregation": (tx.InterHAtAttentionalAggregation(e), [(b, f, e)]),
+        "InterHAtMultiHeadSelfAttention": (tx.InterHAtMultiHeadSelfAttention(
+            e, None, 2, use_scale=True, layer_norm=True), [(b, f, e)]),
+        "InterHAtFeedForward": (tx.InterHAtFeedForward(e), [(b, f, e)]),
+        "PairwiseKeyAttention": (tx.PairwiseKeyAttention(e, 2), [(b, f, e), (b, f, f, e)]),
+        "ProductLayer attn": (tx.ProductLayer(f, e, 1, 2, "attn", True, True,
+                                              num_attn_heads=2), [(b, f, 1, e)]),
+        "ProductLayer mean": (tx.ProductLayer(f, e, 2, 2, "mean", True, True, True),
+                              [(b, f, 2, e)]),
+        "MultiChannelOutputHead sum,max,sum": (tx.MultiChannelOutputHead(f, 2, e),
+                                               [(b, f, 2, e)]),
+        "MultiChannelOutputHead fc": (tx.MultiChannelOutputHead(f, 2, e, "fc"),
+                                      [(b, f, 2, e)]),
+        "OuterProductLayer vec": (tl.OuterProductLayer(f, e, "vec"), [(b, f, e)]),
+        "OuterProductLayer num": (tl.OuterProductLayer(f, e, "num"), [(b, f, e)]),
+        "SqueezeExtractionLayer": (tl.SqueezeExtractionLayer(f, 3), [(b, f, e)]),
+        "BilinearInteractionLayer field_all": (tl.BilinearInteractionLayer(
+            f, e, "field_all"), [(b, f, e)]),
+        "BilinearInteractionLayer field_each": (tl.BilinearInteractionLayer(
+            f, e, "field_each"), [(b, f, e)]),
+        "BilinearInteractionLayer field_interaction": (tl.BilinearInteractionLayer(
+            f, e, "field_interaction"), [(b, f, e)]),
+        "SelfAttention": (tl.SelfAttention(e, 2), [(b, f, e)]),
+        "IntermediateLayer": (tl.IntermediateLayer(e, 64, "relu", 0.0, True, True), [(b, f, e)]),
+    }
+    errs = {}
+    gen = torch.Generator().manual_seed(args.seed + 37)
+    for name, (mod, shapes) in cases.items():
+        mod.reset_parameters(gen)
+        mod.eval()
+        xs = [torch.randn(s, generator=gen) for s in shapes]
+        runs = ((copy.deepcopy(mod).double(), "cpu", torch.float64), (mod, "cpu", torch.float32),
+                (copy.deepcopy(mod).to(dev), dev, torch.float32))
+        outs, cot = [], None
+        for m, place, dt in runs:
+            inp = [t.detach().to(place, dt).requires_grad_(True) for t in xs]
+            y_ = m(*inp)
+            if cot is None:
+                cot = torch.randn(y_.shape, generator=gen, dtype=torch.float64)
+            y_.backward(cot.to(place, y_.dtype))
+            outs.append([y_.detach().cpu().double()] + [t.grad.cpu().double() for t in inp]
+                        + [p.grad.cpu().double() for p in m.parameters()])
+        parts = ["out"] + [f"d input {i}" for i in range(len(xs))] + [
+            f"d {n}" for n, _ in mod.named_parameters()]
+        worst = 0.0
+        for part, exact, cpu32, card32 in zip(parts, *outs):
+            err, cpu_err = float((card32 - exact).abs().max()), float((cpu32 - exact).abs().max())
+            bound = TOL_LAYERS * cpu_err + TOL_LAYERS_REL * float(exact.abs().max())
+            check(f"layers {name}: {part}, the card (f32) within {TOL_LAYERS:g}x the CPU's "
+                  f"own f32 error + {TOL_LAYERS_REL:g} of the largest value, against f64",
+                  err <= bound and math.isfinite(err),
+                  max_abs_err=err, cpu_f32_err=cpu_err, bound=bound)
+            worst = max(worst, err)
+        errs[name] = worst
+        del runs
+    torch.cuda.empty_cache()
+    out = dict(batch=b, fields=f, embed=e, max_abs_err_vs_f64=errs,
+               tol=[TOL_LAYERS, TOL_LAYERS_REL], wall_s=time.perf_counter() - t0)
+    emit("layers", **out)
+    return out
+
+
+def preprocess_phase() -> dict:
+    """10j. The preprocessing CLIs import on this machine (a host job that
+    needs pandas and h5py when it runs: with both, and sklearn, hidden here
+    too), and the vendored legacy StratifiedKFold gives map_tpu's pin."""
+    import hashlib
+
+    code = ("import sys\n"
+            "for m in ('pandas', 'h5py', 'sklearn'):\n"
+            "    sys.modules[m] = None\n"
+            "import numpy as np\n"
+            "from map_tpu_torch.data.preprocess import avazu, common, criteo, split_x4\n"
+            "print(avazu.VALID_FIELDS[0], criteo.COLS[1], split_x4.RANDOM_SEED)\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       cwd=str(HERE), timeout=120)
+    from map_tpu_torch.data.preprocess import split_x4
+
+    y = (np.random.default_rng(11).random(5000) < 0.2).astype(np.int64)
+    digest = hashlib.md5(split_x4.stratified_kfold_legacy(y, 10, 2018).astype(
+        np.int64).tobytes()).hexdigest()
+    check("preprocess: the CLIs' modules import without pandas, h5py or sklearn",
+          r.returncode == 0, stdout=r.stdout.strip(), stderr=r.stderr[-2000:])
+    check("preprocess: the legacy StratifiedKFold at map_tpu's pin",
+          digest == split_x4.LEGACY_PIN, digest=digest)
+    out = dict(imported=r.stdout.strip(), legacy_digest=digest)
+    emit("preprocess", **out)
+    return out
 
 
 def main(argv=None) -> int:
@@ -3754,6 +4189,12 @@ def main(argv=None) -> int:
     # 10g. the parallel layer
     parallel = parallel_phase(args, dev, cfg, reset_counts, read_counts)
 
+    # 10h-10j. the memmap mode and the native gather, the layers no model
+    # calls, the preprocessing modules
+    memmap = memmap_phase(args, dev, cfg, data, reset_counts, read_counts)
+    layers_phase(args, dev)
+    preprocess_phase()
+
     # 11. summary; each kernel's launches are those of the path that runs
     # it, counted from 0 over that path's run: the RFD run under the K6b
     # backward (this slice's main path: K1-K4, K6b) and the per-field shared
@@ -3775,7 +4216,9 @@ def main(argv=None) -> int:
                           v[name] for v in serving_launches.values()),
                       "parallel nccl 1x1 graph path": parallel["launches_nccl_1x1"].get(name, 0),
                       f"parallel two ranks, both ranks, {2 * len(PARALLEL_RUNS)} runs": parallel[
-                          "launches_two_ranks"].get(name, 0)}
+                          "launches_two_ranks"].get(name, 0),
+                      "memmap supervised and mfp, resident auto and off": memmap[
+                          "launches_total"].get(name, 0)}
                for name, n in main_path.items()}
 
     def entry(name, source, replaces, err, timing):

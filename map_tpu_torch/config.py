@@ -115,6 +115,16 @@ class Config:
     recombined_channels: str = "3,3,3,3"
     conv_act: str = "tanh"
     reuse_graph_layer: bool = False
+    # the layers no model of the zoo calls (nn/extras.py, nn/layers.py),
+    # with map_tpu's defaults (config.py:195-221)
+    agg_type: str = "mean"
+    num_channels: int = 1
+    reduction_ratio: int = 3
+    bilinear_type: str = "field_interaction"
+    outer_product_kernel_type: str = "mat"
+    prod_layer_norm: bool = False
+    prod_dropout_rate: float = 0.1
+    inter_layer_norm: bool = False
     feat_count: Optional[np.ndarray] = field(default=None, repr=False)
     extra: Dict[str, Any] = field(default_factory=dict)
 
@@ -221,6 +231,10 @@ class TrainingArguments:
     prefetch_batches: int = 2
     device_resident_data: str = "auto"  # auto | on | off
     device_data_budget_gb: float = 8.0
+    # the host's dataset budget (map_tpu config.py:146-152): over it, the
+    # splits are memory-mapped files (data/dataset.py); -1 always in RAM,
+    # 0 auto (60 % of physical RAM), > 0 a budget in MB
+    host_data_budget_mb: int = 0
     # the parallel layer (map_tpu config.py:83-84, :123-132, :156)
     num_data_shards: int = -1  # the data axis; -1 = the world // num_model_shards
     num_model_shards: int = 1  # the tables' row blocks (the model axis)
@@ -281,6 +295,18 @@ class ModelArguments:
     recombined_channels: str = "3,3,3,3"
     conv_act: str = "tanh"
     reuse_graph_layer: bool = False  # FiGNN: one GraphLayer for every round
+    # read by the layers no model of the zoo calls (nn/extras.py: ProductLayer's
+    # aggregation, norm and dropout, MultiChannelOutputHead's channels;
+    # nn/layers.py: SENET's reduction, the bilinear and outer-product kernels,
+    # IntermediateLayer's norm), map_tpu's flags and defaults
+    agg_type: str = "mean"
+    num_channels: int = 1
+    reduction_ratio: int = 3
+    bilinear_type: str = "field_interaction"
+    outer_product_kernel_type: str = "mat"
+    prod_layer_norm: bool = False
+    prod_dropout_rate: float = 0.1
+    inter_layer_norm: bool = False
     pt_neg_num: int = 25
     proj_size: int = 32
     nce_loss_type: str = "nce"  # nce | sampled | full

@@ -4,9 +4,12 @@ Batcher`, the `epoch()` and `epoch_stacked()` paths of one process.
 Every batch has batch_size rows; the last one is padded with row 0 at weight
 0, so the weighted loss and the metrics drop the padding. The shuffled order
 is map_tpu's, `np.random.default_rng(SeedSequence([seed, epoch]))
-.permutation(n)`, and rows are gathered by numpy fancy indexing (map_tpu
-gathers with its C++ helper; the values are the same), so the batch stream
-is bit-identical to map_tpu's.
+.permutation(n)`, and rows are gathered by `np.take`, or with `native` (the
+Trainer sets it on a CUDA run) by the host library `csrc/batcher.cpp`
+(`data/native.py`, map_tpu's C++ gather; the values are the same), so the
+batch stream is bit-identical to map_tpu's. `X` and `noise_source` may be
+memmaps (the >RAM mode, `data/dataset.py`): both gathers read them in
+place.
 
 With `noise_rows_per_example` M > 0 (RFD's Unigram generators), every batch
 also carries `noise_rows` (B * M, F) int32: rows of `noise_source` (the train
@@ -52,6 +55,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from map_tpu_torch.data import native
+
 Batch = Dict[str, np.ndarray]
 
 
@@ -59,8 +64,9 @@ class Batcher:
     def __init__(self, X: np.ndarray, Y: np.ndarray, batch_size: int,
                  shuffle: bool, seed: int = 42, noise_source: Optional[np.ndarray] = None,
                  noise_rows_per_example: int = 0):
-        self.X = X if X.dtype == np.int32 else X.astype(np.int32)
-        self.Y = Y if Y.dtype == np.float32 else Y.astype(np.float32)
+        # views of C-contiguous arrays (a memmap's pages stay where they are)
+        self.X = np.ascontiguousarray(X, dtype=np.int32)
+        self.Y = np.ascontiguousarray(Y, dtype=np.float32)
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.seed = seed
@@ -74,6 +80,7 @@ class Batcher:
         self.emit_indices = False
         self.emit_start_only = False
         self.alloc = np.empty  # (shape, dtype) -> the array a batch's key is written to
+        self.native = False  # gather with the host library (`data/native.py`)
 
     def __len__(self) -> int:
         return (len(self.Y) + self.batch_size - 1) // self.batch_size
@@ -150,10 +157,13 @@ class Batcher:
             yield batch
 
     def _take(self, src: np.ndarray, idx: np.ndarray) -> np.ndarray:
-        """src[idx] (rows along axis 0), written to an array of `alloc`
-        (mode 'clip' writes it unbuffered; every index lies in range)."""
-        return np.take(src, idx, axis=0, mode="clip",
-                       out=self.alloc(idx.shape + src.shape[1:], src.dtype))
+        """src[idx] (rows along axis 0), written to an array of `alloc`:
+        by the native gather when `native`, else by `np.take` (mode 'clip'
+        writes it unbuffered; every index lies in range)."""
+        out = self.alloc(idx.shape + src.shape[1:], src.dtype)
+        if self.native:
+            return native.take(src, idx, out)
+        return np.take(src, idx, axis=0, mode="clip", out=out)
 
     def epoch_stacked(self, spc: int, epoch: Optional[int] = None, start_batch: int = 0
                       ) -> Iterator[Tuple[int, Batch, List[Batch]]]:

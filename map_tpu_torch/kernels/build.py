@@ -10,6 +10,11 @@ source builds anew at its first use and an unchanged one is reused.
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check_status` raises on anything but 0. A missing `nvcc` or a failed build
 raises too: there is no prebuilt fallback.
+
+`host_library()` builds the host C++ source `csrc/batcher.cpp` (the
+Batcher's row gathers and the alias build, `data/native.py`) the same way,
+with `g++` (or `nvcc` as the host compiler's driver when there is no
+`g++`), into `libmap_tpu_torch_host_{hash}.so` beside the kernels.
 """
 
 from __future__ import annotations
@@ -194,3 +199,49 @@ def check_status(status: int, kernel: str) -> None:
     if status != 0:
         msg = library().map_tpu_error_string(status).decode()
         raise RuntimeError(f"{kernel}: CUDA error {status} ({msg})")
+
+
+HOST_SOURCE = CSRC_DIR / "batcher.cpp"
+HOST_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp"]
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libmap_tpu_torch_host_{h.hexdigest()[:16]}.so"
+
+
+def _host_compiler() -> List[str]:
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is not None:
+        return [gxx, *HOST_FLAGS]
+    # nvcc drives the host compiler for a .cpp source
+    return [_nvcc(), "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC,-fopenmp"]
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """Build (once per source) and load the host library; raises if the
+    build fails."""
+    lib_path = host_library_path()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="host-", dir=BUILD_DIR))
+        try:
+            tmp = work / lib_path.name
+            run = subprocess.run([*_host_compiler(), str(HOST_SOURCE), "-o", str(tmp)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if run.returncode != 0:
+                raise RuntimeError(f"host build of {HOST_SOURCE.name} failed:\n{run.stdout}")
+            os.replace(tmp, lib_path)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    lib = ctypes.CDLL(str(lib_path))
+    i64 = ctypes.c_int64
+    lib.map_tpu_torch_gather_rows_i32.argtypes = [_P, i64, _P, i64, _P]
+    lib.map_tpu_torch_gather_f32.argtypes = [_P, _P, i64, _P]
+    lib.map_tpu_torch_build_alias.argtypes = [_P, i64, _P, _P]
+    for fn in (lib.map_tpu_torch_gather_rows_i32, lib.map_tpu_torch_gather_f32,
+               lib.map_tpu_torch_build_alias):
+        fn.restype = None
+    return lib

@@ -2,7 +2,11 @@
 (TorchDense, Embeddings, MLPBlock, CrossNetV2, InnerProductLayer, CIN),
 `:264-305` (FGCNNBlock and its BatchNorm), `:358-434` (GraphLayer,
 FiGNNBlock, AttentionalPrediction), `:466-574` (MultiHeadSelfAttention,
-TransformerEncoderLayer) and LR's `LRLayer` (`map_tpu/models/zoo.py:86-95`).
+TransformerEncoderLayer) and LR's `LRLayer` (`map_tpu/models/zoo.py:86-95`);
+and the five that no model of either zoo calls: OuterProductLayer (:212),
+SqueezeExtractionLayer (:311), BilinearInteractionLayer (:328),
+SelfAttention (:438) and IntermediateLayer (:577), whose raw kernels keep
+flax's shapes.
 
 Attribute names follow the reference's torch modules, so `state_dict()` keys
 are the names `map_tpu/interop/torch_import.py` exchanges: an
@@ -770,9 +774,179 @@ class FGCNNBlock(nn.Module):
         return torch.cat(new_features, dim=1)
 
 
+# ---- the layers no model of the zoo calls (map_tpu `nn/layers.py:212`,
+# `:311`, `:328`, `:438`, `:577`) ----------------------------------------
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax's LayerNorm: a half-precision x is normalised in (and returned
+    as) float32; float32 and float64 as they are."""
+    return ln(x.float() if x.dtype in (torch.bfloat16, torch.float16) else x)
+
+
+def _pairs(num_fields: int):
+    """(i, j) of the field pairs i < j, row by row (np.triu_indices(F, 1),
+    itertools.combinations' order) as two int64 tensors."""
+    iu, ju = torch.triu_indices(num_fields, num_fields, 1)
+    return iu.contiguous(), ju.contiguous()
+
+
+@torch.no_grad()
+def _uniform_(p: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    p.uniform_(-bound, bound, generator=generator)
+
+
+class OuterProductLayer(nn.Module):
+    """PNN's outer products of the field pairs (map_tpu `nn/layers.py:212`):
+    (B, F, E) -> (B, P), P = F (F - 1) / 2, with a `kernel` of flax's shape:
+    'mat' (E, P, E), 'vec' (P, E), 'num' (P, 1), xavier-uniform (fans: the
+    last two axes). 'mat' computes map_tpu's einsum, "bpe,epf->bpf" over the
+    kernel's (P, E, E) transpose, which is defined only where P == E (its
+    label e takes both sizes; anything else raises, in both packages)."""
+
+    def __init__(self, num_fields: int, embed_size: int, kernel_type: str = "mat"):
+        super().__init__()
+        num_ix = num_fields * (num_fields - 1) // 2
+        shape = {"mat": (embed_size, num_ix, embed_size), "vec": (num_ix, embed_size),
+                 "num": (num_ix, 1)}[kernel_type]
+        self.kernel_type = kernel_type
+        self.kernel = nn.Parameter(torch.empty(shape))
+        iu, ju = _pairs(num_fields)
+        self.register_buffer("iu", iu, persistent=False)
+        self.register_buffer("ju", ju, persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        fan_in, fan_out = self.kernel.shape[-1], self.kernel.shape[-2]
+        _uniform_(self.kernel, math.sqrt(6.0 / (fan_in + fan_out)), generator)
+
+    def forward(self, feat_embed: torch.Tensor) -> torch.Tensor:
+        p, q = feat_embed[:, self.iu], feat_embed[:, self.ju]
+        if self.kernel_type == "mat":
+            kp = torch.einsum("bpe,epf->bpf", p, self.kernel.permute(1, 0, 2))
+            return (kp * q).sum(-1)
+        return (p * q * self.kernel[None]).sum(-1)
+
+
+class SqueezeExtractionLayer(nn.Module):
+    """FiBiNET's SENET (map_tpu `nn/layers.py:311`): each field's mean over
+    the embedding, two bias-free layers F -> max(1, F // ratio) -> F with
+    relu after each, the fields scaled by the result."""
+
+    def __init__(self, num_fields: int, reduction_ratio: int = 3):
+        super().__init__()
+        reduced = max(1, num_fields // reduction_ratio)
+        self.excite_0 = TorchDense(num_fields, reduced, bias=False)
+        self.excite_1 = TorchDense(reduced, num_fields, bias=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_children(self, generator)
+
+    def forward(self, feature_emb: torch.Tensor) -> torch.Tensor:
+        a = torch.relu(self.excite_1(torch.relu(self.excite_0(feature_emb.mean(-1)))))
+        return feature_emb * a[..., None]
+
+
+class BilinearInteractionLayer(nn.Module):
+    """FiBiNET's bilinear products of the field pairs (map_tpu
+    `nn/layers.py:328`): (B, F, E) -> (B, P, E), v_i W * v_j with one W
+    (`field_all`, (E, E)), one a field (`field_each`, (F, E, E)) or one a
+    pair (`field_interaction`, (P, E, E)); `bilinear` drawn uniform in
+    +-1 / sqrt(its first axis), as map_tpu's linear kernel init."""
+
+    def __init__(self, num_fields: int, embed_size: int,
+                 bilinear_type: str = "field_interaction"):
+        super().__init__()
+        if bilinear_type not in ("field_all", "field_each", "field_interaction"):
+            raise NotImplementedError(bilinear_type)
+        e, num_ix = embed_size, num_fields * (num_fields - 1) // 2
+        shape = {"field_all": (e, e), "field_each": (num_fields, e, e),
+                 "field_interaction": (num_ix, e, e)}[bilinear_type]
+        self.bilinear_type = bilinear_type
+        self.bilinear = nn.Parameter(torch.empty(shape))
+        iu, ju = _pairs(num_fields)
+        self.register_buffer("iu", iu, persistent=False)
+        self.register_buffer("ju", ju, persistent=False)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _uniform_(self.bilinear, 1.0 / math.sqrt(self.bilinear.shape[0]), generator)
+
+    def forward(self, feature_emb: torch.Tensor) -> torch.Tensor:
+        w = self.bilinear
+        if self.bilinear_type == "field_all":
+            vi = torch.einsum("bfe,eg->bfg", feature_emb, w)[:, self.iu]
+        elif self.bilinear_type == "field_each":
+            vi = torch.einsum("bfe,feg->bfg", feature_emb, w)[:, self.iu]
+        else:
+            vi = torch.einsum("bpe,peg->bpg", feature_emb[:, self.iu], w)
+        return vi * feature_emb[:, self.ju]
+
+
+class SelfAttention(nn.Module):
+    """BERT's QKV self-attention (map_tpu `nn/layers.py:438`): `query`,
+    `key`, `value` (with biases) to num_heads * (hidden_size // num_heads),
+    scores over sqrt(head size), dropout on the probabilities. `input_dim`
+    defaults to hidden_size (flax infers it from the input)."""
+
+    def __init__(self, hidden_size: int, num_attn_heads: int, dropout_rate: float = 0.1,
+                 input_dim: Optional[int] = None):
+        super().__init__()
+        self.num_heads = num_attn_heads
+        self.head_size = hidden_size // num_attn_heads
+        all_head = num_attn_heads * self.head_size
+        d = input_dim or hidden_size
+        self.query = TorchDense(d, all_head)
+        self.key = TorchDense(d, all_head)
+        self.value = TorchDense(d, all_head)
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0 else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_children(self, generator)
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        return attention(self.query(hidden_states), self.key(hidden_states),
+                         self.value(hidden_states), self.num_heads,
+                         math.sqrt(self.head_size), self.dropout)
+
+
+class IntermediateLayer(nn.Module):
+    """The Transformer's feed-forward block (map_tpu `nn/layers.py:577`):
+    `dense1` (hidden -> intermediate), the activation, `dense2` back,
+    dropout, the residual when `res_conn`, and a LayerNorm `ln` of eps
+    `layer_norm_eps` before (`norm_first`) or after, when `use_layer_norm`."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int, hidden_act: str = "relu",
+                 dropout_rate: float = 0.0, res_conn: bool = False,
+                 use_layer_norm: bool = False, norm_first: bool = False,
+                 layer_norm_eps: float = 1e-12):
+        super().__init__()
+        self.res_conn, self.norm_first = res_conn, norm_first
+        self.ln = nn.LayerNorm(hidden_size, eps=layer_norm_eps) if use_layer_norm else None
+        self.dense1 = TorchDense(hidden_size, intermediate_size)
+        self.act = Activation(hidden_act)
+        self.dense2 = TorchDense(intermediate_size, hidden_size)
+        self.dropout = Dropout(dropout_rate) if dropout_rate > 0 else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        reset_children(self, generator)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        inp = h
+        if self.ln is not None and self.norm_first:
+            h = layer_norm(self.ln, h)
+        h = self.dense2(self.act(self.dense1(h)))
+        if self.dropout is not None:
+            h = self.dropout(h)
+        if self.res_conn:
+            h = h + inp
+        if self.ln is not None and not self.norm_first:
+            h = layer_norm(self.ln, h)
+        return h
+
+
 # the layers whose reset_parameters takes the init generator
 _SEEDED = (TorchDense, Embeddings, MLPBlock, CrossNetV2, LRLayer, CIN,
-           PackedSelfAttention, GraphLayer, GRUCell, BatchNorm, FieldConv)
+           PackedSelfAttention, GraphLayer, GRUCell, BatchNorm, FieldConv,
+           OuterProductLayer, SqueezeExtractionLayer, BilinearInteractionLayer,
+           SelfAttention, IntermediateLayer)
 
 
 def reset_children(module: nn.Module, generator: torch.Generator,

@@ -4,8 +4,9 @@
 and the per-field noise: `build_per_field_alias`, `per_field_alias_draw`,
 `per_field_alias_draw_logq`).
 
-The table is built on the host with map_tpu's Python loop (about 1.5 s at
-V = 1,013,519; map_tpu's C++ builder is not ported) and cached in the data
+The table is built on the host, on a CUDA run by the host library
+(`data/native.build_alias`, map_tpu's C++ builder) and on the CPU by
+map_tpu's Python loop (about 1.5 s at V = 1,013,519), and cached in the data
 directory as map_tpu caches it (`alias_prob.npy`, `alias_alias.npy`). The
 draws run on the tables' device from an explicit `torch.Generator` on that
 device: a uniform bucket, a keep test against the bucket's probability and,
@@ -53,8 +54,15 @@ def noise_log_prior(feat_count: np.ndarray) -> Tuple[np.ndarray, np.ndarray, flo
     return probs, np.log(probs).astype(np.float32), float(np.log(len(probs)))
 
 
-def build_alias_table(probs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """O(V) construction: (keep prob float32, alias int32), both (V,)."""
+def build_alias_table(probs: np.ndarray, native: bool = False
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """O(V) construction: (keep prob float32, alias int32), both (V,); with
+    `native`, by the host library (`data/native.build_alias`, the same
+    bits), else by this loop."""
+    if native:
+        from map_tpu_torch.data import native as host
+
+        return host.build_alias(probs)
     k = len(probs)
     prob = (np.asarray(probs, dtype=np.float64) * k).copy()
     alias = np.zeros(k, dtype=np.int64)
@@ -74,16 +82,17 @@ def build_alias_table(probs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return prob.astype(np.float32), alias.astype(np.int32)
 
 
-def load_or_build_alias(data_dir: str, probs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+def load_or_build_alias(data_dir: str, probs: np.ndarray, native: bool = False
+                        ) -> Tuple[np.ndarray, np.ndarray]:
     """The table cached in `data_dir` (read if there, written if built);
     no cache when `data_dir` is not a directory (an in-memory dataset)."""
     if not (data_dir and os.path.isdir(data_dir)):
-        return build_alias_table(probs)
+        return build_alias_table(probs, native)
     prob_file = os.path.join(data_dir, "alias_prob.npy")
     alias_file = os.path.join(data_dir, "alias_alias.npy")
     if os.path.exists(prob_file) and os.path.exists(alias_file):
         return np.load(prob_file), np.load(alias_file)
-    prob, alias = build_alias_table(probs)
+    prob, alias = build_alias_table(probs, native)
     try:
         np.save(prob_file, prob)
         np.save(alias_file, alias)
@@ -140,7 +149,7 @@ def per_field_log_prior(feat_count: np.ndarray, idx_low: Sequence[int],
 
 
 def build_per_field_alias(feat_count: np.ndarray, idx_low: Sequence[int],
-                          idx_high: Sequence[int]
+                          idx_high: Sequence[int], native: bool = False
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """(prob (V,) float32, alias (V,) int32 global ids, logq, lnz) of the
     per-field noise, each field's block built by `build_alias_table`."""
@@ -149,7 +158,7 @@ def build_per_field_alias(feat_count: np.ndarray, idx_low: Sequence[int],
     alias_all = np.arange(v, dtype=np.int32)
     for lo, hi in zip(idx_low, idx_high):
         lo, hi = int(lo), int(hi)
-        p, a = build_alias_table(noise_distribution(feat_count[lo:hi]))
+        p, a = build_alias_table(noise_distribution(feat_count[lo:hi]), native)
         prob_all[lo:hi] = p
         alias_all[lo:hi] = a + lo
     return (prob_all, alias_all, *per_field_log_prior(feat_count, idx_low, idx_high))

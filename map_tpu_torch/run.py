@@ -80,7 +80,8 @@ def main(argv=None, on_trainer=None) -> int:
     from map_tpu_torch.data.dataset import CTRDataset
 
     dataset = CTRDataset(training_args.data_dir, training_args.dataset_name,
-                         pretrain=training_args.pretrain)
+                         pretrain=training_args.pretrain,
+                         host_data_budget_mb=training_args.host_data_budget_mb)
     config = build_config(model_args, training_args, dataset)
     if rank() == 0:
         config.save(training_args.output_dir)

@@ -307,11 +307,13 @@ def main(argv=None) -> int:
     p.add_argument("--jax_checkpoint", action="store_true",
                    help="the {step}.model in model_dir is map_tpu's (flax msgpack)")
     p.add_argument("--device", default=None, help="default: cuda")
+    p.add_argument("--host_data_budget_mb", type=int, default=0,
+                   help="-1 in RAM, 0 auto, > 0 a budget: over it, memmapped splits")
     a = p.parse_args(argv)
 
     from map_tpu_torch.data.dataset import CTRDataset
 
-    ds = CTRDataset(a.data_dir, a.dataset_name)
+    ds = CTRDataset(a.data_dir, a.dataset_name, host_data_budget_mb=a.host_data_budget_mb)
     pred = Predictor(a.model_dir, a.step, batch_size=a.batch_size,
                      device=a.device, source="jax" if a.jax_checkpoint else "torch")
     probs = pred.predict_proba(ds.X[a.split])

@@ -69,7 +69,11 @@ header says so.
 The model comes built (`models.from_config`), as map_tpu's Trainer takes it;
 the dataset is any object with `X[split]` (N, F) int ids and `Y[split]` (N,)
 labels for "train", "valid" and "test", so an in-memory dataset serves as
-well as `data/dataset.CTRDataset`. float32 products on the card run in full
+well as `data/dataset.CTRDataset` (whose splits may be read-only memmaps,
+the >RAM mode: the resident upload reads their pages, `host_tensor`, and
+the host batches gather from them). On a CUDA run the Batcher gathers its
+host batches and the MFP alias table is built by the host library
+(`data/native.py`); on the CPU by numpy. float32 products on the card run in full
 float32 (`torch.backends.cuda.matmul.allow_tf32 = False`).
 
 The input pipeline and the multi-step dispatch (map_tpu `trainer.py:298-370
@@ -151,6 +155,7 @@ import os
 import queue
 import threading
 import time
+import warnings
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -219,12 +224,27 @@ def _with_draws(batches, draws):
         yield n, batch, views
 
 
+def host_tensor(a: np.ndarray, dtype) -> torch.Tensor:
+    """A CPU tensor over `a`'s memory when it is C-contiguous `dtype` (a
+    read-only memmap's too: its pages are read from the page cache, never
+    copied into anonymous memory; nothing writes through the tensor)."""
+    a = np.ascontiguousarray(a, dtype=dtype)
+    if a.flags.writeable:
+        return torch.from_numpy(a)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(a)
+
+
 class Trainer:
     def __init__(self, model: torch.nn.Module, model_config: Config,
                  training_args: TrainingArguments, dataset, device=None):
         self.device = resolve_device(device if device is not None
                                      else training_args.device)
         torch.backends.cuda.matmul.allow_tf32 = False
+        # host batches and the alias build by the host library on the card
+        # (`data/native.py`; its build raises if it fails), numpy on the CPU
+        self._native = self.device.type == "cuda"
         self.model = model.to(self.device)
         self.config = model_config
         self.args = training_args
@@ -356,14 +376,15 @@ class Trainer:
                 raise ValueError("per-field noise needs the fields' id ranges "
                                  "(config.idx_low / idx_high)")
             prob, alias_ids, logprob, _ = alias.build_per_field_alias(
-                c.feat_count, c.idx_low, c.idx_high)
+                c.feat_count, c.idx_low, c.idx_high, native=self._native)
             low = np.asarray(c.idx_low, np.int32)
             sizes = np.asarray(c.idx_high, np.int32) - low
             return NoiseTables(on_dev(alias.build_fused_alias(prob, alias_ids, logprob)),
                                on_dev(logprob), float(np.log(len(logprob))),
                                idx_low=on_dev(low), field_sizes=on_dev(sizes))
         probs, logprob, norm_term = alias.noise_log_prior(c.feat_count)
-        prob, alias_ids = alias.load_or_build_alias(self.args.data_dir, probs)
+        prob, alias_ids = alias.load_or_build_alias(self.args.data_dir, probs,
+                                                    native=self._native)
         fused = alias.build_fused_alias(prob, alias_ids, logprob)
         return NoiseTables(on_dev(fused), on_dev(logprob), norm_term,
                            prob=on_dev(prob), alias=on_dev(alias_ids))
@@ -382,6 +403,7 @@ class Trainer:
                     noise_source=self.dataset.X["train"] if m else None,
                     noise_rows_per_example=m)
         b.row_shard = self._row_shard()
+        b.native = self._native
         return b
 
     def build_steps(self, num_batches_per_epoch: int) -> None:
@@ -491,9 +513,8 @@ class Trainer:
         bs = batcher.batch_size
         lo, rows = batcher.block()
         self._data = ResidentData(
-            torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(self.dataset.Y["train"],
-                                                  dtype=np.float32)).to(self.device),
+            host_tensor(x, np.int32).to(self.device),
+            host_tensor(self.dataset.Y["train"], np.float32).to(self.device),
             (torch.zeros(len(batcher) * bs, dtype=torch.int32, device=self.device)
              if self._stream_v2 else None), bs, lo, rows if self.world > 1 else 0)
         logger.info(f"device-resident data: on ({x.nbytes/1e9:.2f} GB train matrix in HBM; "

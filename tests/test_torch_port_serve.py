@@ -186,9 +186,14 @@ def test_port_imports_neither_jax_nor_map_tpu():
 
 
 def test_port_sources_import_neither_jax_nor_map_tpu():
-    pattern = re.compile(r"^\s*(?:import|from)\s+([A-Za-z_][\w.]*)", re.M)
+    """No source names jax, flax, optax or map_tpu in an import; pandas only
+    in an indented one (the preprocessing CLIs, host jobs, import it when
+    they run; the test above shows that no module loads it on import)."""
+    pattern = re.compile(r"^(\s*)(?:import|from)\s+([A-Za-z_][\w.]*)", re.M)
     files = sorted((REPO / "map_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
-        for module in pattern.findall(path.read_text()):
+        for indent, module in pattern.findall(path.read_text()):
+            if indent and module.split(".")[0] == "pandas":
+                continue
             assert not _is_forbidden(module), f"{path.name} imports {module}"
