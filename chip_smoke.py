@@ -216,7 +216,15 @@ each; any failure ends the run with a nonzero exit code.
    every loss within 1e-4 and the eval AUC within 2e-5, the parameters'
    distance to one rank recorded by leaf and by step; bf16's band
    recorded; the ranks' bits equal; hotcold's overflow 0 with each rank's
-   cold segment; the (1, 2) mesh's checkpoint equal to one rank's; each
+   cold segment; the (1, 2) mesh's checkpoint equal to one rank's; the
+   `full` MFP loss row-sharded 1 x 2 under psum (`parallel/vocab_ce.py`)
+   on synthazu's V = 101,178 at batch 4096 in f32, 8 eager steps and an
+   eval: every loss and the eval loss within 1e-5 of one rank, the eval
+   accuracy within 1e-3, the first step's gradient within 1e-4 of each
+   leaf's largest one-rank gradient, the parameters' distance after the
+   first step and after the eighth recorded (AdamW amplifies the input
+   gradient's rounding, a sum of two blocks' parts), K4, K3 and K1 on
+   every step of each rank, each rank's peak memory (`parallel_full`); each
    rank's launches; and the data-parallel f32 run once more from the
    memmap mode, both ranks materializing the phase's data into one empty
    directory at once (one writes, the other waits), bit-equal to the run
@@ -2248,6 +2256,7 @@ def grouped_eval_phase(args, dev, val, reset_counts, read_counts) -> dict:
     from map_tpu_torch.train.graph import launches_run
     from map_tpu_torch.train.train_step import draw_mfp
     from map_tpu_torch.train.trainer import Trainer
+    from map_tpu_torch.utils.seeds import stream_generator
 
     d = val["data"]
     rows = GROUPED_EVAL_ROWS
@@ -2322,7 +2331,7 @@ def grouped_eval_phase(args, dev, val, reset_counts, read_counts) -> dict:
             handed = None
             if kind in ("mfp", "rfd"):  # the eval's own draws, made outside
                 t = pair[GRAPH_SPC]
-                gen = torch.Generator(device=dev).manual_seed(t.args.seed + 2)
+                gen = stream_generator(t.args.seed, "eval", device=dev)
                 f = cfg.num_fields
                 mask_num = mask_num_of(f, t.args.mask_ratio)
                 draws = [draw_mfp(gen, t.noise, EVAL_BATCH, f, mask_num, cfg.pt_neg_num,
@@ -2436,9 +2445,18 @@ PARALLEL_RUNS = (("dp 2x1 supervised", 2, 1, "psum", "sup", False),
                  ("rows 1x2 psum supervised", 1, 2, "psum", "sup", False),
                  ("rows 1x2 psum mfp", 1, 2, "psum", "mfp", False),
                  ("rows 1x2 psum rfd", 1, 2, "psum", "rfd", False),
-                 ("rows 1x2 hotcold supervised", 1, 2, "hotcold", "sup", False))
+                 ("rows 1x2 hotcold supervised", 1, 2, "hotcold", "sup", False),
+                 ("rows 1x2 psum mfp full", 1, 2, "psum", "mfp_full", False))
 PARALLEL_DTYPES = ("float32", "bfloat16")
+# the `full` loss's run: synthazu's V = 101,178 (its (B, M, V) f32 scores
+# are 11.6 GB on one rank at batch 4096, 116 GB at the canonical V), f32,
+# 8 steps of 4096 rows (40,960 rows: 32,768 train, one eval batch of 4096)
+PARALLEL_FULL_KIND, PARALLEL_FULL_ROWS = "mfp_full", 40_960
 TOL_PARALLEL_F32 = 1e-5  # loss and every parameter, two ranks against one
+# the full loss's eval accuracy, two ranks against one: a target whose
+# score ties its best rival within rounding may go either way (one
+# position of 4096 x 7 is 3.5e-5)
+TOL_PARALLEL_FULL_ACC = 1e-3
 # data-parallel f32 against one rank: every step's loss, the eval AUC
 # (map_tpu's tests/test_multiprocess.py: 2e-5), and the first step's
 # gradient within this share of each leaf's largest |gradient| (a loss over
@@ -2456,22 +2474,48 @@ def parallel_data(seed: int, steps: int):
     return teacher_dataset(np.random.default_rng(seed + 17), steps * TRAIN_BATCH)
 
 
+def parallel_dtypes(kind: str):
+    return ("float32",) if kind == PARALLEL_FULL_KIND else PARALLEL_DTYPES
+
+
+PARALLEL_RUN_COUNT = sum(len(parallel_dtypes(r[4])) for r in PARALLEL_RUNS)
+
+
+def parallel_full_data():
+    """The full loss's data: synthazu in memory (data seed 7)."""
+    from map_tpu_torch import validate
+    from map_tpu_torch.data import synth
+
+    return synth.in_memory(synth.generate_realistic_arrays(
+        num_rows=PARALLEL_FULL_ROWS, seed=validate.DATA_SEED), pretrain=True)
+
+
+def parallel_inputs(kind: str, cfg, data, full_data):
+    """(base config, data) of a run's objective: the full loss's on synthazu."""
+    if kind != PARALLEL_FULL_KIND:
+        return cfg, data
+    lo, hi = full_data.idx_low, full_data.idx_high
+    return base_cfg(full_data.input_size, lo, hi), full_data
+
+
 def parallel_variant(kind: str, hybrid: bool, dname: str) -> str:
     """The name of a one-rank reference (objective, lookup, dtype)."""
     return f"{kind}{'_hybrid' if hybrid else ''}_{dname}"
 
 
 def parallel_cfg(cfg, kind: str, dname: str, data, hybrid: bool = False):
-    """The phase's DCNv2 config: supervised, MFP per-position (k = 25) or
-    RFD (Unigram); the hybrid lookup under `bwd_pallas` with `hybrid`, else
-    off (as under a table mesh)."""
+    """The phase's DCNv2 config: supervised, MFP per-position (k = 25; the
+    nce loss, or with `mfp_full` the full one) or RFD (Unigram); the hybrid
+    lookup under `bwd_pallas` with `hybrid`, else off (as under a table
+    mesh)."""
     from map_tpu_torch.data.dataset import compute_feat_count
 
     c = dataclasses.replace(cfg, compute_dtype=dname, field_blocked_lookup=hybrid,
                             hybrid_mode="bwd_pallas" if hybrid else "")
-    if kind == "mfp":
+    if kind in ("mfp", PARALLEL_FULL_KIND):
         c = dataclasses.replace(c, pretrain=True, pt_type="MFP", proj_size=MFP_PROJ,
-                                pt_neg_num=MFP_NEG, nce_loss_type="nce",
+                                pt_neg_num=MFP_NEG,
+                                nce_loss_type="nce" if kind == "mfp" else "full",
                                 feat_count=compute_feat_count(data.X["train"],
                                                               cfg.input_size))
     elif kind == "rfd":
@@ -2486,18 +2530,20 @@ def parallel_targs(out_dir: str, kind: str, dname: str, seed: int, data_axis: in
     from map_tpu_torch.config import TrainingArguments
 
     extra = {}
-    if kind == "mfp":
+    if kind in ("mfp", PARALLEL_FULL_KIND):
         extra = dict(pretrain=True, pt_type="MFP", mask_ratio=MFP_MASK_RATIO,
                      sampling_method="randint")
     elif kind == "rfd":
         extra = dict(pretrain=True, pt_type="RFD", RFD_replace="Unigram",
                      mask_ratio=MFP_MASK_RATIO, sampling_method="randint")
+    # the full loss's (B, M, V) scores: an eval batch of the train step's size
+    eval_batch = TRAIN_BATCH if kind == PARALLEL_FULL_KIND else EVAL_BATCH
     if hybrid:
         extra["hybrid_mode"] = "bwd_pallas"
     return TrainingArguments(
         output_dir=out_dir, dataset_name="in-memory", data_dir=out_dir,
         per_device_train_batch_size=TRAIN_BATCH // data_axis,
-        per_device_eval_batch_size=EVAL_BATCH // data_axis,
+        per_device_eval_batch_size=eval_batch // data_axis,
         learning_rate=LR, weight_decay=WEIGHT_DECAY, lr_sched="const",
         num_train_epochs=1, logging_steps=PARALLEL_GRAPH_STEPS // 2, compute_dtype=dname,
         seed=seed, steps_per_call=spc, device_resident_data=resident,
@@ -2505,14 +2551,50 @@ def parallel_targs(out_dir: str, kind: str, dname: str, seed: int, data_axis: in
         exact_eval_allgather=True, **extra)
 
 
-def parallel_steps(trainer):
+def parallel_steps(trainer, first=None):
     """One epoch of the trainer's steps, driven as `train` drives them ->
-    the steps' losses (n,) on the host."""
+    the steps' losses (n,) on the host. With a dict `first`, the first
+    step's gradients ("grads") and the parameters after it ("params"), by
+    name, row blocks gathered over the model group, on the host."""
     import torch
 
+    from map_tpu_torch.parallel.sharding import gather_rows
+
     batcher = trainer._prepare_training()
+    if first is not None:
+        opt, step = trainer.optimizer, trainer.optimizer.step
+
+        def whole(tensors):
+            shards, group = trainer._shards, trainer.mesh.model_group
+            return {n: (gather_rows(t, shards[n], group) if n in shards else t).cpu()
+                    for n, t in zip(opt.names, tensors)}
+
+        def first_step(grads=None):
+            if not first:
+                first["grads"] = whole([torch.zeros_like(p) if p.grad is None else p.grad
+                                        for p in opt.params])
+                step(grads)
+                first["params"] = whole([p.detach() for p in opt.params])
+                return None
+            return step(grads)
+
+        opt.step = first_step
     losses = [m["loss"].reshape(-1) for _, m, _ in trainer.train_epoch(batcher, 0)]
     return torch.cat(losses).cpu()
+
+
+def first_step_errors(got: dict, ref: dict) -> dict:
+    """Two runs' first steps (`parallel_steps`' `first`): each leaf's
+    gradient distance over its largest |gradient|, and the parameters'
+    largest distance after the step and the count past TOL_PARALLEL_F32."""
+    grad_rel = {}
+    for n, g in ref["grads"].items():
+        scale = float(g.abs().max())
+        d = float((got["grads"][n] - g).abs().max())
+        grad_rel[n] = d / scale if scale > 0 else d
+    dp = [(got["params"][n] - p).abs() for n, p in ref["params"].items()]
+    return dict(grad_rel=grad_rel, params_max=max(float(x.max()) for x in dp),
+                params_over_tol=sum(int((x > TOL_PARALLEL_F32).sum()) for x in dp))
 
 
 def bits_digest(t) -> int:
@@ -2646,23 +2728,34 @@ def parallel_worker(args) -> int:
     lo, hi, vocab = field_blocks()
     cfg = base_cfg(vocab, lo, hi)
     data = parallel_data(args.seed, PARALLEL_STEPS)
+    full_data = parallel_full_data()
     work = args.parallel_work
     out, ram_ref = {}, None
     for name, d, m, exch, kind, hybrid in PARALLEL_RUNS:
-        for dname in PARALLEL_DTYPES:
+        for dname in parallel_dtypes(kind):
             run = f"{name} {dname}"
             variant = parallel_variant(kind, hybrid, dname)
-            c = parallel_cfg(cfg, kind, dname, data, hybrid)
+            base, run_data = parallel_inputs(kind, cfg, data, full_data)
+            c = parallel_cfg(base, kind, dname, run_data, hybrid)
             targs = parallel_targs(os.path.join(work, "rank_runs", run), kind, dname,
                                    args.seed, d, m, exch, hybrid=hybrid)
             before = launch_counts()
             pe.hotcold_stats.clear()
+            torch.cuda.reset_peak_memory_stats()
             trainer = Trainer(models.from_config(c, torch.Generator().manual_seed(args.seed)),
-                              c, targs, data)
+                              c, targs, run_data)
+            first = {} if kind == PARALLEL_FULL_KIND else None
             t0 = time.perf_counter()
-            losses = parallel_steps(trainer)
+            losses = parallel_steps(trainer, first)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            mfp_eval, eval_s = None, None
+            if kind == PARALLEL_FULL_KIND:
+                t1 = time.perf_counter()
+                mfp_eval = trainer.MFP_pretrain_eval()
+                torch.cuda.synchronize()
+                eval_s = time.perf_counter() - t1
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             after = launch_counts()
             launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
             full = trainer._full_state_dict()
@@ -2691,8 +2784,17 @@ def parallel_worker(args) -> int:
                 trainer._join_ckpt_writer()
             if run == PARALLEL_MEMMAP_RUN:
                 ram_ref = (losses.clone(), {k: v.cpu() for k, v in full.items()})
+            eval_err = first_err = None
+            if mfp_eval is not None:
+                eval_err = dict(loss=abs(mfp_eval["eval_mfp_loss"] - ref["eval"]["eval_mfp_loss"]),
+                                acc=abs(mfp_eval["eval_mfp_acc"] - ref["eval"]["eval_mfp_acc"]),
+                                loss_value=mfp_eval["eval_mfp_loss"],
+                                acc_value=mfp_eval["eval_mfp_acc"])
+                first_err = first_step_errors(first, ref["first"])
             out[run] = dict(mesh=[d, m], exchange=exch, steps=len(losses),
-                            wall_s=wall, loss_err=max(loss_errs), loss_errs=loss_errs,
+                            wall_s=wall, eval_s=eval_s, eval_err=eval_err, peak_gb=peak_gb,
+                            first_err=first_err,
+                            loss_err=max(loss_errs), loss_errs=loss_errs,
                             param_err=param_err, split_equal=split_equal,
                             elements=sum(x.numel() for x in diffs.values()),
                             over_tol={k: v for k, v in over.items() if v},
@@ -2849,20 +2951,32 @@ def parallel_two_ranks(args, cfg, work) -> dict:
 
     # references: one rank, no process group, the same global batches
     data = parallel_data(args.seed, PARALLEL_STEPS)
+    full_data = parallel_full_data()
     variants = {(kind, hybrid) for _, _, _, _, kind, hybrid in PARALLEL_RUNS}
+    ref_runs = {}
     for kind, hybrid in sorted(variants):
-        for dname in PARALLEL_DTYPES:
+        for dname in parallel_dtypes(kind):
             variant = parallel_variant(kind, hybrid, dname)
-            ck = parallel_cfg(cfg, kind, dname, data, hybrid)
+            base, run_data = parallel_inputs(kind, cfg, data, full_data)
+            ck = parallel_cfg(base, kind, dname, run_data, hybrid)
             targs = parallel_targs(os.path.join(work, f"ref {variant}"), kind, dname,
                                    args.seed, hybrid=hybrid)
+            torch.cuda.reset_peak_memory_stats()
             trainer = Trainer(models.from_config(ck, torch.Generator().manual_seed(args.seed)),
-                              ck, targs, data)
-            losses = parallel_steps(trainer)
+                              ck, targs, run_data)
+            first = {} if kind == PARALLEL_FULL_KIND else None
+            t0 = time.perf_counter()
+            losses = parallel_steps(trainer, first)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
             auc = (trainer.eval("valid", test_eval=True)["eval_auc"] if kind == "sup"
                    else None)
+            mfp_eval = (trainer.MFP_pretrain_eval() if kind == PARALLEL_FULL_KIND else None)
+            ref_runs[variant] = dict(wall_s=wall, steps=len(losses),
+                                     peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                     eval=mfp_eval)
             torch.save({"state": {k: v.cpu() for k, v in trainer.model.state_dict().items()},
-                        "losses": losses, "auc": auc},
+                        "losses": losses, "auc": auc, "eval": mfp_eval, "first": first},
                        os.path.join(work, f"ref_{variant}.pt"))
             if variant == "sup_float32":
                 trainer.save_model(os.path.join(work, "ckpt_ref"))
@@ -2920,7 +3034,40 @@ def parallel_two_ranks(args, cfg, work) -> dict:
         check(f"parallel (b) {run}: the ranks' bits agree, losses finite",
               all(x["ranks_agree"] and x["finite"] for x in rs))
         data_parallel = rs[0]["mesh"][0] > 1
-        if f32 and not data_parallel:
+        if rs[0]["eval_err"] is not None:
+            # the full loss: the input gradient is the sum of the blocks' two
+            # parts, one rank's one product, so it rounds apart, and AdamW
+            # amplifies that from its second step on (ROADMAP Queue C's
+            # data-parallel entry): held by every loss, the eval and the
+            # first step's gradient; the parameters' distance recorded
+            check(f"parallel (b) {run}: every loss within {TOL_PARALLEL_F32} of one rank",
+                  all(x["loss_err"] <= TOL_PARALLEL_F32 for x in rs),
+                  loss_errs=rs[0]["loss_errs"])
+            check(f"parallel (b) {run}: the first step's gradient within "
+                  f"{TOL_PARALLEL_DP_GRAD} of each leaf's largest one-rank gradient",
+                  all(v <= TOL_PARALLEL_DP_GRAD for x in rs
+                      for v in x["first_err"]["grad_rel"].values()),
+                  worst=max(rs[0]["first_err"]["grad_rel"].items(), key=lambda kv: kv[1]))
+            check(f"parallel (b) {run}: eval loss within {TOL_PARALLEL_F32} and eval "
+                  f"accuracy within {TOL_PARALLEL_FULL_ACC} of one rank",
+                  all(x["eval_err"]["loss"] <= TOL_PARALLEL_F32
+                      and x["eval_err"]["acc"] <= TOL_PARALLEL_FULL_ACC for x in rs),
+                  eval_err=[x["eval_err"] for x in rs])
+            check(f"parallel (b) {run}: K4, K3 and K1 on every step of each rank",
+                  all(x["launches"].get(k, 0) >= x["steps"] for x in rs
+                      for k in ("embedding_gather", "scatter_add", "fused_adamw")),
+                  launches=[x["launches"] for x in rs])
+            ref = ref_runs[parallel_variant(PARALLEL_FULL_KIND, False, "float32")]
+            emit("parallel_full", run=run, card=smi_line(), vocab=full_data.input_size,
+                 batch=TRAIN_BATCH, steps=rs[0]["steps"],
+                 ranks=[{k: x[k] for k in ("wall_s", "eval_s", "peak_gb", "loss_errs",
+                                           "eval_err", "first_err", "param_err", "over_tol",
+                                           "elements", "launches")}
+                        for x in rs],
+                 one_rank=dict(wall_s=ref["wall_s"], peak_gb=ref["peak_gb"],
+                               eval_loss=ref["eval"]["eval_mfp_loss"],
+                               eval_acc=ref["eval"]["eval_mfp_acc"]))
+        elif f32 and not data_parallel:
             check(f"parallel (b) {run}: loss and every parameter within "
                   f"{TOL_PARALLEL_F32} of one rank",
                   all(x["loss_err"] <= TOL_PARALLEL_F32 and x["param_err"] <= TOL_PARALLEL_F32
@@ -2961,11 +3108,13 @@ def parallel_two_ranks(args, cfg, work) -> dict:
           ref_ckpt.keys() == rows_ckpt.keys()
           and all(torch.equal(ref_ckpt[k], rows_ckpt[k]) for k in ref_ckpt))
     totals: dict = {}
+    full: dict = {}
     for rep in reports:
         for res in rep["runs"].values():
+            into = full if res["eval_err"] is not None else totals
             for k, v in res["launches"].items():
-                totals[k] = totals.get(k, 0) + v
-    return {"bf16_band": bands, "launches_two_ranks": totals,
+                into[k] = into.get(k, 0) + v
+    return {"bf16_band": bands, "launches_two_ranks": totals, "launches_full": full,
             "launches": {rep["rank"]: {run: res["launches"] for run, res in rep["runs"].items()}
                          for rep in reports}}
 
@@ -4215,8 +4364,10 @@ def main(argv=None) -> int:
                       "serving dcnv2 pipelined, two dtypes": sum(
                           v[name] for v in serving_launches.values()),
                       "parallel nccl 1x1 graph path": parallel["launches_nccl_1x1"].get(name, 0),
-                      f"parallel two ranks, both ranks, {2 * len(PARALLEL_RUNS)} runs": parallel[
+                      f"parallel two ranks, both ranks, {PARALLEL_RUN_COUNT - 1} runs": parallel[
                           "launches_two_ranks"].get(name, 0),
+                      "parallel full loss 1x2 psum f32, both ranks": parallel[
+                          "launches_full"].get(name, 0),
                       "memmap supervised and mfp, resident auto and off": memmap[
                           "launches_total"].get(name, 0)}
                for name, n in main_path.items()}

@@ -164,6 +164,12 @@ class CTRModel(nn.Module):
         return self.mfp_criterion.full_scores(
             self._masked_encoding(input_ids, masked_index))
 
+    def mfp_full_loss(self, input_ids: torch.Tensor, masked_index: torch.Tensor,
+                      target_idx: torch.Tensor):
+        """The `full` loss (B, M) and the target-scores-highest hits (B, M)."""
+        return self.mfp_criterion.full_loss(
+            self._masked_encoding(input_ids, masked_index), target_idx)
+
     def rfd_logits(self, input_ids: torch.Tensor) -> torch.Tensor:
         """(B, F) corrupted ids -> (B, F) float32 'was replaced' logits."""
         return self.pred_rfd(self.backbone(input_ids))

@@ -11,7 +11,8 @@ log-prior + norm_term (per id, in per-field mode). It scores
   logits = <inputs, emb[ids]> + bias[ids];
 - the targets against one noise set shared by the batch
   (`shared_noise_logits`), or one set per field (`per_field_shared_noise_logits`);
-- the whole vocabulary (`full_scores`, the `full` loss).
+- the whole vocabulary (`full_scores`, the `full` loss: `full_loss`, under
+  a table mesh over the row blocks, `parallel/vocab_ce.py`).
 Row lookups go through `ops/dedup_scatter.py` (K4 forward; fold, then K5 or,
 with a `handoff` set, the sparse table update K7). As in map_tpu, the
 float32 parameters promote the products to float32 whatever the compute
@@ -27,8 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from map_tpu_torch.ops.dedup_scatter import decoder_gather
+from map_tpu_torch.ops.dedup_scatter import _model_group, decoder_gather
 from map_tpu_torch.ops.sparse_adamw import StreamHandoff
+from map_tpu_torch.parallel.sharding import shard_of
+from map_tpu_torch.parallel.vocab_ce import gathered_full_scores, sharded_full_ce
 
 
 def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -119,14 +122,27 @@ class IndexLinearDecoder(nn.Module):
 
     def full_scores(self, inputs: torch.Tensor) -> torch.Tensor:
         """Scores over the whole vocabulary (`index_linear.py:145-151`):
-        (B, M, E) -> (B, M, V)."""
+        (B, M, E) -> (B, M, V). Under a table mesh every rank scores its row
+        block and the blocks are gathered over the model group (not
+        differentiable: the loss goes through `full_loss`)."""
         emb = self.emb.weight
-        if getattr(emb, "map_tpu_shard", None) is not None:
-            raise NotImplementedError("the full loss scores every id: not under a "
-                                      "table mesh")
+        if shard_of(emb) is not None:
+            return gathered_full_scores(inputs, emb, self.bias.weight, _model_group())
         dt = self._dtype(inputs, emb)
         return (torch.einsum("bme,ve->bmv", inputs.to(dt), emb.to(dt))
                 + self.bias.weight[:, 0])
+
+    def full_loss(self, inputs: torch.Tensor, target: torch.Tensor):
+        """The `full` loss: (B, M, E), (B, M) target ids -> (the exact
+        cross-entropy over V (B, M), whether the target scores highest
+        (B, M) float, ties to the lowest id, as argmax breaks them). Under a
+        table mesh `parallel/vocab_ce.sharded_full_ce` over the row blocks."""
+        emb = self.emb.weight
+        if shard_of(emb) is not None:
+            return sharded_full_ce(inputs, emb, self.bias.weight, target, _model_group())
+        scores = self.full_scores(inputs)
+        hit = (torch.argmax(scores.detach(), dim=-1) == target.long()).float()
+        return full_ce_loss(scores, target), hit
 
 
 def nce_loss(model_logits: torch.Tensor, noise_logprobs: torch.Tensor,

@@ -76,6 +76,10 @@ def maybe_init_distributed(backend: Optional[str] = None) -> int:
     return world
 
 
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}
+
+
 class Group:
     """The ranks of one mesh axis that hold this rank, with the layer's
     collectives. `index` is this rank's place in `ranks`. Without a process
@@ -101,10 +105,11 @@ class Group:
         still runs its collectives, which a CUDA graph captures."""
         return self.pg is None or (self.size == 1 and self.backend == "gloo")
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over the group, in place; returns t."""
+    def all_reduce_(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Reduce `t` over the group ('sum', 'max' or 'min'), in place;
+        returns t."""
         if not self._noop():
-            dist.all_reduce(t, group=self.pg)
+            dist.all_reduce(t, op=_REDUCE_OPS[op], group=self.pg)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:

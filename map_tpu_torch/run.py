@@ -44,8 +44,6 @@ from __future__ import annotations
 
 import sys
 
-import torch
-
 from map_tpu_torch import models
 from map_tpu_torch.config import build_config, parse_args
 from map_tpu_torch.train.trainer import Trainer
@@ -54,6 +52,7 @@ from map_tpu_torch.utils.logging import (
     mark_job_finished,
     setup_logging,
 )
+from map_tpu_torch.utils.seeds import stream_generator
 
 
 def main(argv=None, on_trainer=None) -> int:
@@ -85,8 +84,7 @@ def main(argv=None, on_trainer=None) -> int:
     config = build_config(model_args, training_args, dataset)
     if rank() == 0:
         config.save(training_args.output_dir)
-    model = models.from_config(config,
-                               torch.Generator().manual_seed(training_args.seed))
+    model = models.from_config(config, stream_generator(training_args.seed, "init"))
     trainer = Trainer(model, config, training_args, dataset)
     if config.mfp:
         trainer.MFP_pretrain()

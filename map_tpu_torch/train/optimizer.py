@@ -32,7 +32,8 @@ the parameters' order (`parallel/collectives.all_reduce_flat_`): a table's
 row block with the rest, so K1 still updates them all in one launch.
 
 With `max_grad_norm > 0` the gradients are first clipped by their global
-norm, as optax.clip_by_global_norm does (`optimizer.py:170-192`).
+norm, as optax.clip_by_global_norm does (`optimizer.py:170-192`); under a
+table mesh the norm sums the row blocks' squares over the model group.
 
 The sparse table update (`ops/sparse_adamw.py`, map_tpu `optimizer.py:129-146`):
 a parameter given a `StreamHandoff` in `sparse` (the MFP decoder's emb when
@@ -51,9 +52,11 @@ import torch
 
 from map_tpu_torch.ops import fused_adamw as k1
 from map_tpu_torch.ops import sparse_adamw as k7
+from map_tpu_torch.parallel import context
 from map_tpu_torch.parallel.collectives import all_reduce_flat_
 from map_tpu_torch.parallel.mesh import Group
 from map_tpu_torch.parallel.sharding import is_vocab_table as is_table_leaf  # noqa: F401 (map_tpu's name)
+from map_tpu_torch.parallel.sharding import shard_of
 from map_tpu_torch.train.schedules import Schedule, make_schedule
 
 # (params, mus, nus, grads, wds, scalar buffer, slot): an entry a dense parameter
@@ -83,10 +86,21 @@ def decays(name: str) -> bool:
     return not ("norm" in parts[-2] or batch_norm)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        blocks: Optional[List[bool]] = None,
+                        group: Optional[Group] = None) -> List[torch.Tensor]:
     """optax.clip_by_global_norm: g unchanged when the global norm is below
-    max_norm, else g / norm * max_norm. Stays on the device (no sync)."""
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    max_norm, else g / norm * max_norm. Stays on the device (no sync).
+    Under a table mesh (`blocks`: which gradients are a table's row block;
+    `group`: the model group) the blocks' squares are summed over the
+    group, so every rank clips by the norm of the whole gradient."""
+    squares = [torch.sum(g.float() * g.float()) for g in grads]
+    if group is None or not any(blocks or ()):
+        total = sum(squares)
+    else:
+        total = group.all_reduce_(sum(s for s, b in zip(squares, blocks) if b))
+        total = total + sum(s for s, b in zip(squares, blocks) if not b)
+    norm = torch.sqrt(total)
     return [torch.where(norm < max_norm, g, g / norm * max_norm) for g in grads]
 
 
@@ -199,7 +213,10 @@ class AdamW:
                                                     self.grad_group)):
                 grads[i] = g
         if self.max_grad_norm and self.max_grad_norm > 0:
-            grads = clip_by_global_norm(grads, self.max_grad_norm)
+            mesh = context.table_mesh()
+            grads = clip_by_global_norm(
+                grads, self.max_grad_norm, [shard_of(p) is not None for p in self.params],
+                None if mesh is None else mesh.model_group)
         if self._left == 0:
             self.begin(1)
         slot = self._slot

@@ -80,7 +80,6 @@ import torch
 from map_tpu_torch.config import Config
 from map_tpu_torch.objectives import alias, corruption
 from map_tpu_torch.objectives.nce import (
-    full_ce_loss,
     mfp_accuracy_count,
     nce_loss,
     sampled_softmax_loss,
@@ -315,9 +314,7 @@ def make_mfp_steps(model: torch.nn.Module, optimizer: AdamW, config: Config,
         corrupted, labels = corruption.mfp_corrupt(b["input_ids"], draws.masked_index)
         w = b["weight"]
         if full:
-            scores = model.mfp_full_scores(corrupted, draws.masked_index)
-            per_pos = full_ce_loss(scores, labels)
-            hit = (torch.argmax(scores.detach(), dim=-1) == labels.long()).float()
+            per_pos, hit = model.mfp_full_loss(corrupted, draws.masked_index, labels)
             acc_count = torch.sum(hit * w[:, None])
         else:
             logits, noise_logq = candidate_logits(corrupted, labels, draws)

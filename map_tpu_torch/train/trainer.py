@@ -201,6 +201,7 @@ from map_tpu_torch.utils.metrics import (
     binary_log_loss,
     roc_auc,
 )
+from map_tpu_torch.utils.seeds import stream_generator, stream_seed
 
 logger = logging.getLogger(__name__)
 
@@ -263,8 +264,8 @@ class Trainer:
         self._spc = (1 if self._eager_collectives
                      else max(1, int(training_args.steps_per_call)))
         # ranks of one model group read the same rows, so draw the same masks
-        self._dropout_generator = torch.Generator(device=self.device).manual_seed(
-            training_args.seed + 1_000_003 * self.mesh.data_index)
+        self._dropout_generator = stream_generator(
+            training_args.seed, "dropout", self.mesh.data_index, self.device)
         set_dropout_generator(self.model, self._dropout_generator)
 
         self.global_step = 0
@@ -425,8 +426,7 @@ class Trainer:
             grad_group=dp)
         step_generator = None
         if self.noise is not None or self.config.rfd:
-            step_generator = torch.Generator(device=self.device).manual_seed(
-                self.args.seed + 1)
+            step_generator = stream_generator(self.args.seed, "step", device=self.device)
         self._step_generator = step_generator
         if self.noise is not None:
             self.train_step, self.eval_step = make_mfp_steps(
@@ -650,12 +650,13 @@ class Trainer:
         copied from there by the producer thread (`_grouped_stream`).
         `draws`, one for each batch (MFPDraws / RFDDraws), go with their
         batch as its keys (`train_step.handed_in`). The MFP and RFD evals
-        draw from the eval generator, seeded `seed + 2` anew for every pass,
+        draw from the eval generator, seeded anew for every pass (its stream
+        of `utils/seeds.py`),
         so every pass masks the same way."""
         if kind in ("mfp", "rfd"):
             if self._eval_generator is None:
                 self._eval_generator = torch.Generator(device=self.device)
-            self._eval_generator.manual_seed(self.args.seed + 2)
+            self._eval_generator.manual_seed(stream_seed(self.args.seed, "eval"))
         if self._copy_stream is not None:
             batcher.alloc = self._pinned
         spc = self._eval_spc(kind)

@@ -33,7 +33,9 @@ The port's counterpart of `validation/gen_data.py` + `validation/run_tpu.sh`
   and std over the seeds against map_tpu's (`MAP_TPU_BAND`), with Δmean,
   2σ(Δ) = 2 sqrt(s_port² / n_port + s_map² / n_map) and the verdict
   |Δmean| ≤ 2σ(Δ) + eps (eps 5e-4; 1e-3 for the accuracy rows), the rule
-  of `tests/test_multiseed_parity.py:8-11`; then one JSON line of the rows.
+  of `tests/test_multiseed_parity.py:8-11`; for the `mfp` stage a second
+  table against map_tpu's band rerun on the CPU (`MAP_TPU_CPU_BAND`); then
+  one JSON line of the rows (`validate_rows`, `validate_rows_map_tpu_cpu`).
 
 `--rows`, `--vocab_sizes`, `--batch` and the widths are there for quick runs
 (the CPU tests run the five stages on a few thousand rows), and
@@ -61,6 +63,7 @@ from map_tpu_torch import models
 from map_tpu_torch.config import ModelArguments, TrainingArguments, build_config
 from map_tpu_torch.data import synth
 from map_tpu_torch.train.trainer import Trainer
+from map_tpu_torch.utils.seeds import stream_generator
 
 # a stage's two numbers, by its kind: its metric, then its loss
 METRICS = {"supervised": ("test_auc", "logloss"), "mfp": ("acc", "loss"),
@@ -75,6 +78,11 @@ MAP_TPU_BAND = {
     "finetune": ((0.747375, 0.001236, 4), (0.398698, 0.000608, 4)),
     "finetune_rfd": ((0.747389, 0.000951, 4), (0.398662, 0.000586, 4)),
 }
+# map_tpu's mfp row rerun by its current code on the JAX CPU backend at the
+# port's seeds 42-57 (f32, 400,000 rows: `python tests/torch_port_mfp_probe.py
+# runs --package map_tpu --seeds 42-57 --rows 400000`): a second comparison,
+# recorded beside MAP_TPU_BAND, which stays the verdict
+MAP_TPU_CPU_BAND = {"mfp": ((0.728742, 0.002274, 16), (1.378617, 0.007748, 16))}
 # map_tpu's single seed-42 finetune runs after per-field shared pretraining
 # (validation/README.md:185-192, CPU backend): the finetune std above
 # stands for their run-to-run spread
@@ -210,7 +218,7 @@ def run_stage(stage: Stage, seed: int, dataset, out_root: str, device: Optional[
     try:
         config = build_config(margs, targs, dataset)
         config.save(run_dir)
-        model = models.from_config(config, torch.Generator().manual_seed(seed))
+        model = models.from_config(config, stream_generator(seed, "init"))
         trainer = Trainer(model, config, targs, dataset)
         if stage.kind == "mfp":
             trainer.MFP_pretrain()
@@ -258,28 +266,31 @@ def single_run_band(ref_std: float, ref_n: int, eps: float) -> float:
     return 2.0 * math.sqrt(ref_std ** 2 + ref_std ** 2 / ref_n) + eps
 
 
-def reference_rows(stage: Stage) -> List[Tuple[float, float, int, float]]:
-    """(map_tpu mean, std, n, eps) of the stage's metric, then of its loss;
-    the pf-shared finetunes' metric alone, against map_tpu's single runs
-    with the finetune stage's std; none for a stage without a band."""
-    if stage.band is None:
+def reference_rows(stage: Stage, bands: Dict = MAP_TPU_BAND
+                   ) -> List[Tuple[float, float, int, float]]:
+    """(map_tpu mean, std, n, eps) of the stage's metric, then of its loss,
+    from `bands`; the pf-shared finetunes' metric alone, against map_tpu's
+    single runs with the finetune stage's std; none for a stage without a
+    band."""
+    if stage.band not in bands:
         return []
-    (m_mu, m_sd, m_n), loss = MAP_TPU_BAND[stage.band]
+    (m_mu, m_sd, m_n), loss = bands[stage.band]
     eps_m = 2 * EPS if METRICS[stage.kind][0] == "acc" else EPS
     if stage.name in MAP_TPU_PF_SHARED:
         return [(MAP_TPU_PF_SHARED[stage.name], m_sd, 1, eps_m)]
     return [(m_mu, m_sd, m_n, eps_m), (*loss, EPS)]
 
 
-def table(results: List[Dict], stages: Sequence[Stage]) -> List[Dict]:
-    """A row a stage and number: the verdict against map_tpu's band, or the
-    port's mean and std alone where map_tpu has none."""
+def table(results: List[Dict], stages: Sequence[Stage],
+          bands: Dict = MAP_TPU_BAND) -> List[Dict]:
+    """A row a stage and number: the verdict against map_tpu's band in
+    `bands`, or the port's mean and std alone where map_tpu has none."""
     rows = []
     for stage in stages:
         got = [r for r in results if r["stage"] == stage.name]
         if not got:
             continue
-        refs = reference_rows(stage)
+        refs = reference_rows(stage, bands)
         for i, name in enumerate(METRICS[stage.kind]):
             vals = [r["metric"] if i == 0 else r["loss"] for r in got]
             if i < len(refs):
@@ -354,7 +365,13 @@ def main(argv=None) -> int:
             print(json.dumps(r), flush=True)
     rows = table(results, stages)
     print_table(rows)
-    print(json.dumps({"validate_rows": rows}), flush=True)
+    cpu_rows = table(results, [s for s in stages if s.band in MAP_TPU_CPU_BAND],
+                     MAP_TPU_CPU_BAND)
+    if cpu_rows:
+        print("against map_tpu's CPU rerun (MAP_TPU_CPU_BAND):")
+        print_table(cpu_rows)
+    print(json.dumps({"validate_rows": rows, "validate_rows_map_tpu_cpu": cpu_rows}),
+          flush=True)
     return 0
 
 

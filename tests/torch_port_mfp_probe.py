@@ -5,6 +5,9 @@ behind ROADMAP's Queue C item on MFP's eval-loss offset.
         --seeds 42-73 --rows 400000 --data_root /tmp/mfp_probe
     JAX_PLATFORMS=cpu python tests/torch_port_mfp_probe.py runs \\
         --seeds 42-57 --rows 60000 --data_root /tmp/mfp_probe
+    JAX_PLATFORMS=cpu python tests/torch_port_mfp_probe.py runs --package map_tpu \\
+        --seeds 42-49 --rows 400000 --data_root /tmp/mfp_probe > map_tpu_42-49.log
+    python tests/torch_port_mfp_probe.py runs --pool map_tpu_42-49.log,port_42-49.log
     JAX_PLATFORMS=cpu python tests/torch_port_mfp_probe.py carried \\
         --seeds 42-57 --rows 60000 --data_root /tmp/mfp_probe
 
@@ -19,7 +22,9 @@ cross layers, batch 4096, `--pt_neg_num=25 --proj_size=32 --mask_ratio=0.3
   before any step;
 - `runs`: each package's CLI (`map_tpu.run`, `map_tpu_torch.run --device
   cpu`) runs the stage (3 epochs) at the seed; the last `mfp_eval` record
-  of its metrics.jsonl;
+  of its metrics.jsonl; `--package map_tpu|port` runs one side (the sides
+  as separate background jobs), and `--pool a.log,b.log,...` prints the
+  SUMMARY and the paired Δ of such jobs' lines;
 - `carried`: the port's run from map_tpu's initial weights at the seed
   (carried by `interop/from_jax.py`), then its final eval taken twice,
   with its own draws and with map_tpu's (`MFP_pretrain_eval(draws)`);
@@ -91,17 +96,16 @@ def jax_trainer(argv):
 
 
 def torch_trainer(argv):
-    import torch
-
     from map_tpu_torch import models as tmodels
     from map_tpu_torch.config import build_config, parse_args
     from map_tpu_torch.data.dataset import CTRDataset
     from map_tpu_torch.train.trainer import Trainer
+    from map_tpu_torch.utils.seeds import stream_generator
 
     margs, targs = parse_args(argv)
     ds = CTRDataset(targs.data_dir, targs.dataset_name, pretrain=True)
     cfg = build_config(margs, targs, ds)
-    model = tmodels.from_config(cfg, torch.Generator().manual_seed(targs.seed))
+    model = tmodels.from_config(cfg, stream_generator(targs.seed, "init"))
     return Trainer(model, cfg, targs, ds)
 
 
@@ -149,17 +153,44 @@ def runs(args, d):
 
     port, ref = [], []
     for seed in seeds_of(args.seeds):
+        rec = {"mode": "runs", "seed": seed}
         with tempfile.TemporaryDirectory() as out:
             argv = MODEL + TRAIN + [f"--data_dir={d}", f"--seed={seed}"]
-            jrun.main(argv + [f"--output_dir={out}/jax"])
-            trun.main(argv + [f"--output_dir={out}/torch", "--device=cpu"])
-            lj, aj = last_eval(f"{out}/jax")
-            lt, at = last_eval(f"{out}/torch")
-        port.append(lt)
-        ref.append(lj)
-        print(json.dumps({"mode": "runs", "seed": seed, "port": lt, "map_tpu": lj,
-                          "port_acc": at, "map_tpu_acc": aj}), flush=True)
-    summary("whole-run eval loss", port, ref)
+            if args.package in ("both", "map_tpu"):
+                jrun.main(argv + [f"--output_dir={out}/jax"])
+                rec["map_tpu"], rec["map_tpu_acc"] = last_eval(f"{out}/jax")
+                ref.append(rec["map_tpu"])
+            if args.package in ("both", "port"):
+                trun.main(argv + [f"--output_dir={out}/torch", "--device=cpu"])
+                rec["port"], rec["port_acc"] = last_eval(f"{out}/torch")
+                port.append(rec["port"])
+        print(json.dumps(rec), flush=True)
+    if port and ref:
+        summary("whole-run eval loss", port, ref)
+
+
+def pool(args):
+    """The SUMMARY of the `runs` JSON lines in `--pool` files, each side
+    taken from whichever file holds it (runs of one package each)."""
+    port, ref = {}, {}
+    for path in args.pool.split(","):
+        with open(path) as f:
+            for line in f:
+                if not line.startswith('{"mode": "runs"'):
+                    continue
+                r = json.loads(line)
+                if "port" in r:
+                    port[r["seed"]] = r["port"]
+                if "map_tpu" in r:
+                    ref[r["seed"]] = r["map_tpu"]
+    print(json.dumps({"seeds_port": sorted(port), "seeds_map_tpu": sorted(ref)}))
+    summary("whole-run eval loss", [port[s] for s in sorted(port)],
+            [ref[s] for s in sorted(ref)])
+    both = sorted(set(port) & set(ref))
+    if len(both) > 1:
+        dv = np.asarray([port[s] - ref[s] for s in both])
+        print("PAIRED " + json.dumps({"n": len(both), "delta": float(dv.mean()),
+                                      "se": float(dv.std(ddof=1) / math.sqrt(len(dv)))}))
 
 
 def carried(args, d, lockstep: bool = False):
@@ -371,7 +402,14 @@ def main() -> int:
     p.add_argument("--seeds", default="42-73")
     p.add_argument("--rows", type=int, default=400000)
     p.add_argument("--data_root", default=os.path.join(tempfile.gettempdir(), "mfp_probe"))
+    p.add_argument("--package", choices=("both", "port", "map_tpu"), default="both",
+                   help="`runs`: which package's CLI runs (the two sides as separate jobs)")
+    p.add_argument("--pool", default="",
+                   help="comma-separated files of `runs` lines: print their SUMMARY and stop")
     args = p.parse_args()
+    if args.pool:
+        pool(args)
+        return 0
     d = data_dir(args.data_root, args.rows)
     if args.mode == "lockstep":
         carried(args, d, lockstep=True)
