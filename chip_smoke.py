@@ -125,8 +125,9 @@ each; any failure ends the run with a nonzero exit code.
    tables twice a step; FGCNN's running statistics held beside the
    parameters); for the seven pretrain-capable ones 5 MFP per-position
    steps the same way and the finetune restore's counts from an MFP
-   checkpoint (FGCNN's running statistics restored); for DNN, AutoInt and
-   FGCNN 5 RFD steps under bwd_pallas (K6b a table a step); its supervised
+   checkpoint (FGCNN's running statistics restored) and 5 RFD steps under
+   bwd_pallas (K6b a field-blocked table a step: DeepFM's LR table goes
+   through K3 whole); its supervised
    bf16 cell on both paths (`path_time`, the 16-step bit check over
    parameters and buffers, the launches counted from 0 before it);
    `Predictor` rows/s at batch 10000 in bf16 (FGCNN from its running
@@ -173,6 +174,18 @@ each; any failure ends the run with a nonzero exit code.
    before it; the finetune counts (13, 4); 5 steps of each stage's mode on
    this data (supervised, MFP under `matmul` and `bwd_pallas`, K6b among
    its kernels, RFD) through the kernels against the plain versions;
+10b'. the zoo's validation (`zoo_validation_phase`): synthazu in memory
+   (120,000 rows from data seed 7), each of the nine other models' stages
+   (`validate.model_stages`: the five, or `scratch` alone for LR and FM) at
+   seed 42 at `validate.ZOO_KNOBS`' widths through `validate.run_stage`
+   (bf16, the graph path): each stage's metric and loss beside map_tpu's
+   mean rerun on the CPU (`validate.MAP_TPU_ZOO_CPU_BAND`, seeds 42-45 or
+   more where a pair was taken further),
+   failing only outside twice the single-run band; each stage's launches,
+   from 0 before it: K1 once a step, K4 at least once a batch (twice in
+   MFP: the decoder's candidates), K2 never, K5 and K8 once an MFP step;
+   the finetunes' counts (4 skipped: the pretraining head); the phase's
+   seconds;
 10c. resume (`resume_phase`), on the graph path in bf16, supervised DCNv2
    and MFP per-position (the stages' flags, 2 epochs; MFP's positions
    'randint'): for MFP two straight runs from one seed, parameters,
@@ -1655,34 +1668,14 @@ def rfd_phase(args, dev, cfg, data, reset_counts, read_counts) -> dict:
     return dict(launches=launches, ckpt=ckpt, work=work)
 
 
-# the zoo at full width: map_tpu's model defaults (the reference's
-# code/arguments.py) on the canonical DCNv2 scripts' shared settings (24
-# fields, embed 16, batch 4096, the MLP 3 x 1000 of run_DCNv2_*.sh)
-ZOO_KNOBS = {
-    "lr": {},
-    "fm": {},
-    "dnn": {},
-    "deepfm": {},
-    "xdeepfm": dict(cin_layer_units="50,50"),
-    "autoint": dict(num_attn_layers=2, attn_size=40, num_attn_heads=1,
-                    attn_probs_dropout_rate=0.1),
-    "trans": dict(hidden_size=EMBED, num_hidden_layers=3, num_attn_heads=2,
-                  intermediate_size=128, output_reduction="attn,fc", norm_first=False,
-                  layer_norm_eps=1e-12),
-    # 3 GNN rounds (num_hidden_layers, the canonical 3), no residual, a
-    # GraphLayer a round
-    "fignn": dict(num_hidden_layers=3, res_conn=False, reuse_graph_layer=False),
-    # the default conv stack (24 fields -> 12, 6, 3, 2 rows; 93 fields in
-    # all, final_dim 5,766) beside a table of its own, then the MLP 3 x 1000
-    "fgcnn": dict(share_embedding=False, channels="14,16,18,20", kernel_heights="7,7,7,7",
-                  pooling_sizes="2,2,2,2", recombined_channels="3,3,3,3", conv_act="tanh"),
-}
-ZOO_PRETRAIN = ("dnn", "deepfm", "xdeepfm", "autoint", "trans", "fignn", "fgcnn")
-ZOO_RFD = ("dnn", "autoint", "fgcnn")
 # tables a model gathers from and scatters into a step: FM's and DeepFM's
 # LR table beside the embedding, FGCNN's fg_embed beside it (K4, K3 and,
 # under bwd_pallas, K6b once a table)
 ZOO_TABLES = {"fm": 2, "deepfm": 2, "fgcnn": 2}
+# the field-blocked tables (E = 16) among them, whose gradient K6b takes
+# under bwd_pallas: FGCNN's two; the LR table (E = 1) of FM and DeepFM goes
+# through K3 whole, as map_tpu's LRLayer takes its rows with `jnp.take`
+ZOO_BLOCKED_TABLES = {"fgcnn": 2}
 
 
 def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
@@ -1695,17 +1688,20 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
     - the seven pretrain-capable ones: 5 MFP per-position steps the same
       way (phase 8's noise, batches and draws), and the finetune restore's
       loaded / skipped counts from an MFP checkpoint of the model;
-    - DNN, AutoInt and FGCNN: 5 RFD steps under bwd_pallas the same way,
-      K6b once a table a step;
+    - the seven pretrain-capable ones: 5 RFD steps under bwd_pallas the
+      same way, K6b once a field-blocked table a step;
     - the two paths of its supervised bf16 cell (`path_phase`: wall, busy
       and idle a step, the 16-step bit check over parameters and buffers,
       the launches, counted from 0 before it);
     - `Predictor` over --rows rows at batch 10000 in bf16: rows/s, its first
       chunk's logits against the plain versions'.
-    Returns {model: its graph path's launches} for the kernels line."""
+    The models' knobs are `validate.ZOO_KNOBS`, which the zoo's validation
+    runs too. Returns {model: its graph path's launches} for the kernels
+    line."""
     import torch
 
     from map_tpu_torch import models
+    from map_tpu_torch.validate import SUPERVISED_ONLY, ZOO_KNOBS
     from map_tpu_torch.config import TrainingArguments
     from map_tpu_torch.data.loader import Batcher
     from map_tpu_torch.objectives.corruption import draw_rfd, mask_num_of
@@ -1765,7 +1761,7 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
                          "versions", dname, LR, k_loss, p_loss, k_params, p_params, fresh(c))
             del k_params, p_params
 
-        if name in ZOO_PRETRAIN:
+        if name not in SUPERVISED_ONLY:
             # 5 MFP steps, kernels against plain versions
             for dname in ("bfloat16", "float32"):
                 c = dataclasses.replace(
@@ -1812,7 +1808,7 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
             del ft, sd, restored
             shutil.rmtree(ckpt_dir, ignore_errors=True)
 
-        if name in ZOO_RFD:
+        if name not in SUPERVISED_ONLY:
             for dname in ("bfloat16", "float32"):
                 c = dataclasses.replace(zc, compute_dtype=dname, pretrain=True,
                                         pt_type="RFD", RFD_replace="Unigram",
@@ -1820,9 +1816,10 @@ def zoo_phase(args, dev, cfg, data, mfp, reset_counts, read_counts) -> dict:
                 (k_loss, k_params, launched), (p_loss, p_params, _) = (
                     rfd_steps(dev, c, rfd_targs, rfd_batches, rfd_draws, read_counts,
                               seed=args.seed, plain=plain) for plain in (False, True))
-                tables = ZOO_TABLES.get(name, 1)
-                check(f"zoo {name} rfd {dname}: K6b launched {tables}x a step (a table "
-                      "each)", launched["field_block_scatter"] == tables * PARITY_STEPS,
+                tables = ZOO_BLOCKED_TABLES.get(name, 1)
+                check(f"zoo {name} rfd {dname}: K6b launched {tables}x a step (a "
+                      "field-blocked table each)",
+                      launched["field_block_scatter"] == tables * PARITY_STEPS,
                       launched=launched)
                 parity_check(f"zoo {name} rfd {dname}: {PARITY_STEPS} steps, kernels vs "
                              "plain versions", dname, MFP_LR, k_loss, p_loss, k_params,
@@ -2028,6 +2025,89 @@ def validation_phase(args, dev, reset_counts, read_counts) -> dict:
     parity_check(f"validation rfd: {PARITY_STEPS} steps on synthazu, kernels vs plain",
                  "bfloat16", MFP_LR, k_loss, p_loss, k_params, p_params, p0(rfd.config))
     return {"launches": total, "data": data, "trainers": trainers, "work": work}
+
+
+def zoo_stage_launches_ok(kind: str, launches: dict, steps: int, batches: int,
+                          k1_per_step: int) -> bool:
+    """A zoo validation stage's launches: K1 once a step, K4 at least once a
+    batch (twice in MFP), K2 never (DCNv2's alone), K5 and K8 once an MFP
+    step and never otherwise."""
+    mfp = kind == "mfp"
+    return (launches["fused_adamw"] == steps * k1_per_step
+            and launches["embedding_gather"] >= (2 if mfp else 1) * batches
+            and launches["cross_net"] == 0
+            and launches["scatter_unique_sorted"] == (steps if mfp else 0)
+            and launches["block_cumsum"] == (steps if mfp else 0))
+
+
+def zoo_validation_phase(args, dev, reset_counts, read_counts) -> dict:
+    """10b'. Each zoo model's validation stages at seed 42 on 120,000
+    synthazu rows through `validate.run_stage` (bf16, the graph path): each
+    stage's metric and loss beside map_tpu's CPU band
+    (`validate.MAP_TPU_ZOO_CPU_BAND`), failing only outside twice the
+    single-run band; its launches (`zoo_stage_launches_ok`); the finetune
+    counts. Returns the launches summed over the stages."""
+    import torch
+
+    from map_tpu_torch import validate
+    from map_tpu_torch.data import synth
+
+    t0 = time.perf_counter()
+    data = synth.in_memory(synth.generate_realistic_arrays(
+        num_rows=validate.ZOO_ROWS, seed=validate.DATA_SEED), pretrain=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_zoo_validation_")
+    total, stages_run = {}, 0
+    for model in validate.ZOO_KNOBS:
+        bands_of = validate.MAP_TPU_ZOO_CPU_BAND[model]
+        for stage in validate.plan(validate.model_stages(model), model=model):
+            reset_counts()
+            line, trainer = validate.run_stage(stage, VALIDATION_SEED, data, work, None, {},
+                                               model)
+            launches = trainer.launches_run(read_counts())
+            epochs = trainer.args.num_train_epochs
+            evals = sum(-(-len(data.Y[s]) // trainer.args.eval_batch_size)
+                        for s in (["valid"] * epochs + (["test"] if stage.kind == "supervised"
+                                                        else [])))
+            k1 = k1_launches_a_step(trainer.optimizer)
+            bands = []
+            for name, value, (mean, std, n, eps) in zip(
+                    validate.METRICS[stage.kind], (line["metric"], line["loss"]),
+                    validate.reference_rows(stage, bands_of)):
+                band = validate.single_run_band(std, n, eps)
+                bands.append(dict(metric=name, port=value, map_tpu_mean=mean,
+                                  map_tpu_std=std, map_tpu_n=n, delta=value - mean,
+                                  band=band, within_band=abs(value - mean) <= band))
+            emit("zoo_validation", card=smi_line(), **line, bands=bands, launches=launches,
+                 evals=evals, k1_per_step=k1, graphs=graph_replays(trainer))
+            check(f"zoo validation {model} {stage.name}: metric and loss beside map_tpu's "
+                  "CPU band", len(bands) == 2, bands=bands)
+            for b in bands:
+                check(f"zoo validation {model} {stage.name}: {b['metric']} within twice the "
+                      "single-run band of map_tpu's mean", abs(b["delta"]) <= 2 * b["band"],
+                      **b)
+            check(f"zoo validation {model} {stage.name}: launches (K1 once a step, K4 at "
+                  "least once a batch, no K2, K5 and K8 once an MFP step)",
+                  zoo_stage_launches_ok(stage.kind, launches, line["steps"],
+                                        line["steps"] + evals, k1),
+                  launches=launches, steps=line["steps"], evals=evals)
+            if stage.source:
+                check(f"zoo validation {model} {stage.name}: the finetune restored the "
+                      "backbone, the pretraining head's 4 tensors skipped",
+                      trainer.finetune_counts[0] > 0 and trainer.finetune_counts[1] == 4,
+                      loaded_skipped=trainer.finetune_counts)
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            stages_run += 1
+            del trainer
+        shutil.rmtree(os.path.join(work, f"s{VALIDATION_SEED}"), ignore_errors=True)
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    emit("zoo_validation_phase", models=len(validate.ZOO_KNOBS), stages=stages_run,
+         rows=validate.ZOO_ROWS, seconds=seconds, launches=total, card=smi_line())
+    check("zoo validation: 37 stages of the nine models", stages_run == 37,
+          stages=stages_run)
+    return total
 
 
 class FirstEpochOnly:
@@ -4329,6 +4409,7 @@ def main(argv=None) -> int:
 
     # 10b-10d. same-data validation, resume, the streaming eval and profile_steps
     val = validation_phase(args, dev, reset_counts, read_counts)
+    zoo_val = zoo_validation_phase(args, dev, reset_counts, read_counts)
     resume_phase(args, dev, val)
     streaming_phase(args, dev, val)
     grouped_eval = grouped_eval_phase(args, dev, val, reset_counts, read_counts)
@@ -4360,6 +4441,7 @@ def main(argv=None) -> int:
     by_path = {name: {"dcnv2 rfd bwd_pallas / mfp pf-shared": n,
                       **{f"zoo {m} graph": zoo[m][name] for m in zoo},
                       "validation synthazu, five stages": val["launches"][name],
+                      "zoo validation synthazu, nine models' stages": zoo_val.get(name, 0),
                       "grouped eval synthazu, four kinds x two dtypes": grouped_eval[name],
                       "serving dcnv2 pipelined, two dtypes": sum(
                           v[name] for v in serving_launches.values()),

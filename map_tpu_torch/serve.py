@@ -145,7 +145,7 @@ class Predictor:
     def _capture(self) -> None:
         """The forward as a CUDA graph of static inputs and output, after one
         eager call on a side stream (the warm-up PyTorch asks for)."""
-        from map_tpu_torch.train.graph import launch_counts
+        from map_tpu_torch.train.graph import launch_counts, no_collection
 
         self._static_in = [torch.zeros(shape, dtype=torch.from_numpy(np.empty(0, dt)).dtype,
                                        device=self.device) for shape, dt in self._blocks]
@@ -158,7 +158,7 @@ class Predictor:
             main.wait_stream(side)
             before = launch_counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with no_collection(), torch.cuda.graph(self.graph):
                 self._static_out = self._forward(self._static_in)
         after = launch_counts()
         self.captured = {k: after[k] - before[k] for k in after}

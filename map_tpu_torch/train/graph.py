@@ -38,6 +38,12 @@ stacked the same way, each step's in row j of a (n, ...) tensor:
   the parameters: FGCNN's BatchNorm running statistics move on every
   replayed step, as on every eager one.
 - A capture that fails raises; nothing runs eagerly in its place on the card.
+- Python's cyclic garbage collector is held off while a graph is captured
+  (`no_collection`), after one collection: a dead object's graph freed
+  inside another capture invalidates it (its destructor destroys a graph,
+  which a capture forbids), and PyTorch no longer collects before a
+  capture. A process that builds Trainer after Trainer (`validate.py`'s
+  stages) met it on the card.
 - With K = 1 on the card, or on the CPU, a call runs its n steps eagerly,
   one by one: the plain path, which gives the same results as n single
   steps.
@@ -51,6 +57,8 @@ launches times its replays) turn the counters into the launches that ran:
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -64,6 +72,22 @@ Metrics = Dict[str, torch.Tensor]
 # work: a capture forbids other threads calls that may synchronize (the
 # pinned allocator queries events), so the copies wait while it runs.
 CUDA_WORK = threading.Lock()
+
+
+@contextlib.contextmanager
+def no_collection():
+    """The cyclic garbage collector held off inside the block, after one
+    collection: a CUDA graph that a dead reference cycle holds is freed
+    before a capture, never inside it (freeing a graph there invalidates
+    the capture)."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -177,7 +201,7 @@ class GraphedCalls:
         for gen in self.generators:
             graph.register_generator_state(gen)
         before = launch_counts()
-        with CUDA_WORK, torch.cuda.graph(graph):
+        with CUDA_WORK, no_collection(), torch.cuda.graph(graph):
             outputs = self._capture_calls(n, inputs)
         after = launch_counts()
         launches = {k: after[k] - before[k] for k in after}

@@ -1,7 +1,7 @@
 """Same-data validation: the five stages of map_tpu's certification on the
 synthazu set, through the port's Trainer, held to map_tpu's seed band.
 
-    python -m map_tpu_torch.validate [--seeds 42,43,44,45]
+    python -m map_tpu_torch.validate [--model dcnv2] [--seeds 42,43,44,45]
         [--stages scratch,mfp,rfd,finetune,finetune_rfd] [--rows 400000]
         [--mfp_modes matmul,fwd,bwd_pallas] [--pf_shared]
         [--output_dir validate_out] [--device cpu]
@@ -36,6 +36,12 @@ The port's counterpart of `validation/gen_data.py` + `validation/run_tpu.sh`
   of `tests/test_multiseed_parity.py:8-11`; for the `mfp` stage a second
   table against map_tpu's band rerun on the CPU (`MAP_TPU_CPU_BAND`); then
   one JSON line of the rows (`validate_rows`, `validate_rows_map_tpu_cpu`).
+
+`--model` runs the same stages for any of map_tpu's ten models, at
+`ZOO_KNOBS`' widths (map_tpu's model defaults on the DCNv2 scripts' shared
+settings), on 120,000 rows by default, held to map_tpu's band rerun on the
+CPU at that size (`MAP_TPU_ZOO_CPU_BAND`); LR and FM run `scratch` alone
+and refuse the pretraining stages, as map_tpu's models do.
 
 `--rows`, `--vocab_sizes`, `--batch` and the widths are there for quick runs
 (the CPU tests run the five stages on a few thousand rows), and
@@ -83,6 +89,72 @@ MAP_TPU_BAND = {
 # runs --package map_tpu --seeds 42-57 --rows 400000`): a second comparison,
 # recorded beside MAP_TPU_BAND, which stays the verdict
 MAP_TPU_CPU_BAND = {"mfp": ((0.728742, 0.002274, 16), (1.378617, 0.007748, 16))}
+# map_tpu's band for the rest of the zoo, rerun by its current code on the
+# JAX CPU backend (f32, 120,000 rows, seeds 42-45, each model at ZOO_KNOBS;
+# `python tests/torch_port_zoo_probe.py runs --package map_tpu --model NAME
+# --seeds 42-45 --rows 120000`, then `bands --pool` of the jobs' logs; FGCNN
+# with `--one_step_calls` but in `scratch`, the same math): model -> stage ->
+# ((mean, std, n) of its metric, of its loss). The rows marked with more
+# seeds were taken further on both sides: DNN's, DeepFM's and xDeepFM's
+# `mfp` and FiGNN's `scratch` fell outside the rule at 42-45, and FGCNN's
+# `scratch` spread 0.0004 in AUC there against 0.0066 at 42-49
+MAP_TPU_ZOO_CPU_BAND: Dict[str, Dict] = {
+    "lr": {
+        "scratch": ((0.512045, 0.048532, 4), (1.794174, 0.242364, 4)),
+    },
+    "fm": {
+        "scratch": ((0.518754, 0.035618, 4), (1.876187, 0.207610, 4)),
+    },
+    "dnn": {
+        "scratch": ((0.731386, 0.001417, 4), (0.424189, 0.000520, 4)),
+        "mfp": ((0.377865, 0.004976, 8), (2.970527, 0.008412, 8)),  # seeds 42-49
+        "rfd": ((0.757639, 0.000118, 4), (0.553211, 0.000124, 4)),
+        "finetune": ((0.732684, 0.001490, 4), (0.422747, 0.000846, 4)),
+        "finetune_rfd": ((0.733258, 0.001415, 4), (0.422798, 0.000982, 4)),
+    },
+    "deepfm": {
+        "scratch": ((0.609048, 0.018281, 4), (1.258167, 0.016241, 4)),
+        "mfp": ((0.373711, 0.006266, 8), (2.986724, 0.007330, 8)),  # seeds 42-49
+        "rfd": ((0.757639, 0.000118, 4), (0.553450, 0.000093, 4)),
+        "finetune": ((0.614930, 0.013112, 4), (1.245521, 0.016055, 4)),
+        "finetune_rfd": ((0.620466, 0.018305, 4), (1.284688, 0.030234, 4)),
+    },
+    "xdeepfm": {
+        "scratch": ((0.729862, 0.000980, 4), (0.424500, 0.000589, 4)),
+        "mfp": ((0.382080, 0.005861, 8), (2.955875, 0.007422, 8)),  # seeds 42-49
+        "rfd": ((0.757639, 0.000118, 4), (0.553143, 0.000105, 4)),
+        "finetune": ((0.731351, 0.001313, 4), (0.423606, 0.000959, 4)),
+        "finetune_rfd": ((0.729769, 0.001160, 4), (0.424336, 0.000870, 4)),
+    },
+    "autoint": {
+        "scratch": ((0.519462, 0.013917, 4), (0.581966, 0.019777, 4)),
+        "mfp": ((0.348402, 0.011352, 4), (2.997805, 0.016611, 4)),
+        "rfd": ((0.757639, 0.000118, 4), (0.556691, 0.000271, 4)),
+        "finetune": ((0.520467, 0.034440, 4), (0.478658, 0.004466, 4)),
+        "finetune_rfd": ((0.522007, 0.022667, 4), (0.523404, 0.023642, 4)),
+    },
+    "trans": {
+        "scratch": ((0.573250, 0.037163, 4), (0.475000, 0.003886, 4)),
+        "mfp": ((0.411295, 0.005719, 4), (2.898306, 0.008381, 4)),
+        "rfd": ((0.757639, 0.000118, 4), (0.553657, 0.000166, 4)),
+        "finetune": ((0.567562, 0.045847, 4), (0.476604, 0.005115, 4)),
+        "finetune_rfd": ((0.575171, 0.029247, 4), (0.474855, 0.003187, 4)),
+    },
+    "fignn": {
+        "scratch": ((0.575529, 0.022486, 10), (0.478804, 0.002283, 10)),  # seeds 42-51
+        "mfp": ((0.343491, 0.004330, 4), (3.011893, 0.008149, 4)),
+        "rfd": ((0.757639, 0.000118, 4), (0.553781, 0.000122, 4)),
+        "finetune": ((0.557172, 0.054361, 4), (0.499810, 0.043378, 4)),
+        "finetune_rfd": ((0.538909, 0.026614, 4), (0.477035, 0.004993, 4)),
+    },
+    "fgcnn": {
+        "scratch": ((0.728466, 0.006575, 8), (0.428088, 0.004536, 8)),  # seeds 42-49
+        "mfp": ((0.443667, 0.009459, 4), (2.939632, 0.032075, 4)),
+        "rfd": ((0.757639, 0.000118, 4), (0.553135, 0.000106, 4)),
+        "finetune": ((0.734762, 0.002207, 4), (0.421846, 0.001279, 4)),
+        "finetune_rfd": ((0.730364, 0.005048, 4), (0.428801, 0.010534, 4)),
+    },
+}
 # map_tpu's single seed-42 finetune runs after per-field shared pretraining
 # (validation/README.md:185-192, CPU backend): the finetune std above
 # stands for their run-to-run spread
@@ -102,6 +174,34 @@ MFP = dict(PRETRAIN, pt_type="MFP")
 RFD = dict(PRETRAIN, pt_type="RFD", RFD_replace="Unigram")
 BASE_STAGES = ("scratch", "mfp", "rfd", "finetune", "finetune_rfd")
 MFP_MODES = ("matmul", "fwd", "bwd_pallas")
+
+# the zoo at full width: map_tpu's model defaults (the reference's
+# code/arguments.py) on the canonical DCNv2 scripts' shared settings (24
+# fields, embed 16, batch 4096, the MLP 3 x 1000 of run_DCNv2_*.sh); the
+# attention dropout of AutoInt stays at its default 0.1
+ZOO_KNOBS = {
+    "lr": {},
+    "fm": {},
+    "dnn": {},
+    "deepfm": {},
+    "xdeepfm": dict(cin_layer_units="50,50"),
+    "autoint": dict(num_attn_layers=2, attn_size=40, num_attn_heads=1,
+                    attn_probs_dropout_rate=0.1),
+    "trans": dict(hidden_size=COMMON_MODEL["embed_size"], num_hidden_layers=3,
+                  num_attn_heads=2, intermediate_size=128, output_reduction="attn,fc",
+                  norm_first=False, layer_norm_eps=1e-12),
+    # 3 GNN rounds (num_hidden_layers, the canonical 3), no residual, a
+    # GraphLayer a round
+    "fignn": dict(num_hidden_layers=3, res_conn=False, reuse_graph_layer=False),
+    # the default conv stack (24 fields -> 12, 6, 3, 2 rows; 93 fields in
+    # all, final_dim 5,766) beside a table of its own, then the MLP 3 x 1000
+    "fgcnn": dict(share_embedding=False, channels="14,16,18,20", kernel_heights="7,7,7,7",
+                  pooling_sizes="2,2,2,2", recombined_channels="3,3,3,3", conv_act="tanh"),
+}
+MODELS = ("dcnv2", *ZOO_KNOBS)
+# LR and FM have no pretraining head (map_tpu/models/zoo.py:101-117)
+SUPERVISED_ONLY = ("lr", "fm")
+ZOO_ROWS = 120_000  # the zoo's band size (DCNv2's is 400,000)
 
 
 class Stage(NamedTuple):
@@ -143,10 +243,20 @@ def _stages() -> Dict[str, Stage]:
 STAGES = _stages()
 
 
-def plan(stages: Sequence[str], mfp_modes: Sequence[str] = (), pf_shared: bool = False
-         ) -> List[Stage]:
+def model_stages(model: str) -> Tuple[str, ...]:
+    """The stages `model` runs: the five, or `scratch` alone for LR and FM."""
+    if model not in MODELS:
+        raise ValueError(f"--model: {model} is not one of {MODELS}")
+    return ("scratch",) if model in SUPERVISED_ONLY else BASE_STAGES
+
+
+def plan(stages: Sequence[str], mfp_modes: Sequence[str] = (), pf_shared: bool = False,
+         model: str = "dcnv2") -> List[Stage]:
     """The stages to run, in an order where each source runs before the
-    finetune that reads it (a finetune's source is added if missing)."""
+    finetune that reads it (a finetune's source is added if missing). LR and
+    FM refuse every stage that pretrains or reads a pretraining, as map_tpu's
+    models refuse `--pretrain`."""
+    model_stages(model)
     names = list(stages)
     for mode in mfp_modes:
         if mode not in MFP_MODES:
@@ -159,6 +269,11 @@ def plan(stages: Sequence[str], mfp_modes: Sequence[str] = (), pf_shared: bool =
         if name not in STAGES:
             raise ValueError(f"unknown stage {name}: one of {sorted(STAGES)}")
     names += [STAGES[n].source for n in names if STAGES[n].source]
+    if model in SUPERVISED_ONLY:
+        for n in names:
+            if STAGES[n].kind != "supervised" or STAGES[n].source:
+                raise ValueError(f"stage {n}: {model.upper()} is not pretrain-capable "
+                                 "(reference parity)")
     ordered = list(dict.fromkeys(names))  # first occurrence, deduplicated
     return ([STAGES[n] for n in ordered if STAGES[n].source is None]
             + [STAGES[n] for n in ordered if STAGES[n].source is not None])
@@ -185,11 +300,17 @@ def stage_result(run_dir: str, kind: str) -> Tuple[float, float]:
     return float(last[metric]), float(last[loss])
 
 
+def model_flags(model: str = "dcnv2") -> Dict:
+    """The ModelArguments fields every stage of `model` shares."""
+    return {**COMMON_MODEL, "model_name": model, **ZOO_KNOBS.get(model, {})}
+
+
 def stage_args(stage: Stage, seed: int, out_root: str, device: Optional[str] = None,
-               overrides: Optional[Dict] = None
+               overrides: Optional[Dict] = None, model: str = "dcnv2"
                ) -> Tuple[ModelArguments, TrainingArguments]:
-    """The stage's flags at `seed`, its run in `{out_root}/s{seed}/{name}`; a
-    finetune reads its source's newest checkpoint there."""
+    """The stage's flags for `model` at `seed`, its run in
+    `{out_root}/s{seed}/{name}`; a finetune reads its source's newest
+    checkpoint there."""
     overrides = overrides or {}
     train_kw = {**COMMON_TRAIN, **stage.train, **overrides.get("train", {})}
     if stage.source:
@@ -197,15 +318,16 @@ def stage_args(stage: Stage, seed: int, out_root: str, device: Optional[str] = N
             os.path.join(out_root, f"s{seed}", stage.source)))
     targs = TrainingArguments(output_dir=os.path.join(out_root, f"s{seed}", stage.name),
                               seed=seed, device=device, **train_kw)
-    margs = ModelArguments(**{**COMMON_MODEL, **stage.model, **overrides.get("model", {})})
+    margs = ModelArguments(**{**model_flags(model), **stage.model,
+                              **overrides.get("model", {})})
     return margs, targs
 
 
 def run_stage(stage: Stage, seed: int, dataset, out_root: str, device: Optional[str],
-              overrides: Dict) -> Tuple[Dict, Trainer]:
-    """One stage at one seed through the Trainer -> (its result line, the
-    Trainer)."""
-    margs, targs = stage_args(stage, seed, out_root, device, overrides)
+              overrides: Dict, model: str = "dcnv2") -> Tuple[Dict, Trainer]:
+    """One stage of `model` at one seed through the Trainer -> (its result
+    line, the Trainer)."""
+    margs, targs = stage_args(stage, seed, out_root, device, overrides, model)
     run_dir = targs.output_dir
     shutil.rmtree(run_dir, ignore_errors=True)
     os.makedirs(run_dir)
@@ -218,8 +340,8 @@ def run_stage(stage: Stage, seed: int, dataset, out_root: str, device: Optional[
     try:
         config = build_config(margs, targs, dataset)
         config.save(run_dir)
-        model = models.from_config(config, stream_generator(seed, "init"))
-        trainer = Trainer(model, config, targs, dataset)
+        net = models.from_config(config, stream_generator(seed, "init"))
+        trainer = Trainer(net, config, targs, dataset)
         if stage.kind == "mfp":
             trainer.MFP_pretrain()
         elif stage.kind == "rfd":
@@ -234,8 +356,8 @@ def run_stage(stage: Stage, seed: int, dataset, out_root: str, device: Optional[
         root.handlers, root.level = saved[1], saved[0]
     wall = time.perf_counter() - t0
     metric, loss = stage_result(run_dir, stage.kind)
-    return {"stage": stage.name, "seed": seed, "kind": stage.kind, "metric": metric,
-            "loss": loss, "steps": trainer.global_step, "wall_s": wall,
+    return {"model": model, "stage": stage.name, "seed": seed, "kind": stage.kind,
+            "metric": metric, "loss": loss, "steps": trainer.global_step, "wall_s": wall,
             "finetune_counts": trainer.finetune_counts, "source": stage.source}, trainer
 
 
@@ -322,9 +444,12 @@ def _ints(text: str) -> List[int]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="dcnv2", choices=MODELS)
     ap.add_argument("--seeds", default="42,43,44,45")
-    ap.add_argument("--stages", default=",".join(BASE_STAGES))
-    ap.add_argument("--rows", type=int, default=400_000)
+    ap.add_argument("--stages", default="", help="default: the model's stages (the five; "
+                    "scratch alone for LR and FM)")
+    ap.add_argument("--rows", type=int, default=0, help="default: 400,000 for DCNv2, "
+                    "120,000 for the rest of the zoo (the rows of their bands)")
     ap.add_argument("--mfp_modes", default="")
     ap.add_argument("--pf_shared", action="store_true")
     ap.add_argument("--output_dir", default="validate_out")
@@ -332,27 +457,30 @@ def main(argv=None) -> int:
     ap.add_argument("--vocab_sizes", default="", help="per-field ids (default: map_tpu's "
                     "AVAZU_LIKE_VOCABS)")
     ap.add_argument("--batch", type=int, default=0, help="train and eval batch (default 4096)")
-    ap.add_argument("--hidden_size", type=int, default=0, help="MLP width (default 1000)")
+    ap.add_argument("--hidden_size", type=int, default=0, help="MLP width (default 1000; "
+                    "the Transformer keeps its hidden width = embed)")
     ap.add_argument("--compute_dtype", default="", help="float32 for a control run "
                     "(default: the flag's default, bfloat16, map_tpu's)")
     args = ap.parse_args(argv)
 
-    stages = plan([s for s in args.stages.split(",") if s],
-                  [m for m in args.mfp_modes.split(",") if m], args.pf_shared)
+    model = args.model
+    stages = plan([s for s in args.stages.split(",") if s] or model_stages(model),
+                  [m for m in args.mfp_modes.split(",") if m], args.pf_shared, model)
+    rows = args.rows or (400_000 if model == "dcnv2" else ZOO_ROWS)
     overrides: Dict[str, Dict] = {"train": {}, "model": {}}
     if args.batch:
         overrides["train"].update(per_device_train_batch_size=args.batch,
                                   per_device_eval_batch_size=args.batch)
-    if args.hidden_size:
+    if args.hidden_size and model != "trans":
         overrides["model"]["hidden_size"] = args.hidden_size
     if args.compute_dtype:
         overrides["train"]["compute_dtype"] = args.compute_dtype
     t0 = time.perf_counter()
     arrays = synth.generate_realistic_arrays(
-        num_rows=args.rows, seed=DATA_SEED,
+        num_rows=rows, seed=DATA_SEED,
         vocab_sizes=_ints(args.vocab_sizes) or None)
     dataset = synth.in_memory(arrays, pretrain=True)
-    print(json.dumps({"data": "synthazu", "rows": args.rows, "seed": DATA_SEED,
+    print(json.dumps({"data": "synthazu", "rows": rows, "seed": DATA_SEED,
                       "input_size": dataset.input_size, "num_fields": dataset.num_fields,
                       "train_rows": len(dataset.Y["train"]),
                       "positive_rate": float(arrays.labels.mean()),
@@ -360,17 +488,24 @@ def main(argv=None) -> int:
     results = []
     for seed in _ints(args.seeds):
         for stage in stages:
-            r, _ = run_stage(stage, seed, dataset, args.output_dir, args.device, overrides)
+            r, _ = run_stage(stage, seed, dataset, args.output_dir, args.device, overrides,
+                             model)
             results.append(r)
             print(json.dumps(r), flush=True)
-    rows = table(results, stages)
-    print_table(rows)
+    if model != "dcnv2":  # the zoo's one band: map_tpu's, rerun on the CPU
+        zoo_rows = table(results, stages, MAP_TPU_ZOO_CPU_BAND.get(model, {}))
+        print(f"{model} against map_tpu's CPU band (MAP_TPU_ZOO_CPU_BAND):")
+        print_table(zoo_rows)
+        print(json.dumps({"model": model, "validate_rows": zoo_rows}), flush=True)
+        return 0
+    table_rows = table(results, stages)
+    print_table(table_rows)
     cpu_rows = table(results, [s for s in stages if s.band in MAP_TPU_CPU_BAND],
                      MAP_TPU_CPU_BAND)
     if cpu_rows:
         print("against map_tpu's CPU rerun (MAP_TPU_CPU_BAND):")
         print_table(cpu_rows)
-    print(json.dumps({"validate_rows": rows, "validate_rows_map_tpu_cpu": cpu_rows}),
+    print(json.dumps({"validate_rows": table_rows, "validate_rows_map_tpu_cpu": cpu_rows}),
           flush=True)
     return 0
 

@@ -1147,6 +1147,45 @@ def test_graph_replays_draw_anew_as_eager_steps_do(dev):
     assert opt.count == 8
 
 
+def test_a_dead_graph_in_a_cycle_does_not_break_a_capture(dev):
+    """A CUDA graph that a dead reference cycle holds is freed before the
+    next capture, not inside it: a collection inside the capture (the
+    collector may run at any allocation) finds nothing to free, and the
+    capture holds. Without `graph.no_collection` the graph freed there
+    invalidates the capture (cudaErrorStreamCaptureInvalidated), as
+    `validate.py --model xdeepfm` met on the card at its 11th stage."""
+    import gc
+
+    from map_tpu_torch.train.graph import GraphedCalls
+
+    x = {"x": torch.ones(2, 8, device=dev)}
+
+    def dead_cycle_with_a_graph():
+        held = GraphedCalls(lambda b: {"y": b["x"] * 2}, 2, dev)
+        held.cycle = held  # a reference cycle, as a Trainer's objects form
+        held(2, x)  # the warm-up
+        held(2, x)  # a capture
+        assert held.graphs[2].replays == 1
+
+    def step(b):
+        gc.collect()  # what the collector may do at any allocation
+        return {"y": b["x"] + 1}
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        calls = GraphedCalls(step, 2, dev)
+        calls(2, x)  # the warm-up, eager: nothing dead to collect yet
+        dead_cycle_with_a_graph()
+        out = calls(2, x)  # the capture, then a replay
+        torch.cuda.synchronize()
+    finally:
+        if enabled:
+            gc.enable()
+    assert calls.graphs[2].replays == 1
+    assert torch.equal(out["y"], x["x"] + 1)
+
+
 def test_wrappers_launch_on_the_capture_stream(dev):
     """`build.current_stream`, the stream every wrapper launches on, is the
     capture stream while a graph is captured, and the launch lands in the

@@ -7,7 +7,7 @@ map_tpu's `export_state_dict` (flat and lane-packed tables) and FGCNN's
 running statistics against its `batch_stats`, the forward logits (1e-5 in
 f32, in eval mode and, for FGCNN and FiGNN, in train mode; a recorded bf16
 band), 5 supervised steps for every model, 5 MFP steps for the seven
-pretrain-capable ones and 5 RFD steps for DNN, AutoInt, FGCNN and FiGNN
+pretrain-capable ones and 5 RFD steps for the same seven
 (losses, parameters, Adam moments and BatchNorm running statistics at 1e-5
 in f32), the finetune restore's counts, the weight-decay rule, the
 registry, the refusals, the port's BatchNorm against flax's, and K steps a
@@ -552,7 +552,7 @@ def _rfd_runs(cfg):
 
 
 @pytest.mark.parametrize("mode", ["fwd", "bwd_pallas"])
-@pytest.mark.parametrize("name", ["dnn", "autoint", "fignn", "fgcnn"])
+@pytest.mark.parametrize("name", PRETRAIN)
 def test_rfd_steps_match_map_tpu_f32(name, mode, monkeypatch):
     from map_tpu.ops import hybrid_gather as jax_hg
     from map_tpu_torch.ops import hybrid_gather

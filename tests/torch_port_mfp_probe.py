@@ -264,16 +264,17 @@ def jax_eval_draws(jt, tt):
 
 
 def lockstep_train(jt, tt):
-    """The port's MFP run, step s with map_tpu's draws from fold_in(its step
-    key, s), on the Batcher's host batches, then its epochs' evals."""
+    """The port's MFP run, step s with map_tpu's draws from its corruption key
+    split(fold_in(its step key, s))[0] (map_tpu/train/train_step.py:452-453),
+    on the Batcher's host batches."""
     import jax
 
     batcher = tt._prepare_training()
     step = 0
     for epoch in range(int(tt.args.num_train_epochs)):
         for batch in batcher.epoch(epoch):
-            tt.train_step(batch, _map_tpu_draws(jt, jax.random.fold_in(jt._step_rng, step),
-                                                batch))
+            k_corrupt, _ = jax.random.split(jax.random.fold_in(jt._step_rng, step))
+            tt.train_step(batch, _map_tpu_draws(jt, k_corrupt, batch))
             tt.global_step += 1
             step += 1
 
